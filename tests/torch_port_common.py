@@ -1,0 +1,68 @@
+"""Shared set-up of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages; weights
+are initialised in JAX and carried to the port through the port's weight
+bridge (utils/weights.py), so both sides run the same numbers on the CPU.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import torch
+
+from counterfactualworldmodels_tpu.models import vmae as jvmae
+from counterfactualworldmodels_tpu_torch.models import fast_vmae as tfv
+from counterfactualworldmodels_tpu_torch.models import vmae as tvmae
+from counterfactualworldmodels_tpu_torch.utils import weights
+
+# the tiny configuration of tests/test_fast_vmae.py:_model
+SMALL_VMAE = dict(img_size=(32, 32), patch_size=(4, 4), encoder_embed_dim=64,
+                  encoder_depth=3, encoder_num_heads=4, decoder_embed_dim=32,
+                  decoder_depth=2, decoder_num_heads=2, num_frames=2,
+                  qkv_bias=True)
+
+# (prefix_pool, suffix_pool, gelu): the exact rung and the pooled rungs
+RUNGS = [(1, 1, 'erf'), (2, 2, 'tanh'), (4, 4, 'tanh')]
+
+
+def t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def vmae_pair(**kw):
+    """(jax model, jax params, port model, port FastParams on the CPU)."""
+    cfg = dict(SMALL_VMAE, **kw)
+    jm = jvmae.PretrainVisionTransformer(**cfg)
+    params = jvmae.init_params(jm, jax.random.PRNGKey(0))
+    tm = tvmae.PretrainVisionTransformer(**cfg)
+    sd = weights.vmae_state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, params), 3, tm.full_patch_size)
+    fp = tfv.stack_vmae_params(tm, sd, dtype=torch.float32, device='cpu')
+    return jm, params, tm, fp
+
+
+def workload(n_patches, n0, hw, s=3, counts=(5, 5, 5), seed=0):
+    """Counterfactual-shaped inputs: x_mocos [S,2,3,H,W] sharing frame 0,
+    masks [S,N] with frame 0 visible and counts[i] visible frame-1 tokens."""
+    rng = np.random.RandomState(seed)
+    n1 = n_patches - n0
+    x0 = rng.rand(1, 3, hw, hw).astype(np.float32)
+    x1 = x0 + 0.1 * rng.randn(s, 3, hw, hw).astype(np.float32)
+    x = np.concatenate([np.repeat(x0[:, None], s, 0), x1[:, None]], axis=1)
+    mask = np.ones((s, n_patches), dtype=bool)
+    mask[:, :n0] = False
+    for i in range(s):
+        mask[i, n0 + rng.choice(n1, counts[i], replace=False)] = False
+    return x, mask
+
+
+def jax_uniform_noise(keys, n):
+    """The rectangularizer's draws of the JAX package for these keys."""
+    return np.asarray(jax.vmap(
+        lambda k: jax.random.uniform(k, (n,), minval=0.0, maxval=0.999))(
+            keys))
+
+
+def assert_close(a, b, atol, rtol=0.0):
+    np.testing.assert_allclose(np.asarray(a, np.float64),
+                               np.asarray(b, np.float64), atol=atol, rtol=rtol)
+
