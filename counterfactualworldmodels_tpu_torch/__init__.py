@@ -12,5 +12,6 @@ Entry points run on the GPU unless the caller passes ``device='cpu'``.
 
 __version__ = '0.1.0'
 
-from . import kernels, masking, models, ops, pipelines, utils  # noqa: F401
+from . import (data, kernels, masking, models, ops, pipelines,  # noqa: F401
+               training, utils)
 from ._device import resolve_device  # noqa: F401

@@ -5,6 +5,8 @@
 //     (launched by _flash_bhnd; public entry flash_attention)       -- K1
 //   counterfactualworldmodels_tpu/ops/flash_attention.py:_flash2_kernel
 //     (launched by flash_attention_prefix)                           -- K2
+//   counterfactualworldmodels_tpu/ops/flash_attention.py:_flash_kernel_lse
+//     (launched by _flash_bhnd_lse; the training forward)            -- K5
 //
 // Contract. q [BH, Nq, D] is pre-scaled (softmax scale 1). Keys and values
 // come in one or two panels that share ONE softmax: panel 0 (k0/v0, N0
@@ -17,6 +19,12 @@
 // are float32 or bfloat16; scores, softmax statistics and the accumulator
 // are float32; the output has q's type. Ragged Nq / Nk are masked by
 // bounds: padded keys score -inf, padded query rows are never stored.
+// K5 is K1 with an lse pointer: it also stores each row's logsumexp
+// m + ln l in natural-log units of the raw scores ([BH, Nq] float32), the
+// residual the backward (attention_bwd.cu) rebuilds the probabilities from.
+// The online softmax runs in the exp2 domain (m there is max(s) * log2 e),
+// so the stored value is m * ln 2 + ln l. The lse write adds Nq floats per
+// (sample, head): noise next to the 4*Nq*Nk*d operations.
 //
 // What bounds it on the H100. At the main-path shapes (ViT-L 4x4 @224,
 // N = 3136, d = 64) attention does 4*N*Nk*d operations per (sample, head)
@@ -47,6 +55,7 @@ constexpr int BK = 64;        // keys per shared-memory tile
 constexpr int NT = 256;       // threads per block: 16 row groups x 16
 constexpr int LD = BQ + 4;    // leading dim of the transposed tiles (BQ == BK)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -65,7 +74,8 @@ attention_kernel(const T* __restrict__ q,
                  int n0, int shared0, float w0,
                  const T* __restrict__ k1, const T* __restrict__ v1,
                  int n1, float w1,
-                 T* __restrict__ out, int nq, int heads) {
+                 T* __restrict__ out, float* __restrict__ lse, int nq,
+                 int heads) {
   constexpr int CT = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* qt = smem;             // [D][LD]  q tile, transposed
@@ -199,14 +209,16 @@ attention_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < CT; ++c)
       ob[(size_t)gq * D + tx * CT + c] = from_f<T>(o[i][c] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * nq + gq] = m[i] * LN2 + logf(l[i]);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k0, const void* v0, int n0,
                    int shared0, float w0, const void* k1, const void* v1,
-                   int n1, float w1, void* out, int bh, int heads, int nq,
-                   cudaStream_t stream) {
+                   int n1, float w1, void* out, float* lse, int bh,
+                   int heads, int nq, cudaStream_t stream) {
   const int smem = smem_floats(D) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -215,20 +227,20 @@ cudaError_t launch(const void* q, const void* k0, const void* v0, int n0,
   attention_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k0),
       static_cast<const T*>(v0), n0, shared0, w0, static_cast<const T*>(k1),
-      static_cast<const T*>(v1), n1, w1, static_cast<T*>(out), nq, heads);
+      static_cast<const T*>(v1), n1, w1, static_cast<T*>(out), lse, nq, heads);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k0, const void* v0,
                        int n0, int shared0, float w0, const void* k1,
-                       const void* v1, int n1, float w1, void* out, int bh,
-                       int heads, int nq, cudaStream_t s) {
+                       const void* v1, int n1, float w1, void* out,
+                       float* lse, int bh, int heads, int nq, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, bh, heads, nq, s);
-    case 32: return launch<T, 32>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, bh, heads, nq, s);
-    case 64: return launch<T, 64>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, bh, heads, nq, s);
-    case 128: return launch<T, 128>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, bh, heads, nq, s);
+    case 16: return launch<T, 16>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, lse, bh, heads, nq, s);
+    case 32: return launch<T, 32>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, lse, bh, heads, nq, s);
+    case 64: return launch<T, 64>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, lse, bh, heads, nq, s);
+    case 128: return launch<T, 128>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, lse, bh, heads, nq, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -236,18 +248,20 @@ cudaError_t dispatch_d(int d, const void* q, const void* k0, const void* v0,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Panel 1 is absent when n1 == 0 (K1).
+// lse: null, or [bh, nq] float32 for the row logsumexps (K5).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int cwm_attention(const void* q, const void* k0, const void* v0,
                              int n0, int shared0, float w0, const void* k1,
                              const void* v1, int n1, float w1, void* out,
-                             int bh, int heads, int nq, int d, int dtype,
-                             void* stream) {
+                             void* lse_, int bh, int heads, int nq, int d,
+                             int dtype, void* stream) {
+  float* lse = static_cast<float*>(lse_);
   if (nq <= 0 || n0 <= 0 || n1 < 0 || bh <= 0 || bh > 65535 || heads <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_d<float>(d, q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, bh, heads, nq, s);
+    return (int)dispatch_d<float>(d, q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, lse, bh, heads, nq, s);
   if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(d, q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, bh, heads, nq, s);
+    return (int)dispatch_d<__nv_bfloat16>(d, q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out, lse, bh, heads, nq, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,13 +22,14 @@ import subprocess
 import threading
 from typing import Dict, Iterable
 
-SOURCES = ('attention', 'window_lookup')
+SOURCES = ('attention', 'attention_bwd', 'window_lookup')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 LAUNCHES: Dict[str, int] = {'flash_attention': 0, 'flash_attention_prefix': 0,
-                            'window_lookup': 0}
+                            'flash_attention_lse': 0,
+                            'flash_attention_bwd': 0, 'window_lookup': 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')

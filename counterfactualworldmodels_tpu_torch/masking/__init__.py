@@ -1,1 +1,1 @@
-from . import mask_ops  # noqa: F401
+from . import generators, mask_ops  # noqa: F401

@@ -30,7 +30,7 @@ from ..ops import patches as patch_ops
 from ..ops.flash_attention import flash_attention, flash_attention_prefix
 from ..ops.normalization import imagenet_normalize
 from ..ops.pos_embed import sinusoid_encoding_table
-from .layers import dense_attention
+from .layers import dense_attention, layer_norm
 from .vmae import PretrainVisionTransformer, mask_order
 
 
@@ -129,11 +129,7 @@ def stack_vmae_params(model: PretrainVisionTransformer, state_dict,
 
 
 def _ln(x, p, eps=1e-6):
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps)
-    return (out * p['scale'] + p['bias']).to(x.dtype)
+    return layer_norm(x, p['scale'], p['bias'], eps)
 
 
 def _qkv(p_attn, h, num_heads: int):

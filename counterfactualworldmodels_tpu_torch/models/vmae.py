@@ -1,10 +1,18 @@
-"""VideoMAE-style masked predictor: configuration and token ordering.
+"""VideoMAE-style masked predictor: configuration, token ordering and the
+exact model.
 
-Port of counterfactualworldmodels_tpu/models/vmae.py. The configuration is
-a plain dataclass with the same fields, properties and factories; the
-weights live in a reference-layout state dict (utils/weights.py) that the
-shared-prefix engine (models/fast_vmae.py) re-lays out. The exact forward
-(encoder/decoder modules) comes in a later slice.
+Port of counterfactualworldmodels_tpu/models/vmae.py. The configuration
+``PretrainVisionTransformer`` is a frozen dataclass with the flax module's
+fields, properties and factories; the shared-prefix engine
+(models/fast_vmae.py) reads it. ``PretrainVisionTransformerModule`` is the
+flax module's ``__call__`` / ``encode`` as an ``nn.Module`` built from that
+configuration, with the reference state-dict layout (utils/weights.py), so
+a released checkpoint or the JAX package's parameters bridged by
+``vmae_state_dict_from_jax`` load with ``load_state_dict``.
+
+The visible-token gather is the JAX package's: a stable argsort of the mask
+puts visible tokens first in original row-major order, and ``n_vis`` (the
+number of visible tokens per row) is given by the caller.
 """
 from __future__ import annotations
 
@@ -12,6 +20,11 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
+
+from .._device import resolve_device
+from ..ops.pos_embed import sinusoid_encoding_table
+from .layers import Block, LayerNorm, PatchEmbed, dense
 
 
 def mask_order(mask: torch.Tensor) -> torch.Tensor:
@@ -19,6 +32,12 @@ def mask_order(mask: torch.Tensor) -> torch.Tensor:
     entries of each row index the visible tokens in original order, the
     rest the masked tokens in original order. int64 [B, N]."""
     return torch.argsort(mask.to(torch.uint8), dim=-1, stable=True)
+
+
+def take_tokens(tokens: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather [B, K, C] token rows by [B, K] indices."""
+    return torch.gather(tokens, 1,
+                        idx[..., None].expand(-1, -1, tokens.shape[-1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +62,7 @@ class PretrainVisionTransformer:
     num_frames: int = 2
     use_learnable_pos_emb: bool = False
     dtype: torch.dtype = torch.float32
+    attn_impl: str = 'dense'  # 'dense' | 'flash'
 
     @property
     def full_patch_size(self):
@@ -73,6 +93,131 @@ class PretrainVisionTransformer:
             return self.decoder_num_classes
         return (self.encoder_in_chans * self.tubelet_size *
                 self.patch_size[0] * self.patch_size[1])
+
+
+def _blocks(cfg: PretrainVisionTransformer, dim: int, heads: int, depth: int,
+            device):
+    return nn.ModuleList([
+        Block(dim, heads, cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
+              cfg.init_values, dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+              device=device)
+        for _ in range(depth)])
+
+
+class VMAEEncoder(nn.Module):
+    """ViT encoder over the visible tokens only."""
+
+    def __init__(self, cfg: PretrainVisionTransformer, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e = cfg.encoder_embed_dim
+        self.patch_embed = PatchEmbed(cfg.full_patch_size,
+                                      cfg.encoder_in_chans, e, cfg.dtype,
+                                      device)
+        self.pos_embed = (nn.Parameter(torch.zeros(1, cfg.num_patches, e,
+                                                   device=device))
+                          if cfg.use_learnable_pos_emb else None)
+        self.blocks = _blocks(cfg, e, cfg.encoder_num_heads,
+                              cfg.encoder_depth, device)
+        self.norm = LayerNorm(e, 1e-6, cfg.dtype, device)
+
+    def tokenize(self, x):
+        tokens = self.patch_embed(x)
+        pos = self.pos_embed
+        if pos is None:
+            pos = sinusoid_encoding_table(tokens.shape[1], tokens.shape[2],
+                                          device=tokens.device)
+        return tokens + pos.to(tokens.dtype)
+
+    def forward(self, x, mask, n_vis: int):
+        tokens = self.tokenize(x)
+        x_vis = take_tokens(tokens, mask_order(mask)[:, :n_vis])
+        for blk in self.blocks:
+            x_vis = blk(x_vis)
+        return self.norm(x_vis)
+
+
+class VMAEDecoder(nn.Module):
+    """Narrow decoder over visible + mask tokens."""
+
+    def __init__(self, cfg: PretrainVisionTransformer, device=None):
+        super().__init__()
+        d = cfg.decoder_embed_dim
+        self.blocks = _blocks(cfg, d, cfg.decoder_num_heads,
+                              cfg.decoder_depth, device)
+        self.norm = LayerNorm(d, 1e-6, cfg.dtype, device)
+        self.head = nn.Linear(d, cfg.out_dim, device=device)
+        self.dtype = cfg.dtype
+
+    def get_last_tokens(self, x, return_token_num: int):
+        """Head over the trailing (masked) tokens: 0 gives an empty output,
+        a negative count all tokens, as in the reference."""
+        if return_token_num > 0:
+            x = x[:, -return_token_num:]
+        elif return_token_num == 0:
+            x = x[:, :0]
+        return dense(self.norm(x), self.head, self.dtype)
+
+    def forward(self, x, return_token_num: int):
+        for blk in self.blocks:
+            x = blk(x)
+        return self.get_last_tokens(x, return_token_num)
+
+
+class PretrainVisionTransformerModule(nn.Module):
+    """The JAX package's flax ``PretrainVisionTransformer`` module (its
+    ``__call__`` and ``encode``), built from the configuration of the same
+    name. x [B, C, T, H, W]; mask bool [B, N], True = masked, with exactly
+    N - n_vis masked tokens per row; returns the predicted patch vectors of
+    the masked tokens [B, N - n_vis, out_dim] in ``cfg.dtype``."""
+
+    def __init__(self, cfg: PretrainVisionTransformer, device='cuda'):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.encoder = VMAEEncoder(cfg, device)
+        self.decoder = VMAEDecoder(cfg, device)
+        self.encoder_to_decoder = nn.Linear(
+            cfg.encoder_embed_dim, cfg.decoder_embed_dim, bias=False,
+            device=device)
+        self.mask_token = nn.Parameter(
+            torch.zeros(1, 1, cfg.decoder_embed_dim, device=device))
+
+    def forward(self, x, mask, n_vis: int):
+        cfg = self.cfg
+        x_vis = dense(self.encoder(x, mask, n_vis), self.encoder_to_decoder,
+                      cfg.dtype)
+        b, _, c = x_vis.shape
+        pos = sinusoid_encoding_table(cfg.num_patches, c, device=x.device)
+        pos = pos.expand(b, -1, -1).to(x_vis.dtype)
+        order = mask_order(mask)
+        pos_vis = take_tokens(pos, order[:, :n_vis])
+        pos_mask = take_tokens(pos, order[:, n_vis:])
+        mask_tok = self.mask_token.to(x_vis.dtype)
+        x_full = torch.cat([x_vis + pos_vis, mask_tok + pos_mask], dim=1)
+        return self.decoder(x_full, pos_mask.shape[1])
+
+    def encode(self, x, mask, n_vis: int):
+        return self.encoder(x, mask, n_vis)
+
+
+def init_params(model: PretrainVisionTransformer, seed: int = 0,
+                device='cuda') -> PretrainVisionTransformerModule:
+    """The model with seeded random weights (the JAX initialisers'
+    distributions, utils/weights.init_vmae_state_dict) on ``device``."""
+    from ..utils.weights import init_vmae_state_dict
+    device = resolve_device(device)
+    module = PretrainVisionTransformerModule(model, device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    module.load_state_dict(init_vmae_state_dict(model, g), strict=True)
+    return module
+
+
+@torch.no_grad()
+def apply_vmae(module: PretrainVisionTransformerModule, x, mask, n_vis: int):
+    """Forward without gradients (the JAX package's jitted ``apply_vmae``;
+    the module carries its parameters)."""
+    return module(x, mask, n_vis)
 
 
 def pretrain_videomae_base_224_scaffold(**kwargs):

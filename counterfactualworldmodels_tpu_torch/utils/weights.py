@@ -214,6 +214,9 @@ def init_vmae_state_dict(model: PretrainVisionTransformer,
     sd['decoder.head.bias'] = zeros(model.out_dim)
     sd['encoder_to_decoder.weight'] = _lecun((cd, e), e, generator)
     sd['mask_token'] = _trunc_normal((1, 1, cd), 0.02, generator)
+    if model.use_learnable_pos_emb:
+        sd['encoder.pos_embed'] = _trunc_normal((1, model.num_patches, e),
+                                                0.02, generator)
     return sd
 
 

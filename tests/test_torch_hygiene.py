@@ -89,6 +89,25 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked():
     assert traft.RAFT(iters=1, device='cpu').fnet.conv1.weight.is_cpu
 
 
+def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    from counterfactualworldmodels_tpu_torch.training import train, train_vmae
+    tm = tvmae.PretrainVisionTransformer(**SMALL_VMAE)
+    opt = train.make_optimizer()
+    for call in (lambda: tvmae.PretrainVisionTransformerModule(tm),
+                 lambda: tvmae.init_params(tm),
+                 lambda: train.init_train_state(tm, opt),
+                 lambda: train.make_train_step(tm, opt, 70),
+                 lambda: train_vmae.main(['--synthetic', '--model', 'tiny',
+                                          '--steps', '1'])):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            call()
+    module = tvmae.PretrainVisionTransformerModule(tm, device='cpu')
+    assert module.mask_token.is_cpu
+    assert callable(train.make_train_step(tm, opt, 70, device='cpu'))
+
+
 def test_kernel_sources_and_counters():
     """Every kernel source the loader names is in the package, and each
     kernel wrapper has its launch counter."""
@@ -96,4 +115,6 @@ def test_kernel_sources_and_counters():
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, name + '.cu'))
     assert set(kernels.LAUNCHES) == {'flash_attention',
                                      'flash_attention_prefix',
+                                     'flash_attention_lse',
+                                     'flash_attention_bwd',
                                      'window_lookup'}

@@ -8,7 +8,9 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
 Tolerances: f32 2e-5 / 3e-5 (the JAX kernel tests' bounds: sums in another
 order); bf16 2e-2 (outputs of magnitude ~1 differ by a couple of bf16 ulps,
 the kernel keeping probabilities in f32 where the plain version rounds
-them to bf16); the lookup 1e-5.
+them to bf16); the lookup 1e-5. The training pair: the lse at 1e-4 and
+the f32 gradients at atol 2e-4 / rtol 1e-4 (tests/test_flash_attention.py's
+bounds); bf16 gradients within 2e-2 of their largest magnitude.
 """
 import numpy as np
 import pytest
@@ -92,3 +94,91 @@ def test_window_lookup_kernel_matches_plain(dev):
         assert _err(out, ref) <= 1e-5
     with pytest.raises(ValueError, match='float32'):
         corr.window_lookup(level.double(), x.double(), y.double(), 4)
+
+
+_BWD_SHAPES = [(2, 3, 100, 77, 16), (1, 2, 64, 64, 32), (2, 2, 130, 200, 64),
+               (1, 2, 70, 90, 128), (1, 2, 200, 333, 64)]
+
+
+def _grad_inputs(rng, dev, dtype, b, h, nq, nk, d):
+    q = _rand(rng, b, h, nq, d, scale=d ** -0.5).to(dev, dtype)
+    k, v = (_rand(rng, b, h, nk, d).to(dev, dtype) for _ in range(2))
+    do = _rand(rng, b, h, nq, d).to(dev, dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize('dtype,atol', [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_flash_attention_lse_kernel_matches_plain(dev, dtype, atol):
+    rng = np.random.RandomState(3)
+    for (b, h, nq, nk, d) in _BWD_SHAPES:
+        q, k, v, _ = _grad_inputs(rng, dev, dtype, b, h, nq, nk, d)
+        before = kernels.LAUNCHES['flash_attention_lse']
+        out, lse = fa._flash_forward_lse(q, k, v)
+        assert kernels.LAUNCHES['flash_attention_lse'] == before + 1
+        ref, ref_lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+        assert lse.dtype == torch.float32 and lse.shape == (b, h, nq)
+        assert _err(out, ref) <= atol
+        assert torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain(dev, dtype):
+    rng = np.random.RandomState(4)
+    for (b, h, nq, nk, d) in _BWD_SHAPES:
+        q, k, v, do = _grad_inputs(rng, dev, dtype, b, h, nq, nk, d)
+        out, lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+        delta = (do.float() * out.float()).sum(-1)
+        before = kernels.LAUNCHES['flash_attention_bwd']
+        got = fa._flash_backward(q, k, v, do, lse, delta)
+        assert kernels.LAUNCHES['flash_attention_bwd'] == before + 1
+        ref = fa._chunked_attention_bwd(q, k, v, do, lse, delta)
+        for name, a, r in zip('qkv', got, ref):
+            assert a.dtype == dtype and a.shape == r.shape, name
+            if dtype == torch.float32:
+                assert torch.allclose(a, r, atol=2e-4, rtol=1e-4), name
+            else:
+                assert _err(a, r) <= 2e-2 * float(r.float().abs().max()), name
+
+
+def test_flash_attention_bwd_kernel_is_deterministic(dev):
+    rng = np.random.RandomState(5)
+    q, k, v, do = _grad_inputs(rng, dev, torch.bfloat16, 2, 4, 333, 333, 64)
+    out, lse = fa._flash_forward_lse(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    first = fa._flash_backward(q, k, v, do, lse, delta)
+    second = fa._flash_backward(q, k, v, do, lse, delta)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_gradients_come_from_k6(dev):
+    """The fault this guards against: a kernel output without grad_fn
+    trains every weight upstream of attention with a zero gradient."""
+    rng = np.random.RandomState(6)
+    q, k, v, do = _grad_inputs(rng, dev, torch.float32, 1, 2, 150, 150, 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launches()
+    out = fa.flash_attention(*leaves)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, leaves, do)
+    assert kernels.LAUNCHES['flash_attention_lse'] == 1
+    assert kernels.LAUNCHES['flash_attention_bwd'] == 1
+    assert kernels.LAUNCHES['flash_attention'] == 0
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(fa._chunked_dense_attention(*ref_leaves),
+                              ref_leaves, do)
+    for name, a, r in zip('qkv', grads, ref):
+        assert torch.allclose(a, r, atol=2e-4, rtol=1e-4), name
+    with torch.no_grad():
+        fa.flash_attention(*leaves)
+    assert kernels.LAUNCHES['flash_attention'] == 1
+
+
+def test_flash_attention_prefix_refuses_a_gradient_on_the_card(dev):
+    z = torch.zeros
+    q = z(2, 2, 8, 64, device=dev, requires_grad=True)
+    kv = [z(n, 2, 8, 64, device=dev) for n in (1, 1, 2, 2)]
+    with pytest.raises(RuntimeError, match='no backward'):
+        fa.flash_attention_prefix(q, *kv)
+    with torch.no_grad():
+        assert fa.flash_attention_prefix(q, *kv).shape == q.shape
