@@ -4,7 +4,8 @@ The sources are ``csrc/*.cu`` with a plain C interface. ``build()`` compiles
 each one with ``nvcc`` for ``sm_90a`` into a shared library under
 ``_build/`` of the package directory (ignored by git), one ``nvcc`` process
 per source, all started together. The library name carries a hash of its
-source and flags, so an edited source is never served from a stale build.
+source, of every header in ``csrc/`` and of the flags, so an edited source
+or header is never served from a stale build.
 ``load(name)`` builds on first use and returns the ``ctypes`` library.
 
 ``LAUNCHES`` counts kernel launches by wrapper: each wrapper adds one where
@@ -57,8 +58,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+    for f in [name + '.cu', *headers]:
+        with open(os.path.join(CSRC_DIR, f), 'rb') as fh:
+            digest.update(f.encode() + b'\0' + fh.read())
     return os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:12]}.so')
 
 

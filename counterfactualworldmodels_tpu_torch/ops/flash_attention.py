@@ -6,6 +6,8 @@ tensors the wrappers launch the hand-written kernels of ``csrc/attention.cu``
 (K1, K2, K5) and ``csrc/attention_bwd.cu`` (K6); on CPU tensors they run
 their plain versions, ``_chunked_dense_attention``, ``_dense_two_source``
 and ``_chunked_attention_bwd`` (the same math: f32 scores and softmax).
+Inside each kernel entry the dtype picks the route: bf16 runs on the
+tensor cores (wgmma), f32 on the CUDA cores in full f32.
 Layout: q, k, v [B, H, N, D]; q pre-scaled (softmax scale 1).
 
 ``flash_attention`` is differentiable: when a gradient is asked for it runs

@@ -118,3 +118,20 @@ def test_kernel_sources_and_counters():
                                      'flash_attention_lse',
                                      'flash_attention_bwd',
                                      'window_lookup'}
+
+
+def test_library_path_covers_the_headers(tmp_path, monkeypatch):
+    """A kernel's library name hashes its source, every csrc header and the
+    flags: editing a header the source includes gives a new library, never
+    the stale build."""
+    monkeypatch.setattr(kernels, 'CSRC_DIR', str(tmp_path))
+    (tmp_path / 'k.cu').write_text('#include "h.cuh"\n')
+    (tmp_path / 'h.cuh').write_text('// v1\n')
+    first = kernels.library_path('k')
+    assert kernels.library_path('k') == first
+    (tmp_path / 'h.cuh').write_text('// v2\n')
+    second = kernels.library_path('k')
+    assert second != first
+    (tmp_path / 'k.cu').write_text('#include "h.cuh"\n// edited\n')
+    assert kernels.library_path('k') not in (first, second)
+    assert os.path.dirname(first) == kernels.BUILD_DIR

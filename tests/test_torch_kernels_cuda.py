@@ -5,12 +5,18 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
+bf16 attention runs on the tensor-core kernels (``*_sm90``: wgmma, shapes
+cut into 64- and 128-row tiles), f32 on the CUDA-core ones; the shapes
+below cross those tile edges (Nk under one tile, Nq and Nk one past a
+boundary) at every head dim.
+
 Tolerances: f32 2e-5 / 3e-5 (the JAX kernel tests' bounds: sums in another
-order); bf16 2e-2 (outputs of magnitude ~1 differ by a couple of bf16 ulps,
-the kernel keeping probabilities in f32 where the plain version rounds
-them to bf16); the lookup 1e-5. The training pair: the lse at 1e-4 and
-the f32 gradients at atol 2e-4 / rtol 1e-4 (tests/test_flash_attention.py's
-bounds); bf16 gradients within 2e-2 of their largest magnitude.
+order); bf16 2e-2 (outputs of magnitude ~1 differ by a couple of bf16 ulps:
+the kernel rounds the unnormalised probabilities to bf16 before P.V, as
+the JAX kernel does, where the plain version rounds the normalised ones);
+the lookup 1e-5. The training pair: the lse at 1e-4 and the f32 gradients
+at atol 2e-4 / rtol 1e-4 (tests/test_flash_attention.py's bounds); bf16
+gradients within 2e-2 of their largest magnitude.
 """
 import numpy as np
 import pytest
@@ -43,7 +49,10 @@ def _err(a, b):
 def test_flash_attention_kernel_matches_plain(dev, dtype, atol):
     rng = np.random.RandomState(0)
     for (b, h, nq, nk, d) in [(2, 3, 100, 77, 16), (1, 2, 64, 64, 32),
-                              (2, 2, 130, 200, 64), (1, 2, 70, 90, 128)]:
+                              (2, 2, 130, 200, 64), (1, 2, 70, 90, 128),
+                              (1, 2, 100, 20, 64), (1, 2, 129, 65, 16),
+                              (1, 2, 129, 65, 32), (2, 2, 129, 129, 64),
+                              (1, 2, 257, 65, 128)]:
         q = _rand(rng, b, h, nq, d, scale=d ** -0.5).to(dev, dtype)
         k, v = (_rand(rng, b, h, nk, d).to(dev, dtype) for _ in range(2))
         before = kernels.LAUNCHES['flash_attention']
@@ -56,16 +65,26 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, atol):
 @pytest.mark.parametrize('dtype,atol', [(torch.float32, 3e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_flash_attention_prefix_kernel_matches_plain(dev, dtype, atol):
+    """Shared and stacked prefixes, weights (1, 1), (16, 16), (1, 4) and
+    (4, 1), a prefix under one key tile and panels one past a tile
+    boundary, every head dim."""
     rng = np.random.RandomState(1)
-    for s0, w in [(1, (1.0, 1.0)), (1, (16.0, 16.0)), (3, (1.0, 4.0))]:
-        q = _rand(rng, 3, 2, 50, 64, scale=0.125).to(dev, dtype)
-        k0, v0 = (_rand(rng, s0, 2, 33, 64).to(dev, dtype) for _ in range(2))
-        k1, v1 = (_rand(rng, 3, 2, 65, 64).to(dev, dtype) for _ in range(2))
+    for s0, n0, n1, w, d in [(1, 33, 65, (1.0, 1.0), 64),
+                             (1, 33, 65, (16.0, 16.0), 64),
+                             (3, 33, 65, (1.0, 4.0), 64),
+                             (1, 33, 129, (1.0, 4.0), 64),
+                             (1, 196, 196, (16.0, 16.0), 64),
+                             (1, 100, 129, (16.0, 16.0), 32),
+                             (1, 300, 20, (4.0, 1.0), 128),
+                             (3, 129, 65, (1.0, 4.0), 16)]:
+        q = _rand(rng, 3, 2, 50, d, scale=d ** -0.5).to(dev, dtype)
+        k0, v0 = (_rand(rng, s0, 2, n0, d).to(dev, dtype) for _ in range(2))
+        k1, v1 = (_rand(rng, 3, 2, n1, d).to(dev, dtype) for _ in range(2))
         before = kernels.LAUNCHES['flash_attention_prefix']
         out = fa.flash_attention_prefix(q, k0, v0, k1, v1, *w)
         assert kernels.LAUNCHES['flash_attention_prefix'] == before + 1
         ref = fa._dense_two_source(q, k0, v0, k1, v1, *w)
-        assert _err(out, ref) <= atol
+        assert _err(out, ref) <= atol, (s0, n0, n1, w, d)
 
 
 def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -97,7 +116,8 @@ def test_window_lookup_kernel_matches_plain(dev):
 
 
 _BWD_SHAPES = [(2, 3, 100, 77, 16), (1, 2, 64, 64, 32), (2, 2, 130, 200, 64),
-               (1, 2, 70, 90, 128), (1, 2, 200, 333, 64)]
+               (1, 2, 70, 90, 128), (1, 2, 200, 333, 64), (1, 2, 100, 20, 32),
+               (1, 2, 129, 65, 128), (2, 2, 129, 129, 16)]
 
 
 def _grad_inputs(rng, dev, dtype, b, h, nq, nk, d):
@@ -143,12 +163,37 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, dtype):
 
 def test_flash_attention_bwd_kernel_is_deterministic(dev):
     rng = np.random.RandomState(5)
-    q, k, v, do = _grad_inputs(rng, dev, torch.bfloat16, 2, 4, 333, 333, 64)
-    out, lse = fa._flash_forward_lse(q, k, v)
-    delta = (do.float() * out.float()).sum(-1)
-    first = fa._flash_backward(q, k, v, do, lse, delta)
-    second = fa._flash_backward(q, k, v, do, lse, delta)
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for shape in [(2, 4, 333, 333, 64), (1, 2, 129, 65, 128),
+                  (2, 2, 200, 77, 32)]:
+        q, k, v, do = _grad_inputs(rng, dev, torch.bfloat16, *shape)
+        out, lse = fa._flash_forward_lse(q, k, v)
+        delta = (do.float() * out.float()).sum(-1)
+        first = fa._flash_backward(q, k, v, do, lse, delta)
+        second = fa._flash_backward(q, k, v, do, lse, delta)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), shape
+
+
+def test_bf16_attention_runs_on_the_tensor_core_kernels(dev):
+    """bf16 calls launch the wgmma kernels, f32 calls the CUDA-core ones."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(8)
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = _grad_inputs(rng, dev, dtype, 1, 2, 130, 130, 64)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out, lse = fa._flash_forward_lse(q, k, v)
+            fa.flash_attention_prefix(q, k, v, k, v, 1.0, 4.0)
+            fa._flash_backward(q, k, v, do, lse,
+                               (do.float() * out.float()).sum(-1))
+            torch.cuda.synchronize()
+        names[dtype] = ' '.join(e.key for e in prof.key_averages())
+    for kernel in ('attention_fwd_sm90', 'dkdv_sm90', 'dq_sm90'):
+        assert kernel in names[torch.bfloat16]
+        assert kernel not in names[torch.float32]
+    for kernel in ('attention_kernel', 'dkdv_kernel', 'dq_kernel'):
+        assert kernel in names[torch.float32]
+        assert kernel not in names[torch.bfloat16]
 
 
 def test_flash_attention_gradients_come_from_k6(dev):
