@@ -18,11 +18,13 @@ ratio 0.9), both from seeded random weights. Phases:
    (``*_sm90``) must be there at each head dim, hold some, and not spill
    at D = 64;
 3. each kernel against its plain PyTorch version on the card, at the
-   paths' shapes, in f32 and bf16 (the lookup is f32 by contract), with the
-   kernel's, the plain version's and one library call's times, the ratio
-   to the library call and the share of the bound; the training pair (K5
-   forward with logsumexp, K6 backward) at the encoder and decoder
-   training shapes, with K6's determinism check;
+   paths' shapes, in f32 and bf16, with the kernel's, the plain version's
+   and one library call's times, the ratio to the library call and the
+   share of the bound; the window lookup (f32 sums) one level per call and
+   fused, four levels in one launch as a RAFT iteration calls it, with f32
+   and bf16 output, timed by CUDA-graph replay beside CUDA events; the
+   training pair (K5 forward with logsumexp, K6 backward) at the encoder
+   and decoder training shapes, with K6's determinism check;
 4. both paths at the tests' small configurations on the card and on the
    CPU (f32, TF32 off): masks equal, videos and flows within tolerance;
    three train steps with equal losses and gradient norms;
@@ -33,7 +35,9 @@ ratio 0.9), both from seeded random weights. Phases:
    losses, sec/step, clips/s, MFU and peak memory, and the launch counts
    of every step (K5 72, K6 36, K1 0); then the exact forward
    ``models.vmae.apply_vmae`` (K1 36) against the plain dense path,
-   checked in f32 and reported in bf16.
+   checked in f32 and reported in bf16;
+7. the kernels RAFT's ``convc1`` launches on the lookup's bf16 output
+   (torch.profiler, last: it makes every later launch cost more).
 
 Exits non-zero without a result line if there is no GPU or any phase
 fails. Otherwise the last three lines are the kernel table (JSON), the
@@ -127,6 +131,59 @@ def time_ms(torch, fn, target_ms=150.0):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_us(prof):
+    """{kernel name: device microseconds} of a torch.profiler run."""
+    out = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith('CUDA'):
+            continue
+        us = getattr(e, 'self_device_time_total', None)
+        if us is None:
+            us = getattr(e, 'self_cuda_time_total', 0)
+        out[e.key] = out.get(e.key, 0) + us
+    return out
+
+
+def kernel_device_us(torch, fn):
+    """{kernel: device microseconds} of one call of fn after a warm-up,
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _device_us(prof)
+
+
+def graph_ms(torch, fns, reps=48, replays=5):
+    """Device time per call of the functions fns, called in turn (one per
+    copy of the inputs, so that each call can find its data out of L2):
+    CUDA events around replays of a CUDA graph that holds reps calls. No
+    host time between launches counts, so this times a 5-10 us kernel where
+    time_ms times the Python around it. Not torch.profiler: once it has
+    run, every later launch costs more host time (phase 5's wall times
+    would move), and its kernel sums for these short calls lost events in
+    some runs."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def library_ms(torch, fn):
@@ -272,11 +329,45 @@ def attention_cases(torch, F, fa, rec):
             raise AssertionError(f'K2 accepted a bad call ({what})')
 
 
+def grid_sample_grid(torch, x, y, r, h, w):
+    """The reference RAFT's sampling grid for grid_sample(align_corners=
+    True): [N, 2r+1, 2r+1, 2], normalised, the first window axis offsetting
+    x."""
+    p = 2 * r + 1
+    d = torch.linspace(-r, r, p, device=x.device)
+    delta = torch.stack(torch.meshgrid(d, d, indexing='ij'), -1)
+    grid = torch.stack([x, y], -1)[:, None, None] + delta[None]
+    scale = torch.tensor([2.0 / max(w - 1, 1), 2.0 / max(h - 1, 1)],
+                         device=x.device)
+    return grid * scale - 1
+
+
+def touched_values(torch, x, y, r, h, w):
+    """Level values a lookup must read for this data: the in-bounds part of
+    each query's (2r+2)^2 patch."""
+    xc = torch.floor(torch.clamp(x, -(r + 1.0), w + r)) - r
+    yc = torch.floor(torch.clamp(y, -(r + 1.0), h + r)) - r
+    cols = (torch.clamp(xc + 2 * r + 2, max=w) - torch.clamp(xc, min=0)
+            ).clamp(min=0)
+    rows = (torch.clamp(yc + 2 * r + 2, max=h) - torch.clamp(yc, min=0)
+            ).clamp(min=0)
+    return float((cols * rows).sum())
+
+
+def lookup_bound(touched, n, outputs, out_item):
+    """Bound of a lookup: the touched level values and the coordinates read
+    once, the outputs written once; about 4 operations per output (the row
+    lerp, shared by two outputs, and the column lerp)."""
+    return bound(4 * outputs, 4 * touched + 8 * n + out_item * outputs,
+                 'float32')
+
+
 def lookup_cases(torch, F, corr, rec):
     dev = torch.device('cuda')
     g = torch.Generator(device=dev).manual_seed(1)
     n, r = S_FULL * 784, 4
     p = 2 * r + 1
+    # one level per call (window_lookup, the K3/K4 contract's entry)
     for h in (28, 14, 7, 3):
         level = torch.randn(n, h, h, generator=g, device=dev)
         # coordinates reach 6 px past every edge: out-of-bounds windows
@@ -287,16 +378,10 @@ def lookup_cases(torch, F, corr, rec):
                                   h, h)
         err = max_err(out, ref)
         ms = time_ms(torch, lambda: corr.window_lookup(level, x, y, r))
+        dev_ms = graph_ms(torch, [lambda: corr.window_lookup(level, x, y, r)])
         plain_ms = time_ms(torch, lambda: corr._window_lookup(
             corr.pad_pyramid([level], r)[0], x, y, r, h, h))
-        # the reference RAFT's lookup: grid_sample(align_corners=True) with
-        # the first window axis offsetting x
-        d = torch.linspace(-r, r, p, device=dev)
-        delta = torch.stack(torch.meshgrid(d, d, indexing='ij'), -1)
-        grid = torch.stack([x, y], -1)[:, None, None] + delta[None]
-        scale = torch.tensor([2.0 / max(h - 1, 1), 2.0 / max(h - 1, 1)],
-                             device=dev)
-        gridn = grid * scale - 1
+        gridn = grid_sample_grid(torch, x, y, r, h, h)
         lvl4 = level[:, None]
 
         def lib():
@@ -304,27 +389,104 @@ def lookup_cases(torch, F, corr, rec):
 
         lib_err = max_err(lib(), out)
         lib_ms = library_ms(torch, lib)
-        # bytes the lookup must move: the in-bounds part of each query's
-        # (2r+2)^2 window (this run's coordinates), coords in, windows out
-        xc = torch.floor(torch.clamp(x, -(r + 1.0), h + r)) - r
-        yc = torch.floor(torch.clamp(y, -(r + 1.0), h + r)) - r
-        cols = (torch.clamp(xc + 2 * r + 2, max=h) - torch.clamp(xc, min=0)
-                ).clamp(min=0)
-        rows = (torch.clamp(yc + 2 * r + 2, max=h) - torch.clamp(yc, min=0)
-                ).clamp(min=0)
-        touched = float((cols * rows).sum())
-        nbytes = 4 * touched + 8 * n + 4 * n * p * p
-        flops = 11 * n * p * p
-        bms, by = bound(flops, nbytes, 'float32')
+        bms, by = lookup_bound(touched_values(torch, x, y, r, h, h), n,
+                               n * p * p, 4)
         r_ = dict(kernel='window_lookup', case=f'level {h}x{h}',
                   dtype='float32', shape=[n, h, h, r], max_abs_err=err,
                   tol=TOL_LOOKUP, library_err=lib_err, ms=ms,
-                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                  bound_by=by, gbps=nbytes / ms / 1e6)
+                  device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                  bound_ms=bms, bound_by=by)
         rec['phase3'].append(with_ratios(r_))
         log('3 kernels', json.dumps(r_))
         if not err <= TOL_LOOKUP:
             raise AssertionError(f'lookup level {h}: err {err}')
+
+    fused_lookup_cases(torch, F, corr, rec)
+
+
+LOOKUP_SIZES = (28, 14, 7, 3)
+
+
+def fused_lookup_inputs(torch, F):
+    """The fused lookup of one RAFT iteration at the dispatch shape: four
+    levels [S*784, s, s], coordinates [S, 28, 28, 2] = the pixel grid moved
+    by up to 8 px (windows at the borders cross the edges), and the
+    reference RAFT's sampling grids. Four copies, called in turn by the
+    timings, so that a call finds its data out of L2, as in the dispatch,
+    where the update block's convolutions run between two lookups. Returns
+    (copies, the yardstick: grid_sample on each level, then the concat, as
+    the reference RAFT's CorrBlock does)."""
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(2)
+    n, r = S_FULL * 784, 4
+    ar = torch.arange(28.0, device=dev)
+    grid = torch.stack(torch.meshgrid(ar, ar, indexing='xy'), -1)
+    copies = []
+    for _ in range(4):
+        pyr = [torch.randn(n, s, s, generator=g, device=dev)
+               for s in LOOKUP_SIZES]
+        coords = grid + torch.rand(S_FULL, 28, 28, 2, generator=g,
+                                   device=dev) * 16 - 8
+        xy = [coords[..., k].reshape(n) for k in (0, 1)]
+        grids = [grid_sample_grid(torch, xy[0] / 2 ** i, xy[1] / 2 ** i, r,
+                                  s, s) for i, s in enumerate(LOOKUP_SIZES)]
+        copies.append((pyr, coords, grids))
+
+    def corr_block(pyr, coords, grids):
+        return torch.cat([F.grid_sample(lv[:, None], gr, align_corners=True)
+                          .reshape(S_FULL, 28, 28, (2 * r + 1) ** 2)
+                          for lv, gr in zip(pyr, grids)], -1)
+
+    return copies, corr_block
+
+
+def fused_lookup_cases(torch, F, corr, rec):
+    n, r = S_FULL * 784, 4
+    p = 2 * r + 1
+    copies, corr_block = fused_lookup_inputs(torch, F)
+    pyr, coords, grids = copies[0]
+    before = corr.kernels.LAUNCHES['window_lookup']
+    out = corr.lookup_pyramid(pyr, coords, r)
+    per_call = corr.kernels.LAUNCHES['window_lookup'] - before
+    out_bf16 = corr.lookup_pyramid(pyr, coords, r, torch.bfloat16)
+    ref = corr._lookup_pyramid(pyr, coords, r)
+    err = max_err(out, ref)
+    bitwise = bool(torch.equal(out_bf16, out.to(torch.bfloat16)))
+    lib_err = max_err(corr_block(pyr, coords, grids), out)
+    plain_ms = graph_ms(torch, [lambda c=c: corr._lookup_pyramid(c[0], c[1], r)
+                                for c in copies])
+    lib_ms = graph_ms(torch, [lambda c=c: corr_block(*c) for c in copies])
+    lib_event_ms = library_ms(torch, lambda: corr_block(pyr, coords, grids))
+    xy = [coords[..., k].reshape(n) for k in (0, 1)]
+    touched = sum(touched_values(torch, xy[0] / 2 ** i, xy[1] / 2 ** i, r,
+                                 s, s) for i, s in enumerate(LOOKUP_SIZES))
+    outputs = n * len(LOOKUP_SIZES) * p * p
+    for dt, got in ((torch.float32, out), (torch.bfloat16, out_bf16)):
+        ms = graph_ms(torch, [
+            lambda c=c, dt=dt: corr.lookup_pyramid(c[0], c[1], r, dt)
+            for c in copies])
+        event_ms = time_ms(torch, lambda: corr.lookup_pyramid(pyr, coords,
+                                                              r, dt))
+        bms, by = lookup_bound(touched, n, outputs, got.element_size())
+        r_ = dict(kernel='window_lookup',
+                  case='pyramid 28/14/7/3' + ('' if dt == torch.float32
+                                              else ', bf16 out'),
+                  dtype='float32', out_dtype=str(dt).split('.')[1],
+                  shape=[n, list(LOOKUP_SIZES), r],
+                  max_abs_err=max_err(got, ref), library_err=lib_err,
+                  launches_per_call=per_call, ms=ms,
+                  ms_from='CUDA graph replay', event_ms=event_ms,
+                  plain_ms=plain_ms, library_ms=lib_ms,
+                  library_event_ms=lib_event_ms, bound_ms=bms, bound_by=by)
+        if dt == torch.float32:
+            r_['tol'] = TOL_LOOKUP
+        else:
+            r_['bitwise_equal_to_f32_cast'] = bitwise
+        rec['phase3'].append(with_ratios(r_))
+        log('3 kernels', json.dumps(r_))
+    if not (err <= TOL_LOOKUP and bitwise and per_call == 1):
+        raise AssertionError(f'fused lookup: err {err}, bf16 output equal to '
+                             f'the f32 cast: {bitwise}, launches {per_call}')
 
 
 def _close(torch, a, ref):
@@ -585,7 +747,7 @@ def full_width(torch, port, rec, smi):
     expect = {name: 0 for name in port.kernels.LAUNCHES}
     expect.update(flash_attention=model.encoder_depth + model.decoder_depth,
                   flash_attention_prefix=model.decoder_depth,
-                  window_lookup=24 * 4)
+                  window_lookup=24)
 
     def dispatch(rung):
         return counterfactual_videos_and_flows_fast(
@@ -638,6 +800,24 @@ def full_width(torch, port, rec, smi):
                 and launches == expect):
             raise AssertionError(f'full-width {name} rung failed: {r}')
     return results
+
+
+def convc1_kernels(torch, rec):
+    """The kernels RAFT's first motion-encoder conv launches on the
+    lookup's bf16 output ([S, 28, 28, 324] read as NCHW): a copy or cast of
+    its input would show here. Runs last: after a profiler session every
+    launch costs more host time, which would move the timed phases."""
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(0)
+    raft = weights.init_raft(RAFT(iters=1, dtype=torch.bfloat16,
+                                  device=dev), g)
+    feat = torch.randn(S_FULL, 28, 28, 324, generator=g, device=dev,
+                       dtype=torch.bfloat16).permute(0, 3, 1, 2)
+    rec['convc1_kernels_us'] = kernel_device_us(
+        torch, lambda: raft.update_block.encoder.convc1(feat))
+    log('7 convc1', json.dumps(rec['convc1_kernels_us']))
 
 
 def full_train(torch, port, rec, smi):
@@ -836,14 +1016,7 @@ def profile_dispatch(torch, fn):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels_us = {}
-        for e in prof.key_averages():
-            if not str(e.device_type).endswith('CUDA'):
-                continue
-            us = getattr(e, 'self_device_time_total', None)
-            if us is None:
-                us = getattr(e, 'self_cuda_time_total', 0)
-            kernels_us[e.key] = kernels_us.get(e.key, 0) + us
+        kernels_us = _device_us(prof)
         busy_ms = sum(kernels_us.values()) / 1e3
         if busy_ms <= 0:
             return 'not measured (no device time in the trace)'
@@ -942,6 +1115,7 @@ def main():
         torch.backends.cudnn.allow_tf32 = True
         full = phase('5 full width', full_width, torch, port, rec, smi)
         train = phase('6 train', full_train, torch, port, rec, smi)
+        phase('7 convc1', convc1_kernels, torch, rec)
     rec['failed'] = failed
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)),
@@ -965,10 +1139,10 @@ def main():
              default_launches, REPLACES['flash_attention']),
             ('K2', 'flash_attention_prefix', 'bfloat16', 'pool4 rung',
              default_launches, REPLACES['flash_attention_prefix']),
-            ('K3', 'window_lookup', 'float32', 'level 28x28',
+            ('K3', 'window_lookup', 'float32', 'pyramid 28/14/7/3',
              default_launches, REPLACES['window_lookup']),
             # K3 and K4 differ only in TPU layout: one kernel serves both
-            ('K4', 'window_lookup', 'float32', 'level 28x28',
+            ('K4', 'window_lookup', 'float32', 'pyramid 28/14/7/3',
              default_launches, REPLACES_K4),
             ('K5', 'flash_attention_lse', 'bfloat16', 'encoder',
              step_launches, REPLACES['flash_attention_lse']),

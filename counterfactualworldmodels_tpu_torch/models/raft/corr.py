@@ -4,18 +4,27 @@ Port of counterfactualworldmodels_tpu/models/raft/corr.py. The correlation
 is one matmul, the pyramid reshaped mean-pooling, and the bilinear window
 lookup -- torch.grid_sample(align_corners=True, padding_mode='zeros') on
 each level, in the reference's [x-offset, y-offset] order -- is the
-hand-written kernel of ``csrc/window_lookup.cu`` on CUDA tensors
-(``window_lookup``) and its plain version ``_window_lookup`` on the CPU.
+hand-written kernel of ``csrc/window_lookup.cu`` on CUDA tensors, one launch
+for all levels of a ``lookup_pyramid`` call (``window_lookup`` is its
+one-level call), and the plain versions ``_lookup_pyramid`` and
+``_window_lookup`` on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ... import kernels
+
+# what the kernel takes: its compile-time maximum of levels
+# (csrc/window_lookup.cu kMaxLevels), the radii it is built for (RAFT's
+# small and large models) and its output dtypes
+MAX_LEVELS = 4
+RADII = (3, 4)
+OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 _lib = None
 
@@ -25,7 +34,9 @@ def _lookup_lib():
     if _lib is None:
         lib = kernels.load('window_lookup')
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.cwm_window_lookup.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+        lib.cwm_window_lookup.argtypes = [
+            ctypes.POINTER(vp), ctypes.POINTER(i), ctypes.POINTER(i), i, vp,
+            vp, i, vp, i, i, i, vp]
         lib.cwm_window_lookup.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -98,50 +109,116 @@ def _window_lookup(level_padded: torch.Tensor, x: torch.Tensor,
     return out.transpose(1, 2)
 
 
-def window_lookup(level: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                  radius: int) -> torch.Tensor:
-    """Bilinear (2r+1)^2 window of each query on its UNPADDED level row.
-
-    level: f32 [N, h, w]; x, y: f32 [N] coords in the level's frame.
-    Returns f32 [N, 2r+1, 2r+1] in [x-offset, y-offset] order, zeros
-    outside the level. CUDA: the lookup kernel; CPU: ``_window_lookup``."""
-    n, h, w = level.shape
-    if level.device.type == 'cpu':
-        return _window_lookup(pad_pyramid([level], radius)[0], x, y, radius,
-                              h, w)
-    for t in (level, x, y):
-        if t.device != level.device:
-            raise ValueError('window_lookup: tensors on different devices')
+def _check_kernel_inputs(name: str, levels: Sequence[torch.Tensor],
+                         coords: Sequence[torch.Tensor], n: int, radius: int,
+                         out_dtype: torch.dtype) -> None:
+    """Raise on what the lookup kernel does not take."""
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f'{name}: {len(levels)} levels; the kernel takes '
+                         f'1 to {MAX_LEVELS}')
+    if radius not in RADII:
+        raise ValueError(f'{name}: radius {radius}; the kernel is built for '
+                         f'{RADII}')
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f'{name}: output dtype {out_dtype}; the kernel '
+                         f'writes {OUT_DTYPES}')
+    for t in (*levels, *coords):
+        if t.device != coords[0].device:
+            raise ValueError(f'{name}: tensors on different devices')
         if t.dtype != torch.float32:
-            raise ValueError(f'window_lookup: float32 only, got {t.dtype}')
+            raise ValueError(f'{name}: float32 only, got {t.dtype}')
         if not t.is_contiguous():
-            raise ValueError('window_lookup: inputs must be contiguous')
-    if x.shape != (n,) or y.shape != (n,):
-        raise ValueError(f'window_lookup: coords {tuple(x.shape)} / '
-                         f'{tuple(y.shape)} do not match {n} queries')
+            raise ValueError(f'{name}: inputs must be contiguous')
+    for lv in levels:
+        if lv.dim() != 3 or lv.shape[0] != n:
+            raise ValueError(f'{name}: level {tuple(lv.shape)} is not '
+                             f'[{n}, h, w]')
+
+
+def _launch(levels: Sequence[torch.Tensor], x_ptr: int, y_ptr: int,
+            stride: int, n: int, radius: int,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of the lookup kernel over all levels, on inputs that
+    _check_kernel_inputs passed. Query i's coordinates are the f32 values
+    at x_ptr and y_ptr, advanced by i * stride elements. Returns
+    [n, len(levels) * (2r+1)^2] in out_dtype."""
     p = 2 * radius + 1
-    out = torch.empty((n, p, p), dtype=torch.float32, device=level.device)
+    dev = levels[0].device
+    nl = len(levels)
+    out = torch.empty((n, nl * p * p), dtype=out_dtype, device=dev)
+    ptrs = (ctypes.c_void_p * nl)(*(lv.data_ptr() for lv in levels))
+    hs = (ctypes.c_int * nl)(*(lv.shape[1] for lv in levels))
+    ws = (ctypes.c_int * nl)(*(lv.shape[2] for lv in levels))
     lib = _lookup_lib()
-    with torch.cuda.device(level.device):
-        stream = torch.cuda.current_stream(level.device).cuda_stream
-        err = lib.cwm_window_lookup(level.data_ptr(), x.data_ptr(),
-                                    y.data_ptr(), out.data_ptr(), n, h, w,
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cwm_window_lookup(ptrs, hs, ws, nl, x_ptr, y_ptr, stride,
+                                    out.data_ptr(),
+                                    int(out_dtype == torch.bfloat16), n,
                                     radius, stream)
     kernels.check(err, 'window_lookup kernel')
     kernels.LAUNCHES['window_lookup'] += 1
     return out
 
 
-def lookup_pyramid(pyramid: List[torch.Tensor], coords: torch.Tensor,
-                   radius: int) -> torch.Tensor:
-    """Index the (unpadded) correlation pyramid around coords [B, H, W, 2]
-    (x, y) at 1/8 resolution. Returns [B, H, W, levels * (2r+1)^2], levels
-    outer; within a level, offset (i, j) row-major where i offsets x."""
+def window_lookup(level: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  radius: int) -> torch.Tensor:
+    """Bilinear (2r+1)^2 window of each query on its UNPADDED level row.
+
+    level: f32 [N, h, w]; x, y: f32 [N] coords in the level's frame.
+    Returns f32 [N, 2r+1, 2r+1] in [x-offset, y-offset] order, zeros
+    outside the level. CUDA: a one-level call of the lookup kernel; CPU:
+    ``_window_lookup``."""
+    n, h, w = level.shape
+    if level.device.type == 'cpu':
+        return _window_lookup(pad_pyramid([level], radius)[0], x, y, radius,
+                              h, w)
+    _check_kernel_inputs('window_lookup', [level], [x, y], n, radius,
+                         torch.float32)
+    if x.shape != (n,) or y.shape != (n,):
+        raise ValueError(f'window_lookup: coords {tuple(x.shape)} / '
+                         f'{tuple(y.shape)} do not match {n} queries')
+    p = 2 * radius + 1
+    return _launch([level], x.data_ptr(), y.data_ptr(), 1, n, radius,
+                   torch.float32).reshape(n, p, p)
+
+
+def _lookup_pyramid(pyramid: List[torch.Tensor], coords: torch.Tensor,
+                    radius: int) -> torch.Tensor:
+    """Plain version of the pyramid lookup: ``_window_lookup`` on each
+    padded level at coords / 2^i, concatenated. Returns f32
+    [B, H, W, levels * (2r+1)^2]."""
     b, h, w, _ = coords.shape
     p = 2 * radius + 1
-    x = coords[..., 0].reshape(b * h * w).float().contiguous()
-    y = coords[..., 1].reshape(b * h * w).float().contiguous()
-    out = [window_lookup(level, x / (2 ** i), y / (2 ** i), radius)
-           .reshape(b, h, w, p * p)
+    x = coords[..., 0].reshape(b * h * w)
+    y = coords[..., 1].reshape(b * h * w)
+    out = [_window_lookup(pad_pyramid([level], radius)[0], x / (2 ** i),
+                          y / (2 ** i), radius, level.shape[1],
+                          level.shape[2]).reshape(b, h, w, p * p)
            for i, level in enumerate(pyramid)]
     return torch.cat(out, dim=-1)
+
+
+def lookup_pyramid(pyramid: List[torch.Tensor], coords: torch.Tensor,
+                   radius: int, out_dtype: torch.dtype = torch.float32
+                   ) -> torch.Tensor:
+    """Index the (unpadded) correlation pyramid around coords [B, H, W, 2]
+    (x, y) at 1/8 resolution. Returns [B, H, W, levels * (2r+1)^2], levels
+    outer; within a level, offset (i, j) row-major where i offsets x.
+
+    The sums are f32; ``out_dtype`` is the dtype of the result (bf16 for a
+    consumer that computes in bf16: the f32 result rounded to nearest even).
+    CUDA: one launch of the lookup kernel for all levels, which reads coords
+    in place; CPU: ``_lookup_pyramid``."""
+    if coords.device.type == 'cpu':
+        return _lookup_pyramid(pyramid, coords, radius).to(out_dtype)
+    b, h, w, two = coords.shape
+    n = b * h * w
+    _check_kernel_inputs('lookup_pyramid', pyramid, [coords], n, radius,
+                         out_dtype)
+    if two != 2:
+        raise ValueError(f'lookup_pyramid: coords {tuple(coords.shape)} are '
+                         'not [B, H, W, 2]')
+    ptr = coords.data_ptr()
+    return _launch(pyramid, ptr, ptr + coords.element_size(), 2, n, radius,
+                   out_dtype).reshape(b, h, w, -1)

@@ -6,7 +6,8 @@ convolutions are NCHW as well, while coordinates, the correlation lookup
 and the convex upsampling keep the JAX package's [B, H, W, 2] layout. The
 convolutions run in the compute dtype; the feature maps, the correlation
 volume and the coordinates stay f32. Every refinement iteration looks the
-correlation pyramid up through the window-lookup kernel on CUDA.
+correlation pyramid up with one launch of the window-lookup kernel on CUDA,
+which sums in f32 and writes the compute dtype that ``convc1`` reads.
 """
 from __future__ import annotations
 
@@ -103,7 +104,8 @@ class RAFT(nn.Module):
         up_mask = torch.zeros(b, h8, w8, 9 * 64, dtype=self.dtype,
                               device=net.device)
         for _ in range(iters):
-            corr_feat = lookup_pyramid(pyramid, coords1, self.radius)
+            corr_feat = lookup_pyramid(pyramid, coords1, self.radius,
+                                       self.dtype)
             flow = coords1 - coords0
             net, mask, delta = self.update_block(
                 net, inp, corr_feat.permute(0, 3, 1, 2),

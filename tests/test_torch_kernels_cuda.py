@@ -14,7 +14,8 @@ Tolerances: f32 2e-5 / 3e-5 (the JAX kernel tests' bounds: sums in another
 order); bf16 2e-2 (outputs of magnitude ~1 differ by a couple of bf16 ulps:
 the kernel rounds the unnormalised probabilities to bf16 before P.V, as
 the JAX kernel does, where the plain version rounds the normalised ones);
-the lookup 1e-5. The training pair: the lse at 1e-4 and the f32 gradients
+the lookup 1e-5 (sums in another order), and its bf16 output bitwise
+the f32 output cast. The training pair: the lse at 1e-4 and the f32 gradients
 at atol 2e-4 / rtol 1e-4 (tests/test_flash_attention.py's bounds); bf16
 gradients within 2e-2 of their largest magnitude.
 """
@@ -113,6 +114,56 @@ def test_window_lookup_kernel_matches_plain(dev):
         assert _err(out, ref) <= 1e-5
     with pytest.raises(ValueError, match='float32'):
         corr.window_lookup(level.double(), x.double(), y.double(), 4)
+
+
+@pytest.mark.parametrize('radius', [3, 4])
+@pytest.mark.parametrize('levels', [1, 2, 3, 4])
+def test_lookup_pyramid_kernel_matches_plain(dev, levels, radius):
+    """All levels in one launch, against the plain path, with query counts
+    that are no multiple of the kernel's 16-query tile, coordinates 8 px
+    past every edge, odd level sizes (7x9 -> 3x4 -> 1x2 -> 0x1), a 0x0
+    level (4x4 -> 2x2 -> 1x1 -> 0x0) and the dispatch's 28x28. The bf16
+    output is bitwise the f32 output cast."""
+    rng = np.random.RandomState(10 * levels + radius)
+    p = 2 * radius + 1
+    for b, h, w, h2, w2 in [(1, 5, 7, 7, 9), (2, 3, 3, 4, 4),
+                            (1, 3, 37, 28, 28)]:
+        pyramid = corr.build_pyramid(_rand(rng, b, h, w, h2, w2).to(dev),
+                                     levels)
+        coords = torch.from_numpy((rng.rand(b, h, w, 2) * (max(h2, w2) + 16)
+                                   - 8).astype(np.float32)).to(dev)
+        before = kernels.LAUNCHES['window_lookup']
+        out = corr.lookup_pyramid(pyramid, coords, radius)
+        assert kernels.LAUNCHES['window_lookup'] == before + 1
+        assert out.dtype == torch.float32
+        assert out.shape == (b, h, w, levels * p * p)
+        ref = corr._lookup_pyramid(pyramid, coords, radius)
+        assert _err(out, ref) <= 1e-5, (b, h, w, h2, w2)
+        out_bf16 = corr.lookup_pyramid(pyramid, coords, radius,
+                                       torch.bfloat16)
+        assert kernels.LAUNCHES['window_lookup'] == before + 2
+        assert out_bf16.dtype == torch.bfloat16
+        assert torch.equal(out_bf16, out.to(torch.bfloat16))
+
+
+def test_lookup_pyramid_kernel_rejects_what_it_does_not_take(dev):
+    level = torch.zeros(6, 4, 4, device=dev)
+    coords = torch.zeros(1, 2, 3, 2, device=dev)
+    with pytest.raises(ValueError, match='5 levels'):
+        corr.lookup_pyramid([level] * 5, coords, 4)
+    with pytest.raises(ValueError, match='float32'):
+        corr.lookup_pyramid([level, level.double()], coords, 4)
+    with pytest.raises(ValueError, match='float32'):
+        corr.lookup_pyramid([level], coords.double(), 4)
+    with pytest.raises(ValueError, match='radius'):
+        corr.lookup_pyramid([level], coords, 5)
+    with pytest.raises(ValueError, match='output dtype'):
+        corr.lookup_pyramid([level], coords, 4, torch.float16)
+    with pytest.raises(ValueError, match='contiguous'):
+        corr.lookup_pyramid([level], coords.transpose(1, 2).contiguous()
+                            .transpose(1, 2), 4)
+    with pytest.raises(ValueError, match='level'):
+        corr.lookup_pyramid([torch.zeros(5, 4, 4, device=dev)], coords, 4)
 
 
 _BWD_SHAPES = [(2, 3, 100, 77, 16), (1, 2, 64, 64, 32), (2, 2, 130, 200, 64),

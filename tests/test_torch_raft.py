@@ -67,6 +67,35 @@ def test_pyramid_and_lookup_match_jax():
     assert_close(out.numpy(), ref, 1e-5)
 
 
+@pytest.mark.parametrize('h,w,ref', [(4, 4, 'gather'), (7, 9, 'gather'),
+                                     (8, 8, 'lanes')])
+def test_lookup_pyramid_four_levels_match_jax(h, w, ref):
+    """The lookup as RAFT calls it: four levels at r = 4, coordinates 8 px
+    past every edge. 4x4 (a 32 px image: level 3 is 0x0) and 7x9 (level 3
+    is 0x1) against the JAX gather path; 8x8 against the lanes kernel (K3)
+    in interpret mode, which cannot take an empty level."""
+    rng = np.random.RandomState(7)
+    f1 = rng.randn(2, h, w, 16).astype(np.float32)
+    f2 = rng.randn(2, h, w, 16).astype(np.float32)
+    coords = (rng.rand(2, h, w, 2) * (max(h, w) + 16) - 8).astype(np.float32)
+    jc = jcorr.all_pairs_correlation(jnp.asarray(f1), jnp.asarray(f2))
+    if ref == 'gather':
+        want = jcorr.lookup_pyramid(jcorr.build_pyramid(jc, 4),
+                                    jnp.asarray(coords), 4)
+    else:
+        want = jcorr.lookup_pyramid_lanes(jcorr.build_pyramid_lanes(jc, 4),
+                                          jnp.asarray(coords), 4,
+                                          force_kernel=True)
+    tp = tcorr.build_pyramid(tcorr.all_pairs_correlation(t(f1), t(f2)), 4)
+    before = dict(kernels.LAUNCHES)
+    out = tcorr.lookup_pyramid(tp, t(coords), 4)
+    assert kernels.LAUNCHES == before   # CPU tensors: plain version
+    assert out.shape == (2, h, w, 4 * 81)
+    assert_close(out.numpy(), want, 1e-5)
+    assert torch.equal(tcorr.lookup_pyramid(tp, t(coords), 4, torch.bfloat16),
+                       out.to(torch.bfloat16))
+
+
 def test_convex_upsample_and_coords_grid_match_jax():
     rng = np.random.RandomState(2)
     flow = rng.randn(2, 3, 5, 2).astype(np.float32)
