@@ -4,12 +4,14 @@
     python3 chip_smoke.py [--record PATH]
 
 Builds the port's CUDA kernels from ``counterfactualworldmodels_tpu_torch/
-csrc`` and drives its two paths through the entry points a user calls: the
-shared-prefix counterfactual-flow dispatch
+csrc`` and drives its two paths through the entry points a user calls:
+counterfactual flows, through the shared-prefix dispatch
 ``pipelines.segmentation.counterfactual_videos_and_flows_fast`` (ViT-L 4x4
-@224 + RAFT-24, bf16, S = 16 prompts) and VMAE training
-``training.train.make_train_step`` (ViT-L 4x4 @224, bf16, batch 4, mask
-ratio 0.9), both from seeded random weights. Phases:
+@224 + RAFT-24, bf16, S = 16 prompts) and through ``FlowGenerator``, which
+serves the motion maps, the per-click predictions and the multi-scene
+dispatch; and VMAE training ``training.train.make_train_step`` (ViT-L 4x4
+@224, bf16, batch 4, mask ratio 0.9), all from seeded random weights.
+Phases:
 
 1. device: name, power limit, torch and CUDA versions;
 2. build: nvcc for sm_90a, with the seconds it took; each kernel's
@@ -27,10 +29,23 @@ ratio 0.9), both from seeded random weights. Phases:
    and decoder training shapes, with K6's determinism check;
 4. both paths at the tests' small configurations on the card and on the
    CPU (f32, TF32 off): masks equal, videos and flows within tolerance;
-   three train steps with equal losses and gradient norms;
+   three train steps with equal losses and gradient norms; FlowGenerator
+   on both engines from the same draws (videos within 1e-4, flows within
+   1e-3 px);
 5. the full-width dispatch at the library-default rung and the exact rung:
    shapes, finite flows, visible frame-1 pixels pasted unchanged, and the
-   launch counts that show every kernel of the path ran;
+   launch counts that show every kernel of the path ran; then (5b)
+   ``pipelines.segmentation.FlowGenerator`` on the same weights: (a) a cold
+   scene's motion map (K1 36, K2 12, lookup 24, one LRU miss), held against
+   the direct dispatch on its prompts and draws, (b) the same scene again
+   (K1 0, K2 12, lookup 24, one hit), (c) a per-click predict on the warm
+   scene (K2 12 only), (d) the exact engine on 4 prompts (K1 36, lookup
+   24), (e) the multi-scene dispatch over 4 scenes' stacked prefix caches
+   (K2 12, each with s0 = 4, lookup 24); each timed, median of 3 after a
+   warm-up, with the generator's overhead over the direct dispatch, (a)'s
+   time split within a call (sampler, chunk, filter, the rest) on 3 more
+   cold scenes, and the LRU key's host time; the default dispatch's
+   profile comes after these;
 6. full-width training: one warm-up and three timed steps with finite
    losses, sec/step, clips/s, MFU and peak memory, and the launch counts
    of every step (K5 72, K6 36, K1 0); then the exact forward
@@ -82,6 +97,11 @@ SM90_KERNELS = {'attention': ('attention_fwd_sm90',),
                 'attention_bwd': ('dkdv_sm90', 'dq_sm90')}
 HEAD_DIMS = (16, 32, 64, 128)
 S_FULL = 16
+# the tests' small VMAE (tests/torch_port_common.SMALL_VMAE)
+SMALL_VMAE = dict(img_size=(32, 32), patch_size=(4, 4), encoder_embed_dim=64,
+                  encoder_depth=3, encoder_num_heads=4, decoder_embed_dim=32,
+                  decoder_depth=2, decoder_num_heads=2, num_frames=2,
+                  qkv_bias=True)
 B_TRAIN = 4
 MASK_RATIO = 0.9
 
@@ -272,7 +292,8 @@ def attention_cases(torch, F, fa, rec):
     k2_cases = [  # (label, S, H, Nq, N0, N1, S0, w0, w1)
         ('exact rung', 16, 8, 3136, 3136, 3136, 1, 1.0, 1.0),
         ('pool4 rung', 16, 8, 3136, 196, 196, 1, 16.0, 16.0),
-        ('stacked prefixes s0=S', 4, 8, 3136, 196, 196, 4, 16.0, 16.0),
+        # the multi-scene dispatch: 4 scenes' prefixes, the exact rung
+        ('stacked prefixes s0=S', 4, 8, 3136, 3136, 3136, 4, 1.0, 1.0),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split('.')[1]
@@ -723,7 +744,9 @@ def full_width(torch, port, rec, smi):
     g = torch.Generator(device=dev).manual_seed(0)
     sd = weights.init_vmae_state_dict(model, g)
     fp = fast_vmae.stack_vmae_params(model, sd, torch.bfloat16, dev)
-    del sd
+    # the f32 reference-layout weights wait on the host for phase 5b's
+    # generator, out of the dispatch's peak memory
+    sd = {k: v.cpu() for k, v in sd.items()}
     raft = weights.init_raft(RAFT(iters=24, dtype=torch.bfloat16,
                                   device=dev), g)
     torch.cuda.synchronize()
@@ -791,15 +814,375 @@ def full_width(torch, port, rec, smi):
                  sims_per_s=S_FULL / (ms / 1e3),
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                  card=smi)
-        if name == 'default':
-            r['profile'] = profile_dispatch(torch, lambda: dispatch(rung))
         results.append(r)
         rec['phase5'].append(r)
         log('5 full width', json.dumps(r))
         if not (ok_shapes and finite and masks_ok and pasted
                 and launches == expect):
             raise AssertionError(f'full-width {name} rung failed: {r}')
-    return results
+    # the seeded weights, for phase 5b, and the default dispatch, profiled
+    # after phase 5b has timed the generator
+    return results, dict(model=model, sd=sd, fp=fp, raft=raft,
+                         default=default,
+                         default_ms=results[0]['ms_per_dispatch'],
+                         dispatch=lambda: dispatch(default))
+
+
+def fixed_draws(torch, gen, seed):
+    """Give a FlowGenerator numpy-seeded draws (shifts, rectangularizer
+    noise, the patch sampler's indices) on its device, so that generators
+    on two devices build the same prompts."""
+    rng = np.random.RandomState(seed)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(gen.device)
+
+    gen._draw_shifts = lambda s: tensor(rng.randint(-2, 3, (s, 2)))
+    gen._draw_prompt_noise = lambda rows, n: tensor(
+        (rng.rand(rows, n) * 0.999).astype(np.float32))
+    gen._draw_patch_indices = lambda p, k: tensor(
+        rng.randint(0, p.shape[1], (p.shape[0], k)))
+    return gen
+
+
+def small_generator(torch, port, rec):
+    """FlowGenerator at the small configuration, f32, on the card and on
+    the CPU from the same weights and draws: sample_counterfactual_motion_map
+    and predict_counterfactual_videos_and_flows on both engines, with the
+    launch counts of each run (none on the CPU)."""
+    from counterfactualworldmodels_tpu_torch.models import vmae
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.pipelines.segmentation import (
+        FlowGenerator)
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = vmae.PretrainVisionTransformer(**SMALL_VMAE)
+    sd = weights.init_vmae_state_dict(model, torch.Generator().manual_seed(0))
+    raft_cpu = weights.init_raft(RAFT(iters=2, device='cpu'),
+                                 torch.Generator().manual_seed(1))
+    rng = np.random.RandomState(6)
+    x = rng.rand(1, 3, 32, 32).astype(np.float32)
+    n, n0 = model.num_patches, model.num_patches_per_frame
+    active = np.ones((1, n, 4), dtype=bool)
+    active[:, :n0] = False
+    for i in range(4):
+        active[0, n0 + rng.choice(n0, 2, replace=False), i] = False
+    path = ('flash_attention', 'flash_attention_prefix', 'window_lookup')
+    expect_gpu = {'fast': path, 'exact': ('flash_attention', 'window_lookup')}
+    for engine in ('fast', 'exact'):
+        outs = {}
+        for dev in ('cpu', 'cuda'):
+            raft = raft_cpu
+            if dev == 'cuda':
+                raft = RAFT(iters=2, device='cuda')
+                raft.load_state_dict(raft_cpu.state_dict(), strict=True)
+            gen = fixed_draws(torch, FlowGenerator(
+                predictor=model, params=sd, flow_model=raft, raft_iters=2,
+                imagenet_normalize_inputs=True, engine=engine, device=dev), 7)
+            port.kernels.reset_launches()
+            fl, act, _ = gen.sample_counterfactual_motion_map(
+                x, num_samples=4, sample_batch_size=2, do_filter=False)
+            y, f = gen.predict_counterfactual_videos_and_flows(
+                x, active, num_samples=4, sample_batch_size=4)
+            outs[dev] = ([v.cpu() for v in (fl, act, y, f)],
+                         dict(port.kernels.LAUNCHES))
+        (c, lc), (g, lg) = outs['cpu'], outs['cuda']
+        r = dict(case=f'generator {engine}', masks_equal=bool(
+            torch.equal(c[1], g[1])), video_err=max_err(c[2], g[2]),
+            flow_err=max(max_err(c[0], g[0]), max_err(c[3], g[3])),
+            launches_cpu=lc, launches_gpu=lg, tol_video=1e-4, tol_flow=1e-3)
+        rec['phase4'].append(r)
+        log('4 small generator', json.dumps(r))
+        used = expect_gpu[engine]
+        if not (r['masks_equal'] and r['video_err'] <= 1e-4
+                and r['flow_err'] <= 1e-3 and not any(lc.values())
+                and all(lg[k] for k in used)
+                and not any(v for k, v in lg.items() if k not in used)):
+            raise AssertionError(f'small generator card vs CPU: {r}')
+
+
+def timed_runs(torch, port, fn, check, reps=4):
+    """fn() reps times (the first a warm-up), each from launch counts of 0
+    and ending in a synchronize; check(i, launches, out) after each.
+    Returns (median ms of the timed runs, their ms)."""
+    times = []
+    for i in range(reps):
+        port.kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(i, dict(port.kernels.LAUNCHES), out)
+        if i:
+            times.append(ms)
+    return float(np.median(times)), times
+
+
+def generator_phase(torch, port, rec, smi, ctx):
+    """FlowGenerator at full width through the calls a user makes, on
+    phase 5's weights, at the default rung: (a) a cold scene's motion map,
+    (b) the same scene again, (c) a per-click predict on the warm scene,
+    (d) the exact engine on 4 prompts, (e) the multi-scene dispatch over 4
+    scenes' stacked prefix caches. Each with its launch counts and LRU
+    hits, timed (median of 3 after a warm-up) before any profiler use; (a)
+    held against the direct dispatch on the same prompts and draws."""
+    import dataclasses
+    from counterfactualworldmodels_tpu_torch.models import fast_vmae
+    from counterfactualworldmodels_tpu_torch.pipelines import segmentation
+    dev = torch.device('cuda')
+    cfg = dataclasses.replace(ctx['model'], dtype=torch.bfloat16)
+    n, n0 = cfg.num_patches, cfg.num_patches_per_frame
+    n1 = n - n0
+    raft, sd = ctx['raft'], ctx['sd']
+    depth = cfg.encoder_depth + cfg.decoder_depth
+    zeros = {name: 0 for name in port.kernels.LAUNCHES}
+    t0 = time.perf_counter()
+    gen = segmentation.FlowGenerator(
+        predictor=cfg, params=sd, flow_model=raft, raft_iters=24,
+        imagenet_normalize_inputs=True, seed=0, engine='fast', device=dev)
+    rng = np.random.RandomState(11)
+    scenes = [torch.from_numpy(rng.rand(1, 3, 224, 224).astype(np.float32))
+              .to(dev) for _ in range(4)]
+    out = {'config': 'large_4x4patch_2frames_1tube bf16 + RAFT-24 bf16',
+           'rung': list(gen._pool_config(224, 224)), 'card': smi}
+    failures = []
+
+    def expect(name, want, got, extra=True):
+        if got != dict(zeros, **want) or not extra:
+            failures.append(f'{name}: launches {got}, want {want}')
+
+    # (a) a cold scene per run: 36 K1 (the prefix), 12 K2, 24 lookups, one
+    # LRU miss. The warm-up run is held against the direct dispatch.
+    seen = {}
+    real_chunk = gen._counterfactual_chunk
+
+    def chunk_spy(*args):
+        y, fl, m = real_chunk(*args)
+        seen.update(args=args, y=y, fl=fl, m=m)
+        return y, fl, m
+
+    def run_a(i):
+        if i == 0:
+            gen._counterfactual_chunk = chunk_spy
+        misses = gen._prefix_lru.misses if gen._prefix_lru else 0
+        res = gen.sample_counterfactual_motion_map(
+            scenes[i], num_active_patches=1, num_samples=S_FULL,
+            sample_batch_size=S_FULL)
+        if i == 0:
+            del gen._counterfactual_chunk
+        return res, gen._prefix_lru.misses - misses
+
+    def check_a(i, launches, res):
+        (flows, act, pas), new_misses = res
+        expect('(a)', dict(flash_attention=depth,
+                           flash_attention_prefix=cfg.decoder_depth,
+                           window_lookup=24), launches,
+               new_misses == 1 and tuple(flows.shape) == (1, 2, 224, 224,
+                                                          S_FULL)
+               and bool(torch.isfinite(flows).all()))
+
+    out['a_cold_scene'] = ms_a = timed_runs(torch, port, run_a, check_a)
+    x, passive, active, shifts, noise, n_vis, iters, _ = seen['args']
+    pad = fast_vmae.sfx_bucket(n_vis - n0, n1)
+
+    def direct(cache=None):
+        return segmentation.counterfactual_videos_and_flows_fast(
+            cfg, ctx['fp'], raft, x, passive, active, shifts, noise, pad,
+            True, 24, True, True, True, cache, *ctx['default'], n_vis=n_vis)
+
+    y_d, f_d, m_d = direct()
+    agree = dict(masks_bitwise=bool(torch.equal(m_d, seen['m'])),
+                 video_max_abs_diff=max_err(y_d, seen['y']),
+                 flow_max_abs_diff=max_err(f_d, seen['fl']),
+                 flow_max_abs=float(f_d.float().abs().max()),
+                 video_tol=REL_BF16 * float(y_d.float().abs().max()))
+    out['a_vs_direct'] = agree
+    log('5b generator', 'a vs direct ' + json.dumps(agree))
+    if not (agree['masks_bitwise']
+            and agree['video_max_abs_diff'] <= agree['video_tol']):
+        failures.append(f'(a) against the direct dispatch: {agree}')
+    cache0, _ = gen._prefix_lru.get(scenes[0][0:1])
+    out['direct_cold_ms'] = timed_runs(torch, port, lambda i: direct(),
+                                       lambda *a: None)[0]
+    out['direct_warm_ms'] = timed_runs(torch, port, lambda i: direct(cache0),
+                                       lambda *a: None)[0]
+    del y_d, f_d, m_d, seen
+
+    # (b) the same scene again: the LRU hits, no K1
+    def run_b(i):
+        hits = gen._prefix_lru.hits
+        res = gen.sample_counterfactual_motion_map(
+            scenes[3], num_active_patches=1, num_samples=S_FULL,
+            sample_batch_size=S_FULL)
+        return res, gen._prefix_lru.hits - hits
+
+    def check_b(i, launches, res):
+        expect('(b)', dict(flash_attention_prefix=cfg.decoder_depth,
+                           window_lookup=24), launches, res[1] == 1)
+
+    out['b_warm_scene'] = timed_runs(torch, port, run_b, check_b)
+
+    # (c) a per-click predict on the warm scene: the suffix pass only
+    x2 = torch.cat([scenes[3][:, None],
+                    torch.from_numpy(rng.rand(1, 1, 3, 224, 224).astype(
+                        np.float32)).to(dev)], 1)
+    mask = np.ones((1, n), dtype=bool)
+    mask[0, :n0] = False
+    mask[0, n0 + rng.choice(n1, 33, replace=False)] = False
+    mask = torch.from_numpy(mask).to(dev)
+
+    def run_c(i):
+        hits = gen._prefix_lru.hits
+        return gen.predict(x2, mask, frame=None), gen._prefix_lru.hits - hits
+
+    def check_c(i, launches, res):
+        vid, hit = res
+        expect('(c)', dict(flash_attention_prefix=cfg.decoder_depth),
+               launches, hit == 1 and tuple(vid.shape) == (1, 2, 3, 224, 224)
+               and bool(torch.isfinite(vid).all()))
+
+    out['c_click_predict'] = timed_runs(torch, port, run_c, check_c)
+
+    # (d) the exact engine on 4 prompts: apply_vmae (K1 in every block)
+    exact = segmentation.FlowGenerator(
+        predictor=cfg, params=sd, flow_model=raft, raft_iters=24,
+        imagenet_normalize_inputs=True, seed=0, engine='exact', device=dev)
+    act4 = active[..., :4]
+
+    def run_d(i):
+        return exact.predict_counterfactual_videos_and_flows(
+            scenes[3], act4, num_samples=4, sample_batch_size=4)
+
+    def check_d(i, launches, res):
+        y, f = res
+        expect('(d)', dict(flash_attention=depth, window_lookup=24),
+               launches, tuple(f.shape) == (4, 1, 2, 224, 224)
+               and bool(torch.isfinite(f).all()) and exact._prefix_lru is None)
+
+    out['d_exact_engine'] = timed_runs(torch, port, run_d, check_d)
+    del exact
+
+    # (e) one prompt on each of 4 scenes, their cached prefixes stacked:
+    # K2 reads per-sample prefix panels (s0 = S)
+    hits = gen._prefix_lru.hits
+    stacked = fast_vmae.stack_prefix_caches(
+        [gen._prefix_lru.get(sc[0:1])[0] for sc in scenes])
+    if gen._prefix_lru.hits - hits != 4:
+        failures.append('(e): the 4 scenes are not all in the LRU')
+    xs = torch.cat([sc[:, None].expand(1, 2, 3, 224, 224) for sc in scenes])
+    pas_e = torch.ones(4, n, dtype=torch.bool, device=dev)
+    pas_e[:, :n0] = False
+    act_e = pas_e.clone()
+    act_e[torch.arange(4, device=dev), n0 + torch.from_numpy(
+        rng.choice(n1, 4)).to(dev)] = False
+    sh_e = torch.from_numpy(rng.randint(-3, 4, (4, 2))).to(dev)
+    noise_e = torch.rand(4, n1, generator=torch.Generator(dev).manual_seed(5),
+                         device=dev) * 0.999
+    s0_seen = []
+    real_k2 = fast_vmae.flash_attention_prefix
+
+    def k2_spy(q, k0, *a, **k):
+        s0_seen.append(k0.shape[0])
+        return real_k2(q, k0, *a, **k)
+
+    def run_e(i):
+        if i == 0:
+            fast_vmae.flash_attention_prefix = k2_spy
+        try:
+            return segmentation.counterfactual_videos_and_flows_fast_multi(
+                cfg, gen._fast_params, raft, xs, pas_e, act_e, sh_e,
+                fast_vmae.sfx_bucket(1, n1), True, 24, True, True, True,
+                noise_e, stacked, n_vis=n0 + 1, device=dev)
+        finally:
+            fast_vmae.flash_attention_prefix = real_k2
+
+    def check_e(i, launches, res):
+        y, f, m = res
+        expect('(e)', dict(flash_attention_prefix=cfg.decoder_depth,
+                           window_lookup=24), launches,
+               tuple(f.shape) == (4, 1, 2, 224, 224)
+               and bool(torch.isfinite(f).all()))
+
+    out['e_multi_scene'] = timed_runs(torch, port, run_e, check_e)
+    out['e_k2_prefix_batch'] = s0_seen
+    if s0_seen != [4] * cfg.decoder_depth:
+        failures.append(f'(e): K2 prefix batch dims {s0_seen}')
+
+    # the LRU key: sha1 over frame 0 copied from the card
+    key_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fast_vmae.HashLru._key(scenes[0][0:1])
+        key_ms.append((time.perf_counter() - t1) * 1e3)
+    out['lru_key_ms'] = float(np.median(key_ms))
+
+    # (a) split within each call, on 3 more cold scenes (last: they evict
+    # the scenes above from the LRU): the sampler, the chunk (the LRU
+    # lookup with the prefix passes on a miss, then the dispatch) and the
+    # filter, each between synchronizations; the rest is the generator's
+    # own host work. Two runs' medians differ by more than the overhead,
+    # one call's split does not.
+    split = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + (time.perf_counter() - t1) * 1e3
+            return res
+        return wrapper
+
+    filt = gen.flow_sample_filter
+    gen.sample_patches_from_energy = timed('sampler',
+                                           gen.sample_patches_from_energy)
+    gen._counterfactual_chunk = timed('chunk', gen._counterfactual_chunk)
+    gen.flow_sample_filter = timed('filter', filt)
+    splits = []
+    try:
+        for _ in range(3):
+            scene = torch.from_numpy(rng.rand(1, 3, 224, 224).astype(
+                np.float32)).to(dev)
+            split.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            gen.sample_counterfactual_motion_map(
+                scene, num_active_patches=1, num_samples=S_FULL,
+                sample_batch_size=S_FULL)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t1) * 1e3
+            splits.append(dict(split, total=total,
+                               rest=total - sum(split.values())))
+    finally:
+        del gen.sample_patches_from_energy, gen._counterfactual_chunk
+        gen.flow_sample_filter = filt
+    out['a_split_ms'] = splits
+    out['lru'] = dict(hits=gen._prefix_lru.hits, misses=gen._prefix_lru.misses)
+    out['overhead_ms'] = dict(
+        a_over_direct_cold=ms_a[0] - out['direct_cold_ms'],
+        b_over_direct_warm=out['b_warm_scene'][0] - out['direct_warm_ms'],
+        a_over_phase5_default=ms_a[0] - ctx['default_ms'],
+        a_outside_chunk_median=float(np.median(
+            [s['total'] - s['chunk'] for s in splits])))
+    out['seconds'] = time.perf_counter() - t0
+    rec['phase5b'] = out
+    log('5b generator', json.dumps(out))
+    log('5b generator', 'overhead over the direct dispatch (ms): '
+        + json.dumps(out['overhead_ms']))
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return out
+
+
+def profile_default(torch, rec, ctx):
+    """The default dispatch under torch.profiler, after every timed run of
+    phases 5 and 5b (its after-cost would move them)."""
+    rec['phase5'][0]['profile'] = profile_dispatch(torch, ctx['dispatch'])
+    log('5 profile', json.dumps(rec['phase5'][0]['profile']))
 
 
 def convc1_kernels(torch, rec):
@@ -1112,8 +1495,15 @@ def main():
         phase('3 kernels', training_kernel_cases, torch, F, fa, rec)
         phase('4 small slice', small_slice, torch, port, rec)
         phase('4 small train', small_train, torch, port, rec)
+        phase('4 small generator', small_generator, torch, port, rec)
         torch.backends.cudnn.allow_tf32 = True
         full = phase('5 full width', full_width, torch, port, rec, smi)
+        if full is not None:
+            phase('5b generator', generator_phase, torch, port, rec, smi,
+                  full[1])
+            phase('5 profile', profile_default, torch, rec, full[1])
+            full = full[0]
+            torch.cuda.empty_cache()
         train = phase('6 train', full_train, torch, port, rec, smi)
         phase('7 convc1', convc1_kernels, torch, rec)
     rec['failed'] = failed

@@ -1,12 +1,15 @@
-"""Mask generators: the training policy. Port of
+"""Mask generators: the training policy and the energy sampler. Port of
 counterfactualworldmodels_tpu/masking/generators.py (``uniform_frame_mask``,
-``uniform_mask`` and ``rotated_table_uniform_mask`` so far).
+``uniform_mask``, ``rotated_table_uniform_mask``, the energy family and the
+class wrappers ``MaskingGenerator``, ``EnergySamplingMaskingGenerator`` and
+``RotatedTableEnergyMaskingGenerator`` so far).
 
 Popcounts are exact by construction (uniform scores + a stable argsort),
 as in the JAX package. Randomness is an input: each function takes its
-draws (``scores``, ``offsets``) or draws them from a ``torch.Generator``.
-Given the JAX package's draws for a key, the masks are bitwise those of the
-JAX function for that key.
+draws (``scores``, ``offsets``, categorical ``indices``) or draws them from
+a ``torch.Generator``. Given the JAX package's draws for a key, the masks
+are bitwise those of the JAX function for that key. A class wrapper owns a
+seeded ``torch.Generator`` where the JAX class owns a key.
 
 Mask convention: bool, True = masked, flattened frame-major then row-major.
 """
@@ -15,6 +18,10 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from .._device import resolve_device
+from ..ops.sampling import Indices, resolve_indices
+from .mask_ops import upsample_masks
 
 
 def _canonical_clump(clumping_factor) -> Tuple[int, int]:
@@ -125,3 +132,231 @@ def rotated_table_uniform_mask(input_size: Sequence[int], mask_ratio: float,
     vis = torch.zeros((batch_size, visible_frames * h * w), dtype=torch.bool,
                       device=rest.device)
     return torch.cat([vis, rest], dim=-1)
+
+
+def _pool_energy(energy: torch.Tensor, out_hw: Tuple[int, int],
+                 pool_mode: str = 'mean') -> torch.Tensor:
+    """Pool a [B,1,H,W] energy map down to [B,1,h,w]."""
+    b, c, h, w = energy.shape
+    oh, ow = out_hw
+    kh, kw = h // oh, w // ow
+    if (kh, kw) == (1, 1):
+        return energy
+    e = energy.reshape(b, c, oh, kh, ow, kw)
+    if pool_mode == 'mean':
+        return e.mean((3, 5))
+    if pool_mode == 'max':
+        return e.amax((3, 5))
+    if pool_mode == 'min':
+        return e.amin((3, 5))
+    raise ValueError(pool_mode)
+
+
+def energy_frame_mask(energy: torch.Tensor, height: int, width: int,
+                      num_visible: int, clumping_factor: int = 1,
+                      temperature: Optional[float] = None,
+                      pool_mode: str = 'mean', energy_power: float = 1,
+                      eps: float = 1e-9, indices: Indices = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+    """Sample ``num_visible`` coarse cells proportional to an energy map.
+
+    energy: [B, 1, He, We] (He, We multiples of height, width). The draws
+    are max(num_visible, 1) categorical indices per row, with replacement:
+    ``indices`` [B, P] (or a callable of the probabilities, see
+    ``ops.sampling.resolve_indices``), else drawn from ``generator``. With
+    num_visible 0 one point is still drawn, then cleared, as in the JAX
+    package. Returns bool [B, H*W]."""
+    b = energy.shape[0]
+    cf = clumping_factor
+    gh, gw = height // cf, width // cf
+    e = _pool_energy(energy, (gh, gw), pool_mode)
+    if temperature is not None:
+        e = e - e.amax((-2, -1), keepdim=True)
+        e = torch.exp(e * temperature)
+    e = torch.pow(e, energy_power)
+    p = e.reshape(b, gh * gw)
+    p = p - p.amin(-1, keepdim=True)
+    p = torch.relu(p + eps)
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=eps)
+    idx = resolve_indices(indices, p, max(num_visible, 1), generator)
+    visible = torch.zeros((b, gh * gw), dtype=torch.bool, device=p.device)
+    visible.scatter_(1, idx, True)
+    if num_visible == 0:
+        visible = torch.zeros_like(visible)
+    visible = visible.reshape(b, gh, gw)
+    if cf > 1:
+        visible = upsample_masks(visible, (height, width))
+    return ~visible.reshape(b, height * width)
+
+
+def energy_mask(energy: torch.Tensor, input_size: Sequence[int],
+                num_visible: int, visible_frames: int = 0,
+                clumping_factor: int = 1, temperature: Optional[float] = None,
+                pool_mode: str = 'mean', energy_power: float = 1,
+                indices: Indices = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Full [B, T*H*W] energy-sampled mask with optional leading visible
+    frames; every masked frame repeats the one sampled frame."""
+    t, h, w = input_size
+    b = energy.shape[0]
+    m = energy_frame_mask(energy, h, w, num_visible, clumping_factor,
+                          temperature, pool_mode, energy_power,
+                          indices=indices, generator=generator)
+    m = m.repeat(1, t - visible_frames)
+    if visible_frames > 0:
+        vis = torch.zeros((b, visible_frames * h * w), dtype=torch.bool,
+                          device=m.device)
+        m = torch.cat([vis, m], dim=-1)
+    return m
+
+
+def rotated_table_energy_mask(energy, input_size, num_visible,
+                              clumping_factor=1, temperature=None,
+                              pool_mode='mean', energy_power=1, indices=None,
+                              generator=None):
+    """Energy mask with frame 0 fully visible."""
+    return energy_mask(energy, input_size, num_visible, visible_frames=1,
+                       clumping_factor=clumping_factor,
+                       temperature=temperature, pool_mode=pool_mode,
+                       energy_power=energy_power, indices=indices,
+                       generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Class wrappers mirroring the reference API (stateful randomness only).
+# ---------------------------------------------------------------------------
+
+class _KeyedGenerator:
+    """Base: owns a seeded torch.Generator on ``device`` (the JAX class owns
+    a key); each call without given draws takes them from it."""
+
+    def __init__(self, seed: int = 0, device='cuda'):
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def reset(self, seed: Optional[int] = None):
+        if seed is not None:
+            self.seed = seed
+        self.generator.manual_seed(self.seed)
+
+
+class MaskingGenerator(_KeyedGenerator):
+    """Uniform per-frame masking with the reference's mask_ratio /
+    num_visible accounting."""
+
+    def __init__(self, input_size, mask_ratio, seed=0, visible_frames=0,
+                 clumping_factor=1, randomize_num_visible=False,
+                 always_batch=True, device='cuda', **unused):
+        super().__init__(seed, device)
+        if len(input_size) != 3:
+            raise ValueError(f'input_size must be (T, H, W): {input_size}')
+        self.frames, self.height, self.width = input_size
+        self.clumping_factor = clumping_factor
+        self.visible_frames = visible_frames
+        self.always_batch = always_batch
+        self.randomize_num_visible = randomize_num_visible
+        ch, cw = _canonical_clump(clumping_factor)
+        self.num_patches_per_frame = (self.height // ch) * (self.width // cw)
+        self.mask_ratio = mask_ratio
+
+    @property
+    def mask_ratio(self):
+        return self._mask_ratio
+
+    @mask_ratio.setter
+    def mask_ratio(self, val):
+        self._mask_ratio = val
+        self._num_masks_per_frame = int(val * self.num_patches_per_frame)
+
+    @property
+    def num_masks_per_frame(self):
+        return self._num_masks_per_frame
+
+    @num_masks_per_frame.setter
+    def num_masks_per_frame(self, val):
+        self._num_masks_per_frame = int(val)
+        self._mask_ratio = val / self.num_patches_per_frame
+
+    @property
+    def num_visible(self):
+        return self.num_patches_per_frame - self.num_masks_per_frame
+
+    @num_visible.setter
+    def num_visible(self, val):
+        self.num_masks_per_frame = self.num_patches_per_frame - val
+
+    @property
+    def input_size(self):
+        return (self.frames, self.height, self.width)
+
+    def sample(self, generator, batch_size=1):
+        m = uniform_mask(self.input_size, self.mask_ratio,
+                         self.clumping_factor, batch_size,
+                         generator=generator)
+        if self.visible_frames > 0:
+            vis = torch.zeros((batch_size, self.visible_frames * self.height
+                               * self.width), dtype=torch.bool,
+                              device=m.device)
+            m = torch.cat([vis, m], dim=-1)
+        return m
+
+    def __call__(self, x=None, generator=None):
+        b = 1 if x is None else int(x.shape[0])
+        masks = self.sample(generator or self.generator, b)
+        if b == 1 and not self.always_batch:
+            masks = masks[0]
+        return masks
+
+    def __repr__(self):
+        return ('%s: patches/frame %d, masked/frame %d, ratio %.3f' %
+                (type(self).__name__, self.num_patches_per_frame,
+                 self.num_masks_per_frame, self.mask_ratio))
+
+
+class EnergySamplingMaskingGenerator(MaskingGenerator):
+    """Sample visible patches proportional to an energy map."""
+
+    def __init__(self, input_size, mask_ratio, seed=0, temperature=None,
+                 clumping_factor=1, pool_mode='mean', eps=1e-9,
+                 energy_power=1, visible_frames=0, **kwargs):
+        super().__init__(input_size=input_size, mask_ratio=mask_ratio,
+                         seed=seed, visible_frames=visible_frames,
+                         clumping_factor=clumping_factor, **kwargs)
+        self.temperature = temperature
+        self.pool_mode = pool_mode
+        self.eps = eps
+        self.energy_power = energy_power
+
+    @property
+    def cf(self):
+        return _canonical_clump(self.clumping_factor)[0]
+
+    def __call__(self, energy, indices: Indices = None, generator=None):
+        """energy: [B,1,H,W] (or [B,T,1,H,W]: the first frame is used).
+        indices: the categorical draws (see ``energy_frame_mask``), else
+        drawn from ``generator`` or the sampler's own."""
+        energy = torch.as_tensor(energy)
+        if energy.dim() == 5:
+            energy = energy[:, 0]
+        if energy.dim() == 3:
+            energy = energy[:, None]
+        num_visible = self.num_visible // (self.cf ** 2)
+        return energy_mask(
+            energy, (self.frames + self.visible_frames, self.height,
+                     self.width),
+            num_visible, self.visible_frames, self.cf, self.temperature,
+            self.pool_mode, self.energy_power, indices=indices,
+            generator=generator or self.generator)
+
+
+class RotatedTableEnergyMaskingGenerator(EnergySamplingMaskingGenerator):
+    """Energy sampling with the leading ``visible_frames`` fully visible."""
+
+    def __init__(self, input_size, mask_ratio, visible_frames=1, seed=0,
+                 **kwargs):
+        super().__init__(
+            input_size=(input_size[0] - visible_frames, *input_size[1:]),
+            mask_ratio=mask_ratio, seed=seed, visible_frames=visible_frames,
+            **kwargs)

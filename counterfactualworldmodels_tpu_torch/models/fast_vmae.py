@@ -18,7 +18,10 @@ and then cast.
 """
 from __future__ import annotations
 
+import collections
+import hashlib
 import os
+import threading
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -527,6 +530,19 @@ def _predict_frame1_core(model: PretrainVisionTransformer, fp: FastParams,
     return torch.matmul(y1, fp.head_kernel).to(dtype) + fp.head_bias
 
 
+def stack_prefix_caches(caches) -> PrefixCache:
+    """Stack the caches of S different scenes into ONE cache whose batch
+    dim is S (the multi-scene warm path): each sample's suffix then attends
+    its own scene's prefix, and the two-source kernel reads the per-sample
+    panels in place (flash_attention_prefix with s0 = S)."""
+    caches = list(caches)
+    if len(caches) == 1:
+        return caches[0]
+    return PrefixCache(*(tuple(torch.cat(parts, dim=1)
+                               for parts in zip(*kvs))
+                         for kvs in zip(*caches)))
+
+
 def make_prefix_cache(model: PretrainVisionTransformer, fp: FastParams,
                       use_flash: bool, normalize: bool, x0) -> PrefixCache:
     """Build the reusable frame-0 cache for a scene. x0: [1, C, H, W] raw
@@ -534,6 +550,68 @@ def make_prefix_cache(model: PretrainVisionTransformer, fp: FastParams,
     if normalize:
         x0 = imagenet_normalize(x0[:, None], temporal_dim=1)[:, 0]
     return encode_prefix(model, fp, use_flash, x0)
+
+
+class HashLru:
+    """sha1-keyed LRU over tensors; subclasses define ``_build(*tensors)``
+    (and optionally ``_key_arrays`` to key on a subset of the inputs). Keys
+    cover shape + dtype + bytes, so reinterpreted buffers never collide.
+    A key reads its tensors on the host: a tensor on the card is copied
+    back first, as the JAX package's ``np.asarray`` does.
+
+    Thread-safe: get() holds an internal lock across lookup AND build, so
+    concurrent callers with a cold key cannot build it twice or corrupt
+    the eviction order."""
+
+    def __init__(self, size: int = 4):
+        self.size = size
+        self._entries = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _key(*arrays):
+        hsh = hashlib.sha1()
+        for arr in arrays:
+            a = torch.as_tensor(arr).detach().cpu().contiguous()
+            hsh.update(repr((tuple(a.shape), str(a.dtype))).encode())
+            hsh.update(a.reshape(-1).view(torch.uint8).numpy().tobytes())
+        return hsh.hexdigest()
+
+    def _key_arrays(self, *arrays):
+        return arrays
+
+    def get(self, *arrays):
+        """-> (entry, hit: bool)."""
+        key = self._key(*self._key_arrays(*arrays))
+        with self._lock:
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return self._entries[key], True
+            entry = self._build(*arrays)
+            self._entries[key] = entry
+            if len(self._entries) > self.size:
+                self._entries.popitem(last=False)
+            self.misses += 1
+        return entry, False
+
+
+class PrefixLru(HashLru):
+    """LRU of PrefixCache entries keyed on the raw frame 0: repeat prompts
+    on one scene (the interactive workload) skip the prefix passes.
+    get(x0) with x0 [1, C, H, W] raw frame 0 -> (PrefixCache, hit)."""
+
+    def __init__(self, model: PretrainVisionTransformer, fp: FastParams,
+                 use_flash: bool, normalize: bool, size: int = 4):
+        super().__init__(size)
+        self.model, self.fp = model, fp
+        self.use_flash, self.normalize = use_flash, normalize
+
+    def _build(self, x0):
+        return make_prefix_cache(self.model, self.fp, self.use_flash,
+                                 self.normalize, x0)
 
 
 def predict_videos_shared_prefix(model: PretrainVisionTransformer,

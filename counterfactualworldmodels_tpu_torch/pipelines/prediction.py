@@ -1,0 +1,543 @@
+"""Factual & counterfactual prediction pipeline.
+
+Port of counterfactualworldmodels_tpu/pipelines/prediction.py: the
+functional core (``scatter_pred_patches``, ``predict_video``,
+``predict_counterfactuals``) and the stateful ``PredictorBasedGenerator``
+wrapper with its mask utilities and prediction methods.
+
+``predictor`` is the port's ``PretrainVisionTransformer`` configuration and
+``params`` a reference-layout state dict (utils/weights.py); the generator
+builds the exact model from them on its device, with
+``attn_impl='flash'`` (K1 on the card, its plain version on the CPU).
+Where the JAX wrapper holds a PRNG key, the port holds a seeded
+``torch.Generator`` on its device; each draw is one method of the wrapper
+(``_draw_mask_noise`` here), so tests can put the JAX draws in its place.
+
+Wrapper video layout: [B, T, C, H, W]; predictor layout: [B, C, T, H, W].
+Masks: bool [B, N], True = masked.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..masking import mask_ops
+from ..models.vmae import (PretrainVisionTransformerModule, apply_vmae,
+                           mask_order, take_tokens)
+from ..ops import patches as patch_ops
+from ..ops.normalization import imagenet_normalize
+from . import perturbation as perturb
+
+
+def strip_prefixes(sd: Dict, prefixes=('module.',)) -> Dict:
+    """State-dict keys without the DDP ``module.`` prefix."""
+    out = {}
+    for k, v in sd.items():
+        for p in prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+        out[k] = v
+    return out
+
+
+def load_vmae_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference VMAE checkpoint (``.pth``) as a state dict: the
+    ``'model'`` entry when there is one, without ``module.`` prefixes."""
+    weights = torch.load(path, map_location='cpu', weights_only=False)
+    weights = strip_prefixes(weights)
+    if 'model' in weights and hasattr(weights['model'], 'keys'):
+        weights = strip_prefixes(weights['model'])
+    return weights
+
+
+def scatter_pred_patches(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                         n_vis: int, patch_size) -> torch.Tensor:
+    """Rebuild a video with input at visible patches and predictions at
+    masked patches. y: [B, N - n_vis, D] predicted patch vectors (masked
+    positions, in row-major order); x: [B, T, C, H, W] the raw input."""
+    patches = patch_ops.patchify(x, patch_size, temporal_dim=1)
+    order = mask_order(mask)
+    x_vis = take_tokens(patches, order[:, :n_vis])
+    merged = torch.cat([x_vis, y.to(patches.dtype)], dim=1)
+    inv = torch.argsort(order, dim=-1)
+    full = take_tokens(merged, inv)
+    return patch_ops.unpatchify(full, patch_size, x.shape, temporal_dim=1)
+
+
+def predict_video(module: PretrainVisionTransformerModule, x, mask,
+                  n_vis: int, normalize: bool, frame: Optional[int],
+                  t_dim: int = 2):
+    """Preprocess -> masked forward -> scatter back -> frame select.
+
+    x: [B, T, C, H, W] wrapper layout. Returns [B, T, C, H, W] (or the
+    single frame [B, 1, C, H, W] when ``frame`` is not None). ``t_dim`` is
+    where the predictor expects the time axis: 2 transposes to
+    [B, C, T, H, W], 1 feeds the wrapper layout through."""
+    xm = imagenet_normalize(x, temporal_dim=1) if normalize else x
+    if t_dim == 2:
+        xm = xm.transpose(1, 2)
+    y = apply_vmae(module, xm, mask, n_vis)
+    vid = scatter_pred_patches(y, x, mask, n_vis,
+                               module.cfg.full_patch_size)
+    if frame is not None:
+        f = frame % vid.shape[1]
+        vid = vid[:, f:f + 1]
+    return vid
+
+
+def make_counterfactuals(x, passive, active, shifts, noise, patch_size,
+                         n_vis: int, frame: int = 1,
+                         fix_passive: bool = True):
+    """Per batch row b, the S prompts of ``make_motion_counterfactual``.
+    x [B, T, C, H, W]; passive/active bool [B, N, S]; shifts int [B, S, 2];
+    noise [B, S, n] rectangularizer draws. Returns (x [B*S, T, C, H, W],
+    masks [B*S, N]), sample-major per batch row."""
+    outs = [perturb.make_motion_counterfactual(
+        x[i], passive[i].T, active[i].T, shifts[i], noise[i], patch_size,
+        n_vis_target=n_vis, frame=frame, fix_passive=fix_passive)
+        for i in range(x.shape[0])]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def predict_counterfactuals(module: PretrainVisionTransformerModule, x, masks,
+                            n_vis: int, normalize: bool, frame: Optional[int],
+                            actives, shifts, n_samples: int,
+                            fix_passive: bool = True, t_dim: int = 2, *,
+                            noise):
+    """Batched counterfactual prediction. x: [B, T, C, H, W]; masks
+    (passive) bool [B, N, S]; actives bool [B, N, S]; shifts int [B, S, 2]
+    patch units; noise [B, S, n] the rectangularizer's uniform [0, 0.999)
+    draws (the JAX package's per-sample keys). Returns (predicted videos
+    [B*S, T, C, H, W], the prompts' videos and masks)."""
+    if masks.shape[-1] != n_samples:
+        raise ValueError(f'masks carry {masks.shape[-1]} samples, not '
+                         f'{n_samples}')
+    x_mocos, mask_mocos = make_counterfactuals(
+        x, masks, actives, shifts, noise, module.cfg.full_patch_size, n_vis,
+        fix_passive=fix_passive)
+    return (predict_video(module, x_mocos, mask_mocos, n_vis, normalize,
+                          frame, t_dim), x_mocos, mask_mocos)
+
+
+_UNPORTED = ('keypoint_predictor', 'keypoint_params',
+             'keypoint_predictor_load_path', 'error_func')
+
+
+class PredictorBasedGenerator:
+    """Stateful wrapper mirroring the reference PredictorBasedGenerator.
+
+    device: where the weights, inputs and draws live ('cuda' by default;
+    it raises without a GPU unless 'cpu' is asked for)."""
+
+    def __init__(self,
+                 predictor=None,
+                 params=None,
+                 predictor_load_path: Optional[str] = None,
+                 imagenet_normalize_inputs: bool = False,
+                 temporal_dim: int = 2,
+                 seed: int = 0,
+                 mask_generator=None,
+                 max_shift_fraction: float = 0.15,
+                 device='cuda',
+                 **kwargs):
+        unported = [k for k in _UNPORTED if kwargs.get(k) is not None]
+        if unported:
+            raise NotImplementedError(
+                f'{unported}: the keypoint predictor and the error APIs are '
+                'not ported yet')
+        self.device = resolve_device(device)
+        self.predictor = predictor
+        self.params = params
+        self.imagenet_normalize_inputs = imagenet_normalize_inputs
+        self.temporal_dim = temporal_dim
+        self.max_shift_fraction = max_shift_fraction
+        self.seed = seed
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.rng = np.random.RandomState(seed=seed)
+        self.mask_generator = mask_generator
+        self._module = None
+        self._module_src = None
+        self.x = None
+        self.mask = None
+        self.timestamps = None
+        self.shifts = []
+        if params is None and predictor_load_path is not None:
+            self.load_predictor(predictor_load_path)
+
+    # ------------------------------------------------------------------
+    # bookkeeping / properties
+    # ------------------------------------------------------------------
+    def _tensor(self, x, dtype=None):
+        """x (array or tensor) on the generator's device."""
+        return torch.as_tensor(x, device=self.device, dtype=dtype)
+
+    def _exact_module(self) -> PretrainVisionTransformerModule:
+        """The exact model for (predictor, params), built on first use and
+        rebuilt when either is replaced: attention through flash_attention
+        (K1 on the card), weights loaded with strict=True."""
+        src = (self.predictor, id(self.params))
+        if self._module is None or self._module_src != src:
+            cfg = dataclasses.replace(self.predictor, attn_impl='flash')
+            module = PretrainVisionTransformerModule(cfg, device=self.device)
+            module.load_state_dict(self.params, strict=True)
+            self._module, self._module_src = module.eval(), src
+        return self._module
+
+    def _clear_fast_state(self):
+        """Drop the device state built from the weights (the exact model)."""
+        self._module = None
+        self._module_src = None
+
+    def _draw_mask_noise(self, rows: int, n: int) -> torch.Tensor:
+        """Uniform [0, 0.999) draws [rows, n] for ``rectangularize`` (one
+        key for the block in the JAX package)."""
+        return torch.rand(rows, n, generator=self.generator,
+                          device=self.device) * 0.999
+
+    def set_predictor(self, net, predictor_load_path=None, params=None):
+        """Swap the predictor and load its weights (a checkpoint path or a
+        state dict; neither keeps the old weights). Clears the held
+        input/mask state and the device state built from the old weights."""
+        self.predictor = net
+        if params is not None:
+            self.params = params
+        self._clear_fast_state()
+        self.load_predictor(predictor_load_path)
+        self.x = self.mask = None
+        self.inp_shape = None
+
+    def load_predictor(self, load_path=None, converter=None):
+        """Load predictor weights from a reference checkpoint; ``converter``
+        overrides the loader (default ``load_vmae_checkpoint``). With no
+        path this is a no-op. The weights load with strict=True here, so a
+        checkpoint that does not fit the predictor fails at once."""
+        if load_path is None:
+            return
+        self.params = (converter or load_vmae_checkpoint)(load_path)
+        self._predictor_load_path = load_path
+        self._exact_module()
+
+    def reset_padding_masks(self):
+        """Kept for API parity: padding masks are computed from (mask,
+        n_vis) on every call, so there is no cached state to clear."""
+
+    def set_temporal_dim(self, t_dim=1):
+        if t_dim not in (1, 2):
+            raise ValueError('temporal_dim must be 1 or 2')
+        self.temporal_dim = t_dim
+
+    @property
+    def t_dim(self):
+        return None if self.predictor is None else self.temporal_dim
+
+    @property
+    def c_dim(self):
+        if self.predictor is None:
+            return None
+        return 2 if self.temporal_dim == 1 else 1
+
+    def set_image_size(self, *args, **kwargs):
+        """The model is built for one image size; another size is an error
+        rather than a silent re-configuration."""
+        if self.predictor is None:
+            raise ValueError("can't set the image size without a predictor")
+        size = args[0] if len(args) == 1 else tuple(args)
+        if isinstance(size, int):
+            size = (size, size)
+        built = tuple(self.predictor.img_size)
+        if tuple(size) != built:
+            raise ValueError(
+                f'predictor was built for image size {built}; rebuild the '
+                f'model to run at {tuple(size)}')
+
+    @property
+    def patch_size(self):
+        return self.predictor.full_patch_size
+
+    @property
+    def image_size(self):
+        return self.predictor.img_size
+
+    @property
+    def sequence_length(self):
+        return self.predictor.num_frames
+
+    @property
+    def mask_shape(self):
+        return self.predictor.mask_size
+
+    @property
+    def inp_mask_shape(self):
+        return (self.x.shape[0], int(np.prod(self.mask_shape)))
+
+    # ------------------------------------------------------------------
+    # masks
+    # ------------------------------------------------------------------
+    def generate_mask(self, x=None):
+        if self.mask_generator is None:
+            raise ValueError('no mask_generator was given')
+        if x is None:
+            x = self.x
+        mask = self.mask_generator(x, generator=self.generator)
+        return self._tensor(mask).reshape(x.shape[0], -1)
+
+    def set_new_mask(self, x=None):
+        self.mask = self.generate_mask(x if x is not None else self.x)
+
+    def get_zeros_mask(self, x=None, frame=-1):
+        if x is None:
+            x = self.x
+        t, h, w = self.mask_shape
+        mask = torch.zeros((t, h, w), dtype=torch.bool, device=self.device)
+        if frame is not None:
+            mask[frame] = True
+        return mask.reshape(1, -1).expand(x.shape[0], -1)
+
+    def get_fully_visible_mask(self, x=None):
+        if x is None:
+            x = self.x
+        n = int(np.prod(self.mask_shape))
+        return torch.zeros((x.shape[0], n), dtype=torch.bool,
+                           device=self.device)
+
+    def get_mask_image(self, mask, upsample=False, invert=False, shape=None):
+        if shape is None:
+            shape = self.mask_shape
+        mask = self._tensor(mask).reshape(-1, *shape)
+        if upsample:
+            mask = mask_ops.upsample_masks(mask.float(), self.x.shape[-2:])
+        if invert:
+            mask = 1 - mask if upsample else ~mask
+        return mask
+
+    @staticmethod
+    def invert_mask_frame(mask, size, frame=-1):
+        """Invert one temporal frame of a flat [B, N] mask."""
+        return mask_ops.invert_mask_frame(torch.as_tensor(mask), size, frame)
+
+    def _invert_mask(self, mask, frame=-1):
+        return mask_ops.invert_mask_frame(mask, self.mask_shape[-2:], frame)
+
+    @staticmethod
+    def patch_idx_list_from_mask(mask):
+        """[b, t, i, j] index lists of the VISIBLE patches of a 4-D mask
+        image."""
+        mask = torch.as_tensor(mask).cpu().numpy()
+        if mask.ndim != 4:
+            raise ValueError(f'expected a [B, T, h, w] mask: {mask.shape}')
+        return [list(p) for p in np.argwhere(~mask)]
+
+    @staticmethod
+    def make_visible_from_patch_idx_list(mask, patch_idx_list, stride=1,
+                                         b=0, t=-1):
+        """Reveal the patches at the listed positions in a 4-D mask image.
+        Index rows may be (i, j), (t, i, j) or (b, t, i, j); pixel
+        coordinates become patch coordinates by ``stride``. Returns a new
+        mask."""
+        mask = torch.as_tensor(mask).clone()
+        if len(patch_idx_list) == 0:
+            return mask
+        idx = np.asarray(patch_idx_list, dtype=np.int64)
+        inds_h = (idx[:, -2] // stride) % mask.shape[-2]
+        inds_w = (idx[:, -1] // stride) % mask.shape[-1]
+        if idx.shape[-1] == 2:
+            inds_b = np.full_like(inds_h, b)
+            inds_t = np.full_like(inds_h, t)
+        elif idx.shape[-1] == 3:
+            inds_b = np.full_like(inds_h, b)
+            inds_t = idx[:, 0]
+        elif idx.shape[-1] == 4:
+            inds_b, inds_t = idx[:, 0], idx[:, 1]
+        else:
+            raise ValueError(f'index rows of length {idx.shape[-1]}')
+        inds_t = inds_t % mask.shape[1]
+        mask[tuple(torch.as_tensor(i, device=mask.device)
+                   for i in (inds_b, inds_t, inds_h, inds_w))] = False
+        return mask
+
+    def generate_mask_from_patch_idx_list(self, patch_idx_list, stride=None,
+                                          b=0, frame=-1):
+        """Visible mask at the given patch positions. ``stride`` converts
+        pixel coordinates to patch coordinates; the default is the image
+        width / mask width when an input is set, else 1."""
+        m = self.get_mask_image(self.get_zeros_mask(frame=frame))
+        if stride is None:
+            stride = (self.inp_shape[-1] // m.shape[-1]
+                      if getattr(self, 'inp_shape', None) else 1)
+        m = self.make_visible_from_patch_idx_list(
+            m, patch_idx_list, stride=stride, b=b, t=frame)
+        return m.reshape(m.shape[0], -1)
+
+    def generate_cutout_mask(self, patch_idx_list, radius=1, stride=None,
+                             b=0, frame=-1):
+        """Visible cutout of the listed patches plus their radius-
+        neighborhood in ``frame``."""
+        mask = self.generate_mask_from_patch_idx_list(
+            patch_idx_list, stride=stride, b=b, frame=frame)
+        m = self.get_mask_image(mask).clone()
+        f = frame % m.shape[1]
+        cutout = mask_ops.patches_adjacent_to_visible(
+            m[:, f:f + 1], radius=radius).bool()
+        cutout = cutout | (~m[:, f:f + 1])
+        m[:, f] = cutout[:, 0]
+        return m.reshape(m.shape[0], -1)
+
+    def mask_complement(self, mask1, mask2, frame=-1):
+        m1 = self.get_mask_image(mask1)
+        m2 = self.get_mask_image(mask2)
+        diff = m1 & (~m2)
+        if frame is None:
+            return (~diff).reshape(diff.shape[0], -1)
+        f = frame % m1.shape[1]
+        out = m1.clone()
+        out[:, f] = ~diff[:, f]
+        return out.reshape(diff.shape[0], -1)
+
+    def get_nearby_patches(self, mask, radius=1, upsample=False, shape=None):
+        mask = self.get_mask_image(mask, shape=shape)
+        nearby = mask_ops.patches_adjacent_to_visible(mask, radius=radius)
+        if upsample:
+            nearby = mask_ops.upsample_masks(nearby, self.x.shape[-2:])
+        return nearby
+
+    def sample_random_masks(self, num_samples=10, num_visible=1,
+                            mask_ratio=None):
+        if self.mask_generator is None:
+            raise ValueError('no mask_generator was given')
+        prev = self.mask_generator.num_visible
+        if mask_ratio is None:
+            self.mask_generator.num_visible = num_visible
+        else:
+            self.mask_generator.mask_ratio = mask_ratio
+        masks = torch.stack([self.generate_mask(self.x)
+                             for _ in range(num_samples)], -1)
+        self.mask_generator.num_visible = prev
+        return masks
+
+    # ------------------------------------------------------------------
+    # inputs
+    # ------------------------------------------------------------------
+    def set_input(self, x, mask=None, make_mask=False, timestamps=None):
+        x = self._tensor(x)
+        if x.dim() == 4:
+            x = x[:, None]
+        if x.dim() != 5:
+            raise ValueError(f'expected a [B, T, C, H, W] video: '
+                             f'{tuple(x.shape)}')
+        self.x = x
+        self.inp_shape = x.shape
+        self.B, self.T, self.C = x.shape[:3]
+        if mask is not None:
+            self.mask = self._tensor(mask)
+        elif make_mask:
+            self.set_new_mask(x)
+        if timestamps is not None:
+            self.timestamps = timestamps
+
+    def make_static_movie(self, x=None, t=None, frame=0):
+        if x is None:
+            x = self.x
+        if t is None:
+            t = self.predictor.num_frames
+        return perturb.make_static_movie(self._tensor(x), t=t, frame=frame)
+
+    get_static_input = make_static_movie
+
+    # ------------------------------------------------------------------
+    # prediction
+    # ------------------------------------------------------------------
+    def _equalize(self, mask):
+        """Ensure equal visible counts; returns (mask, n_vis)."""
+        counts = (~mask).sum(-1)
+        lo, hi = int(counts.min()), int(counts.max())
+        if lo != hi:
+            mask = mask_ops.rectangularize(
+                mask, num_visible=hi,
+                noise=self._draw_mask_noise(*mask.shape))
+        return mask, hi
+
+    def _prepare(self, x, mask):
+        """x as [B, T, C, H, W] on the device and the mask [B, N] with equal
+        visible counts; returns (x, mask, n_vis)."""
+        if x is None:
+            x = self.x
+        if mask is None:
+            mask = (self.mask if self.mask is not None
+                    else self.generate_mask(x))
+        x = self._tensor(x)
+        if x.dim() == 4:
+            x = x[:, None]
+        mask = self._tensor(mask).reshape(x.shape[0], -1)
+        mask, n_vis = self._equalize(mask)
+        return x, mask, n_vis
+
+    def predict(self, x=None, mask=None, frame=-1, **kwargs):
+        x, mask, n_vis = self._prepare(x, mask)
+        return predict_video(self._exact_module(), x, mask, n_vis,
+                             self.imagenet_normalize_inputs, frame,
+                             self.temporal_dim)
+
+    def predict_per_sample(self, x, masks, frame=-1, split_samples=True,
+                           **kwargs):
+        """Tile B -> B*S over the sample axis of masks [B, N, S]."""
+        if masks.dim() != 3:
+            raise ValueError(f'expected masks [B, N, S]: {tuple(masks.shape)}')
+        if x is None:
+            x = self.x
+        x = self._tensor(x)
+        b, s = x.shape[0], masks.shape[-1]
+        x_t = x.repeat_interleave(s, dim=0)
+        m_t = self._tensor(masks).transpose(1, 2).reshape(b * s, -1)
+        y = self.predict(x_t, m_t, frame=frame, **kwargs)
+        if not split_samples:
+            return y
+        return y.reshape(b, s, *y.shape[1:]).movedim(1, -1)
+
+    def sample_tile(self, z, num_samples):
+        return self._tensor(z).repeat_interleave(num_samples, dim=0)
+
+    def sample_tile_all_tensors(self, num_samples, **kwargs):
+        """Tile every tensor-valued kwarg over the sample axis."""
+        return {k: (self.sample_tile(v, num_samples)
+                    if isinstance(v, (torch.Tensor, np.ndarray)) else v)
+                for k, v in kwargs.items()}
+
+    def pred_patches_to_video(self, y, x, mask):
+        """Public scatter of predicted patch vectors back into the video:
+        input content at visible positions, predictions at masked ones."""
+        x = self._tensor(x)
+        if x.dim() == 4:
+            x = x[:, None]
+        mask = self._tensor(mask).reshape(x.shape[0], -1)
+        counts = (~mask).sum(-1)
+        if int(counts.min()) != int(counts.max()):
+            raise ValueError('rows must have equal visible counts '
+                             '(rectangularize first)')
+        return scatter_pred_patches(self._tensor(y), x, mask,
+                                    int(counts[0]), self.patch_size)
+
+    def batch_predict_per_sample(self, x, masks, frame=-1, batch_size=None,
+                                 sample_dim=None, **kwargs):
+        """Micro-batched per-sample prediction. With sample_dim=0 the sample
+        axis is already flattened into the batch; otherwise masks is
+        [B, N, S]."""
+        s = masks.shape[-1] if sample_dim != 0 else masks.shape[0]
+        if batch_size is None:
+            batch_size = s
+        else:
+            batch_size = max(1, batch_size // x.shape[0])
+        ys = []
+        for i in range(int(np.ceil(s / batch_size))):
+            b0, b1 = i * batch_size, min((i + 1) * batch_size, s)
+            if sample_dim != 0:
+                ys.append(self.predict_per_sample(
+                    x, masks[..., b0:b1], frame=frame, split_samples=True,
+                    **kwargs))
+            else:
+                ys.append(self.predict(x[b0:b1], masks[b0:b1], frame=frame,
+                                       **kwargs))
+        return torch.cat(ys, -1 if sample_dim != 0 else 0)

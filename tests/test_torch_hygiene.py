@@ -108,6 +108,62 @@ def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked():
     assert callable(train.make_train_step(tm, opt, 70, device='cpu'))
 
 
+def test_generator_entry_points_raise_without_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    from counterfactualworldmodels_tpu_torch.masking import generators
+    from counterfactualworldmodels_tpu_torch.pipelines import (prediction,
+                                                               segmentation)
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    tm = tvmae.PretrainVisionTransformer(**SMALL_VMAE)
+    sd = weights.init_vmae_state_dict(tm, torch.Generator().manual_seed(0))
+    raft = traft.RAFT(iters=1, device='cpu')
+    module = tvmae.PretrainVisionTransformerModule(tm, device='cpu')
+    fp = tfv.stack_vmae_params(tm, sd, device='cpu')
+    x = torch.zeros(1, 2, 3, 32, 32)
+    masks = torch.zeros(1, tm.num_patches, 1, dtype=torch.bool)
+    shifts = torch.ones(1, 1, 2, dtype=torch.long)
+    exact = (module, raft, x, masks, masks, shifts, torch.Generator(),
+             tm.num_patches, False, 1, True)
+    multi = (tm, fp, raft, x[0:1], masks[..., 0], masks[..., 0], shifts[0],
+             0, False, 1, True, False, False, torch.Generator(),
+             tfv.make_prefix_cache(tm, fp, False, False, x[:, 0]))
+    for call in (
+            lambda **kw: segmentation.FlowGenerator(
+                predictor=tm, params=sd, flow_model=raft, **kw),
+            lambda **kw: prediction.PredictorBasedGenerator(
+                predictor=tm, params=sd, **kw),
+            lambda **kw: generators.RotatedTableEnergyMaskingGenerator(
+                (2, 8, 8), 0.0, **kw),
+            lambda **kw: segmentation.counterfactual_videos_and_flows(
+                *exact, **kw),
+            lambda **kw: (segmentation
+                          .counterfactual_videos_and_flows_fast_multi(
+                              *multi, n_vis=tm.num_patches, **kw))):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            call()
+        assert call(device='cpu') is not None
+
+
+def test_new_modules_import_in_a_fresh_process_without_jax():
+    mods = ('ops.sampling', 'masking.mask_ops', 'masking.generators',
+            'pipelines.perturbation', 'pipelines.filters',
+            'pipelines.prediction', 'pipelines.segmentation',
+            'models.fast_vmae')
+    code = ('import importlib, sys; '
+            'pkg = "counterfactualworldmodels_tpu_torch."; '
+            f'[importlib.import_module(pkg + m) for m in {mods!r}]; '
+            'bad = [m for m in sys.modules if m == "jax" or '
+            'm.startswith("jax.") or m == "flax" or m.startswith("flax.") or '
+            'm == "counterfactualworldmodels_tpu" or '
+            'm.startswith("counterfactualworldmodels_tpu.")]; '
+            'print(bad); sys.exit(1 if bad else 0)')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_kernel_sources_and_counters():
     """Every kernel source the loader names is in the package, and each
     kernel wrapper has its launch counter."""

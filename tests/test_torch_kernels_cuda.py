@@ -278,3 +278,77 @@ def test_flash_attention_prefix_refuses_a_gradient_on_the_card(dev):
         fa.flash_attention_prefix(q, *kv)
     with torch.no_grad():
         assert fa.flash_attention_prefix(q, *kv).shape == q.shape
+
+
+def _fixed_draws(gen, seed):
+    """numpy-seeded draws in place of the generator's, on its device."""
+    rng = np.random.RandomState(seed)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(gen.device)
+
+    gen._draw_shifts = lambda s: tensor(rng.randint(-2, 3, (s, 2)))
+    gen._draw_prompt_noise = lambda rows, n: tensor(
+        (rng.rand(rows, n) * 0.999).astype(np.float32))
+    gen._draw_patch_indices = lambda p, k: tensor(
+        rng.randint(0, p.shape[1], (p.shape[0], k)))
+    return gen
+
+
+@pytest.mark.parametrize('engine', ['fast', 'exact'])
+def test_flow_generator_on_the_card_matches_the_cpu(dev, engine):
+    """FlowGenerator at the small configuration in f32 (TF32 off), from the
+    same weights and draws on the card and on the CPU: masks equal, videos
+    within 1e-4, flows within 1e-3 px; on the card the path's kernels ran
+    (fast: K1 for the prefix, K2 for the suffix decoder, the lookup; exact:
+    K1 in every block, the lookup), on the CPU none."""
+    from counterfactualworldmodels_tpu_torch.models import vmae
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.pipelines.segmentation import (
+        FlowGenerator)
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = vmae.PretrainVisionTransformer(
+        img_size=(32, 32), patch_size=(4, 4), encoder_embed_dim=64,
+        encoder_depth=3, encoder_num_heads=4, decoder_embed_dim=32,
+        decoder_depth=2, decoder_num_heads=2, num_frames=2, qkv_bias=True)
+    sd = weights.init_vmae_state_dict(model, torch.Generator().manual_seed(0))
+    raft_cpu = weights.init_raft(RAFT(iters=2, device='cpu'),
+                                 torch.Generator().manual_seed(1))
+    rng = np.random.RandomState(6)
+    x = rng.rand(1, 3, 32, 32).astype(np.float32)
+    outs = {}
+    for d in ('cpu', 'cuda'):
+        raft = raft_cpu
+        if d == 'cuda':
+            raft = RAFT(iters=2, device=d)
+            raft.load_state_dict(raft_cpu.state_dict(), strict=True)
+        gen = _fixed_draws(FlowGenerator(
+            predictor=model, params=sd, flow_model=raft, raft_iters=2,
+            imagenet_normalize_inputs=True, engine=engine, device=d), 7)
+        kernels.reset_launches()
+        flows, active, _ = gen.sample_counterfactual_motion_map(
+            x, num_samples=4, sample_batch_size=2, do_filter=False)
+        y, f = gen.predict_counterfactual_videos_and_flows(
+            x, active, num_samples=4, sample_batch_size=4)
+        outs[d] = ([v.cpu() for v in (flows, active, y, f)],
+                   dict(kernels.LAUNCHES))
+    (c, lc), (g, lg) = outs['cpu'], outs['cuda']
+    assert torch.equal(c[1], g[1])
+    assert _err(c[2], g[2]) <= 1e-4
+    assert max(_err(c[0], g[0]), _err(c[3], g[3])) <= 1e-3
+    assert not any(lc.values())
+    depth = model.encoder_depth + model.decoder_depth
+    # three chunks of prompts (two of the motion map, one of the call after
+    # it), each with a 2-iteration RAFT: 2 lookups per chunk
+    if engine == 'fast':
+        # one scene: its prefix once (K1 in every block), then the suffix
+        # decoder (K2 in every decoder block) per chunk
+        want = dict(flash_attention=depth,
+                    flash_attention_prefix=3 * model.decoder_depth,
+                    window_lookup=3 * 2)
+    else:
+        # apply_vmae per chunk (K1 in every block)
+        want = dict(flash_attention=3 * depth, window_lookup=3 * 2)
+    assert lg == dict({k: 0 for k in lg}, **want), lg

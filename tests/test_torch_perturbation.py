@@ -87,3 +87,65 @@ def test_rectangularize_row_matches_jax():
                                    t(quota))
     np.testing.assert_array_equal(out.numpy(), ref)
     assert ((~out).sum(-1).numpy() == quota).all()
+
+
+def test_make_static_movie_and_make_static_match_jax():
+    rng = np.random.RandomState(5)
+    x = rng.rand(2, 2, 3, 16, 16).astype(np.float32)
+    for t_frames, frame in ((2, 0), (3, -1)):
+        np.testing.assert_array_equal(
+            tpert.make_static_movie(t(x), t_frames, frame).numpy(),
+            np.asarray(jpert.make_static_movie(jnp.asarray(x), t_frames,
+                                               frame)))
+    np.testing.assert_array_equal(
+        tpert.make_static_movie(t(x[:, 0]), 2).numpy(),
+        np.asarray(jpert.make_static_movie(jnp.asarray(x[:, 0]), 2)))
+    for n in (2 * 16, 16):                  # both frames, the last frame
+        mask = rng.rand(2, n) > 0.5
+        ref = jpert.make_static(jnp.asarray(x), jnp.asarray(mask), 4)
+        out = tpert.make_static(t(x), t(mask), 4)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+
+
+@pytest.mark.parametrize('with_points', [False, True])
+def test_multi_shift_patches_and_mask_matches_jax(with_points):
+    rng = np.random.RandomState(6)
+    b, s, hw, patch = 2, 3, 16, 4
+    npf = (hw // patch) ** 2
+    x = rng.rand(b, 2, 3, hw, hw).astype(np.float32)
+    masks = rng.rand(b, 2 * npf, s) > 0.4
+    points = (rng.rand(b, 2 * npf, s) > 0.8) if with_points else None
+    shifts_px = np.array([[4, -8], [3, 5], [-6, 0]], np.int32)
+    jx, jm = jpert.multi_shift_patches_and_mask(
+        jnp.asarray(x), jnp.asarray(masks),
+        None if points is None else jnp.asarray(points),
+        jnp.asarray(shifts_px), patch)
+    tx, tm = tpert.multi_shift_patches_and_mask(
+        t(x), t(masks), None if points is None else t(points), t(shifts_px),
+        patch)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-6)
+
+
+@pytest.mark.parametrize('fractional', [False, True])
+def test_random_shift_rules_match_jax(fractional):
+    """The port's shift from the JAX randint draws of a key equals the JAX
+    shift for that key: patch units by floor division, a zero shift bumped
+    to dx = +1."""
+    frac, size, patch = 0.15, (32, 48), (1, 4, 4)
+    lo = jnp.asarray([-int(frac * size[0]), -int(frac * size[1])])
+    hi = jnp.asarray([int(frac * size[0]) + 1, int(frac * size[1]) + 1])
+    keys = jax.random.split(jax.random.PRNGKey(7), 200)
+    ref = np.stack([np.asarray(jpert.random_shift(k, frac, size, patch,
+                                                  fractional))
+                    for k in keys])
+    draws = np.stack([np.asarray(jax.random.randint(k, (2,), lo, hi))
+                      for k in keys])
+    out = tpert.random_shift(frac, size, patch, fractional, draws=t(draws))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert not (out == 0).all(-1).any()
+    assert (draws == 0).all(-1).any() or not fractional
+    got = tpert.random_shift(frac, size, patch, num=50,
+                             generator=torch.Generator().manual_seed(0))
+    assert got.shape == (50, 2) and not (got == 0).all(-1).any()
+    assert int(got[:, 0].abs().max()) <= int(frac * size[0]) // 4 + 1
