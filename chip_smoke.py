@@ -9,9 +9,10 @@ counterfactual flows, through the shared-prefix dispatch
 ``pipelines.segmentation.counterfactual_videos_and_flows_fast`` (ViT-L 4x4
 @224 + RAFT-24, bf16, S = 16 prompts) and through ``FlowGenerator``, which
 serves the motion maps, the per-click predictions and the multi-scene
-dispatch; and VMAE training ``training.train.make_train_step`` (ViT-L 4x4
-@224, bf16, batch 4, mask ratio 0.9), all from seeded random weights.
-Phases:
+dispatch; movability, through ``pipelines.movability.MovabilityPredictor``
+(the same models and a RAFT-24 keypoint predictor); and VMAE training
+``training.train.make_train_step`` (ViT-L 4x4 @224, bf16, batch 4, mask
+ratio 0.9), all from seeded random weights. Phases:
 
 1. device: name, power limit, torch and CUDA versions;
 2. build: nvcc for sm_90a, with the seconds it took; each kernel's
@@ -23,15 +24,19 @@ Phases:
    paths' shapes, in f32 and bf16, with the kernel's, the plain version's
    and one library call's times, the ratio to the library call and the
    share of the bound; the window lookup (f32 sums) one level per call and
-   fused, four levels in one launch as a RAFT iteration calls it, with f32
-   and bf16 output, timed by CUDA-graph replay beside CUDA events; the
+   fused, four levels in one launch as a RAFT iteration calls it, at the
+   large RAFT's radius 4 and the small one's 3, with f32 and bf16 output,
+   timed by CUDA-graph replay beside CUDA events; the
    training pair (K5 forward with logsumexp, K6 backward) at the encoder
    and decoder training shapes, with K6's determinism check;
 4. both paths at the tests' small configurations on the card and on the
    CPU (f32, TF32 off): masks equal, videos and flows within tolerance;
    three train steps with equal losses and gradient norms; FlowGenerator
    on both engines from the same draws (videos within 1e-4, flows within
-   1e-3 px);
+   1e-3 px); RAFT(small=True) and the keypoint head RAFT(output_dim=1) at
+   64x64 (flows within 1e-3 px, the map within 1e-4, the small model's
+   lookups at radius 3); a small MovabilityPredictor (num_iters=1) from the
+   same draws (maps within 1e-3, every iteration's patches equal);
 5. the full-width dispatch at the library-default rung and the exact rung:
    shapes, finite flows, visible frame-1 pixels pasted unchanged, and the
    launch counts that show every kernel of the path ran; then (5b)
@@ -44,8 +49,16 @@ Phases:
    (K2 12, each with s0 = 4, lookup 24); each timed, median of 3 after a
    warm-up, with the generator's overhead over the direct dispatch, (a)'s
    time split within a call (sampler, chunk, filter, the rest) on 3 more
-   cold scenes, and the LRU key's host time; the default dispatch's
-   profile comes after these;
+   cold scenes, and the LRU key's host time; then (5c)
+   ``MovabilityPredictor(...)(x)`` at the library defaults (keypoint
+   initialisation, 16 initial samples, 2 iterations of 16, chunks of 4)
+   with a RAFT-24 keypoint predictor: ms per call (median of 3 after a
+   warm-up, a new image each call), the keypoint predictor's ms within a
+   call, the launches per call (K1 36, K2 144, lookup 312), the outputs'
+   checks, flow_to_rgb on the card against the CPU, one more call's split
+   (keypoints, samplers, chunks, filters) and one timed call without the
+   flow-sample filter (its later iterations sample from a real map); the
+   default dispatch's profile comes after these;
 6. full-width training: one warm-up and three timed steps with finite
    losses, sec/step, clips/s, MFU and peak memory, and the launch counts
    of every step (K5 72, K6 36, K1 0); then the exact forward
@@ -422,24 +435,25 @@ def lookup_cases(torch, F, corr, rec):
         if not err <= TOL_LOOKUP:
             raise AssertionError(f'lookup level {h}: err {err}')
 
-    fused_lookup_cases(torch, F, corr, rec)
+    for radius in (4, 3):
+        fused_lookup_cases(torch, F, corr, rec, radius)
 
 
 LOOKUP_SIZES = (28, 14, 7, 3)
 
 
-def fused_lookup_inputs(torch, F):
-    """The fused lookup of one RAFT iteration at the dispatch shape: four
-    levels [S*784, s, s], coordinates [S, 28, 28, 2] = the pixel grid moved
-    by up to 8 px (windows at the borders cross the edges), and the
-    reference RAFT's sampling grids. Four copies, called in turn by the
+def fused_lookup_inputs(torch, F, r):
+    """The fused lookup of one RAFT iteration at the dispatch shape, radius
+    r: four levels [S*784, s, s], coordinates [S, 28, 28, 2] = the pixel
+    grid moved by up to 8 px (windows at the borders cross the edges), and
+    the reference RAFT's sampling grids. Four copies, called in turn by the
     timings, so that a call finds its data out of L2, as in the dispatch,
     where the update block's convolutions run between two lookups. Returns
     (copies, the yardstick: grid_sample on each level, then the concat, as
     the reference RAFT's CorrBlock does)."""
     dev = torch.device('cuda')
     g = torch.Generator(device=dev).manual_seed(2)
-    n, r = S_FULL * 784, 4
+    n = S_FULL * 784
     ar = torch.arange(28.0, device=dev)
     grid = torch.stack(torch.meshgrid(ar, ar, indexing='xy'), -1)
     copies = []
@@ -461,10 +475,14 @@ def fused_lookup_inputs(torch, F):
     return copies, corr_block
 
 
-def fused_lookup_cases(torch, F, corr, rec):
-    n, r = S_FULL * 784, 4
+def fused_lookup_cases(torch, F, corr, rec, r):
+    """The fused lookup at radius r (4: the large RAFT's, 3: the small
+    one's) against its plain version, f32 and bf16 out, timed by CUDA-graph
+    replay beside the plain version and the library's four grid_sample
+    calls and concat."""
+    n = S_FULL * 784
     p = 2 * r + 1
-    copies, corr_block = fused_lookup_inputs(torch, F)
+    copies, corr_block = fused_lookup_inputs(torch, F, r)
     pyr, coords, grids = copies[0]
     before = corr.kernels.LAUNCHES['window_lookup']
     out = corr.lookup_pyramid(pyr, coords, r)
@@ -490,8 +508,8 @@ def fused_lookup_cases(torch, F, corr, rec):
                                                               r, dt))
         bms, by = lookup_bound(touched, n, outputs, got.element_size())
         r_ = dict(kernel='window_lookup',
-                  case='pyramid 28/14/7/3' + ('' if dt == torch.float32
-                                              else ', bf16 out'),
+                  case=('pyramid 28/14/7/3' + ('' if r == 4 else f', r {r}')
+                        + ('' if dt == torch.float32 else ', bf16 out')),
                   dtype='float32', out_dtype=str(dt).split('.')[1],
                   shape=[n, list(LOOKUP_SIZES), r],
                   max_abs_err=max_err(got, ref), library_err=lib_err,
@@ -506,8 +524,9 @@ def fused_lookup_cases(torch, F, corr, rec):
         rec['phase3'].append(with_ratios(r_))
         log('3 kernels', json.dumps(r_))
     if not (err <= TOL_LOOKUP and bitwise and per_call == 1):
-        raise AssertionError(f'fused lookup: err {err}, bf16 output equal to '
-                             f'the f32 cast: {bitwise}, launches {per_call}')
+        raise AssertionError(f'fused lookup r {r}: err {err}, bf16 output '
+                             f'equal to the f32 cast: {bitwise}, launches '
+                             f'{per_call}')
 
 
 def _close(torch, a, ref):
@@ -902,6 +921,120 @@ def small_generator(torch, port, rec):
             raise AssertionError(f'small generator card vs CPU: {r}')
 
 
+def small_raft(torch, port, rec):
+    """RAFT(small=True) (the radius-3 lookup) and the keypoint head
+    RAFT(output_dim=1) at 64x64, 2 iterations, f32 (TF32 off), on the card
+    and on the CPU from the same weights: flows within 1e-3 px, the
+    keypoint map within 1e-4, and the lookup's launches (one per iteration,
+    at radius 3 for the small model). Returns the small RAFT's launches."""
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(12)
+    video = torch.from_numpy(rng.rand(3, 2, 3, 64, 64).astype(np.float32))
+    radii = []
+    real = traft.lookup_pyramid
+
+    def spy(pyramid, coords, radius, *a):
+        radii.append(radius)
+        return real(pyramid, coords, radius, *a)
+
+    traft.lookup_pyramid = spy
+    launches = {}
+    try:
+        for name, kw, fn, tol in (
+                ('small', dict(small=True),
+                 lambda m, v: traft.apply_raft_shared0(m, v), 1e-3),
+                ('keypoints', dict(output_dim=1),
+                 lambda m, v: traft.RaftKeypointPredictor(m)(v), 1e-4)):
+            cpu = weights.init_raft(traft.RAFT(iters=2, device='cpu', **kw),
+                                    torch.Generator().manual_seed(1))
+            gpu = traft.RAFT(iters=2, device='cuda', **kw)
+            gpu.load_state_dict(cpu.state_dict(), strict=True)
+            ref = fn(cpu, video)
+            radii.clear()
+            port.kernels.reset_launches()
+            out = fn(gpu, video.cuda())
+            torch.cuda.synchronize()
+            launches[name] = dict(port.kernels.LAUNCHES)
+            want = dict({k: 0 for k in launches[name]}, window_lookup=2)
+            r = dict(case=f'raft {name} 64x64, 2 iterations',
+                     shape=list(out.shape),
+                     max_abs_err=max_err(out.cpu(), ref),
+                     max_abs=float(ref.abs().max()), tol=tol,
+                     radii=list(radii), launches_gpu=launches[name])
+            rec['phase4'].append(r)
+            log('4 small raft', json.dumps(r))
+            if not (r['max_abs_err'] <= tol and launches[name] == want
+                    and radii == [3 if name == 'small' else 4] * 2):
+                raise AssertionError(f'raft {name} card vs CPU: {r}')
+    finally:
+        traft.lookup_pyramid = real
+    return launches['small']
+
+
+def small_movability(torch, port, rec):
+    """MovabilityPredictor at the small configuration (the tests' VMAE,
+    RAFT-2 as the flow probe and a RAFT-2 keypoint predictor, num_iters=1,
+    S = 4 per iteration in chunks of 2), f32, on the card and on the CPU
+    from the same weights and draws: the movability maps and the active and
+    passive patches of every iteration agree; on the card K1 (the prefix
+    once), K2 per chunk and the lookup per RAFT iteration ran."""
+    from counterfactualworldmodels_tpu_torch.models import vmae
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    from counterfactualworldmodels_tpu_torch.pipelines.movability import (
+        MovabilityPredictor)
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = vmae.PretrainVisionTransformer(**SMALL_VMAE)
+    sd = weights.init_vmae_state_dict(model, torch.Generator().manual_seed(0))
+    nets_cpu = [weights.init_raft(traft.RAFT(iters=2, device='cpu', **kw),
+                                  torch.Generator().manual_seed(i + 1))
+                for i, kw in enumerate((dict(), dict(output_dim=1)))]
+    x = np.random.RandomState(13).rand(1, 3, 32, 32).astype(np.float32)
+    outs = {}
+    for dev in ('cpu', 'cuda'):
+        nets = nets_cpu
+        if dev == 'cuda':
+            nets = []
+            for m, kw in zip(nets_cpu, (dict(), dict(output_dim=1))):
+                g = traft.RAFT(iters=2, device=dev, **kw)
+                g.load_state_dict(m.state_dict(), strict=True)
+                nets.append(g)
+        gen = fixed_draws(torch, MovabilityPredictor(
+            predictor=model, params=sd, flow_model=nets[0], raft_iters=2,
+            keypoint_predictor=traft.RaftKeypointPredictor(nets[1]),
+            imagenet_normalize_inputs=True, num_initial_samples=4,
+            num_samples_per_iteration=4, sample_batch_size=2, num_iters=1,
+            device=dev), 8)
+        port.kernels.reset_launches()
+        out = gen(x, do_filter=False)
+        outs[dev] = (out.cpu(), [m.cpu() for m in gen.movability_maps],
+                     [a.cpu() for a in gen.active_patches_per_iter],
+                     [p.cpu() for p in gen.passive_patches_per_iter],
+                     dict(port.kernels.LAUNCHES))
+    (c, cm, ca, cp, lc), (g, gm, ga, gp, lg) = outs['cpu'], outs['cuda']
+    depth = model.encoder_depth + model.decoder_depth
+    # two motion maps of 2 chunks each, every chunk a RAFT-2; the keypoint
+    # RAFT-2 once
+    want = dict({k: 0 for k in lg}, flash_attention=depth,
+                flash_attention_prefix=4 * model.decoder_depth,
+                window_lookup=4 * 2 + 2)
+    r = dict(case='movability small, num_iters 1, S 4',
+             masks_equal=all(torch.equal(a, b) for a, b in zip(ca + cp,
+                                                                ga + gp)),
+             map_err=max(max_err(a, b) for a, b in zip(cm, gm)),
+             map_max=float(c.max()), launches_cpu=lc, launches_gpu=lg,
+             expected_gpu=want, tol_map=1e-3)
+    rec['phase4'].append(r)
+    log('4 small movability', json.dumps(r))
+    if not (r['masks_equal'] and r['map_err'] <= 1e-3
+            and not any(lc.values()) and lg == want):
+        raise AssertionError(f'small movability card vs CPU: {r}')
+
+
 def timed_runs(torch, port, fn, check, reps=4):
     """fn() reps times (the first a warm-up), each from launch counts of 0
     and ending in a synchronize; check(i, launches, out) after each.
@@ -1173,6 +1306,172 @@ def generator_phase(torch, port, rec, smi, ctx):
     log('5b generator', json.dumps(out))
     log('5b generator', 'overhead over the direct dispatch (ms): '
         + json.dumps(out['overhead_ms']))
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return out
+
+
+def movability_phase(torch, port, rec, smi, ctx):
+    """MovabilityPredictor at full width through its entry point,
+    ``MovabilityPredictor(...)(x)``, as the demo calls it: phase 5's VMAE
+    (bf16, the default rung) and RAFT-24, a seeded RAFT-24 keypoint
+    predictor (``output_dim=1``, bf16) and the library defaults (keypoint
+    initialisation, 16 initial samples, 2 iterations of 16, chunks of 4).
+    One warm-up call, then 3 timed calls, each on a new seeded image (a
+    cold prefix LRU); the keypoint predictor's time within each call,
+    synchronized around it; the launches per call held to the counts the
+    code gives; the outputs checked; flow_to_rgb on the card against the
+    CPU; one more cold call split into its parts; one timed call without
+    the flow-sample filter, whose later iterations sample from a real
+    map."""
+    import dataclasses
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    from counterfactualworldmodels_tpu_torch.ops.flow_viz import flow_to_rgb
+    from counterfactualworldmodels_tpu_torch.pipelines.movability import (
+        MovabilityPredictor)
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    dev = torch.device('cuda')
+    cfg = dataclasses.replace(ctx['model'], dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    kp_raft = weights.init_raft(
+        traft.RAFT(iters=24, output_dim=1, dtype=torch.bfloat16, device=dev),
+        torch.Generator(device=dev).manual_seed(7))
+    gen = MovabilityPredictor(
+        predictor=cfg, params=ctx['sd'], flow_model=ctx['raft'],
+        raft_iters=24, keypoint_predictor=traft.RaftKeypointPredictor(kp_raft),
+        imagenet_normalize_inputs=True, seed=0, engine='fast', device=dev)
+    settings = dict(initialize_from_keypoints=gen.initialize_from_keypoints,
+                    num_initial_samples=gen.num_initial_samples,
+                    num_samples_per_iteration=gen.num_samples_per_iteration,
+                    num_iters=gen.num_iters,
+                    sample_batch_size=gen.sample_batch_size)
+    # the counts the code gives: the keypoint RAFT once (24 lookups); three
+    # motion maps of 16 samples in chunks of 4, each chunk a suffix pass (K2
+    # in every decoder block) and a RAFT-24 (24 lookups); the scene's
+    # prefix (K1 in every block) on the first chunk only, an LRU miss
+    chunks = (1 + gen.num_iters) * (gen.num_initial_samples
+                                    // gen.sample_batch_size)
+    want = dict({k: 0 for k in port.kernels.LAUNCHES},
+                flash_attention=cfg.encoder_depth + cfg.decoder_depth,
+                flash_attention_prefix=chunks * cfg.decoder_depth,
+                window_lookup=24 * (chunks + 1))
+    kp_ms = []
+    real_kp = gen.keypoint_predictor
+
+    def timed_kp(x):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = real_kp(x)
+        torch.cuda.synchronize()
+        kp_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    gen.keypoint_predictor = timed_kp
+    rng = np.random.RandomState(21)
+    failures, checks = [], []
+
+    def run(i):
+        x = torch.from_numpy(rng.rand(1, 3, 224, 224).astype(np.float32))
+        misses = gen._prefix_lru.misses if gen._prefix_lru else 0
+        out = gen(x.to(dev))
+        return out, gen._prefix_lru.misses - misses
+
+    def check(i, launches, res):
+        out, new_misses = res
+        kd = gen.keypoints_distribution
+        ok = dict(
+            launches=launches == want, lru_misses=new_misses,
+            shape=tuple(out.shape) == (1, 1, 224, 224),
+            finite=bool(torch.isfinite(out).all()) and all(
+                bool(torch.isfinite(f).all())
+                for f in gen.flow_samples_per_iter),
+            in_unit=bool((out >= 0).all() and (out <= 1).all()),
+            maps=len(gen.flow_samples_per_iter) == 1 + gen.num_iters,
+            keypoints=(tuple(kd.shape) == (1, 1, 224, 224)
+                       and float(kd.max()) == 1.0 and float(kd.min()) == 0.0),
+            map_max=float(out.max()),
+            flow_abs_max=max(float(f.abs().max())
+                             for f in gen.flow_samples_per_iter))
+        checks.append(ok)
+        if not (ok['launches'] and new_misses == 1 and ok['shape']
+                and ok['finite'] and ok['in_unit'] and ok['maps']
+                and ok['keypoints']):
+            failures.append(f'call {i}: {ok}, launches {launches}')
+
+    ms, runs = timed_runs(torch, port, run, check)
+    gen.keypoint_predictor = real_kp
+
+    # one more cold call, split: each part between synchronizations (the
+    # keypoint predictor, the samplers, the 12 chunks, the filters); the
+    # rest is the generator's own host work
+    split = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[name] = (split.get(name, 0.0)
+                           + (time.perf_counter() - t1) * 1e3)
+            return res
+        return wrapper
+
+    filt = gen.flow_sample_filter
+    gen.keypoint_predictor = timed('keypoints', real_kp)
+    gen.sample_patches_from_energy = timed('sampler',
+                                           gen.sample_patches_from_energy)
+    gen._counterfactual_chunk = timed('chunks', gen._counterfactual_chunk)
+    gen.flow_sample_filter = timed('filter', filt)
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run(4)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t1) * 1e3
+    finally:
+        del gen.sample_patches_from_energy, gen._counterfactual_chunk
+        gen.flow_sample_filter = filt
+        gen.keypoint_predictor = real_kp
+    split = dict(split, total=total, rest=total - sum(split.values()))
+
+    flows = gen.flow_samples_per_iter[0][..., 0]
+    rgb = flow_to_rgb(flows, max_speed=4.0)
+    rgb_err = max_err(rgb.cpu(), flow_to_rgb(flows.cpu(), max_speed=4.0))
+
+    # the filter rejects every sample of these random weights, so the maps
+    # above are zeros and iterations 1-2 sample uniformly; unfiltered, the
+    # same path gives a real map, from which iterations 1-2 sample
+    x_u = torch.from_numpy(rng.rand(1, 3, 224, 224).astype(np.float32)).to(dev)
+    port.kernels.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m_u = gen(x_u, do_filter=False)
+    torch.cuda.synchronize()
+    unfiltered = dict(
+        ms=(time.perf_counter() - t1) * 1e3,
+        launches=dict(port.kernels.LAUNCHES), map_max=float(m_u.max()),
+        map_min=float(m_u.min()), finite=bool(torch.isfinite(m_u).all()),
+        flow_abs_max=max(float(f.abs().max())
+                         for f in gen.flow_samples_per_iter))
+    if not (unfiltered['launches'] == want and unfiltered['finite']
+            and unfiltered['flow_abs_max'] > 0
+            and abs(unfiltered['map_max'] - 1) < 1e-6
+            and unfiltered['map_min'] == 0.0):
+        failures.append(f'unfiltered call: {unfiltered}')
+    out = dict(config='large_4x4patch_2frames_1tube bf16 + RAFT-24 bf16 + '
+                      'keypoint RAFT-24 bf16', rung=list(gen._pool_config(
+                          224, 224)), settings=settings,
+               ms_per_call=ms, ms_runs=runs, keypoint_ms=kp_ms[1:],
+               keypoint_ms_median=float(np.median(kp_ms[1:])),
+               launches_per_call=want, checks=checks, split_ms=split,
+               unfiltered=unfiltered,
+               flow_to_rgb_err=rgb_err, tol_flow_to_rgb=1e-6,
+               seconds=time.perf_counter() - t0, card=smi)
+    rec['phase5c'] = out
+    log('5c movability', json.dumps(out))
+    if rgb_err > 1e-6:
+        failures.append(f'flow_to_rgb card vs CPU: {rgb_err}')
     if failures:
         raise AssertionError('; '.join(failures))
     return out
@@ -1496,11 +1795,16 @@ def main():
         phase('4 small slice', small_slice, torch, port, rec)
         phase('4 small train', small_train, torch, port, rec)
         phase('4 small generator', small_generator, torch, port, rec)
+        small_launches = phase('4 small raft', small_raft, torch, port, rec)
+        phase('4 small movability', small_movability, torch, port, rec)
         torch.backends.cudnn.allow_tf32 = True
         full = phase('5 full width', full_width, torch, port, rec, smi)
+        movability = None
         if full is not None:
             phase('5b generator', generator_phase, torch, port, rec, smi,
                   full[1])
+            movability = phase('5c movability', movability_phase, torch,
+                               port, rec, smi, full[1])
             phase('5 profile', profile_default, torch, rec, full[1])
             full = full[0]
             torch.cuda.empty_cache()
@@ -1520,9 +1824,12 @@ def main():
         return next(r for r in rec['phase3'] if r['kernel'] == kernel
                     and r['dtype'] == dtype and r['case'] == case)
 
-    # launches: one default-rung dispatch (K1-K4), one train step (K5, K6)
+    # launches: one default-rung dispatch (K1-K4), one train step (K5, K6),
+    # one small-RAFT call (the lookup at r = 3); beside them, per
+    # movability call (phase 5c)
     default_launches = full[0]['launches']
     step_launches = train['launches_per_step'][-1]
+    per_movability = movability['launches_per_call']
     table = []
     for kid, kernel, dtype, case, launches, replaces in (
             ('K1', 'flash_attention', 'bfloat16', 'encoder prefix',
@@ -1534,14 +1841,19 @@ def main():
             # K3 and K4 differ only in TPU layout: one kernel serves both
             ('K4', 'window_lookup', 'float32', 'pyramid 28/14/7/3',
              default_launches, REPLACES_K4),
+            ('K3', 'window_lookup', 'float32', 'pyramid 28/14/7/3, r 3',
+             small_launches, REPLACES['window_lookup']),
             ('K5', 'flash_attention_lse', 'bfloat16', 'encoder',
              step_launches, REPLACES['flash_attention_lse']),
             ('K6', 'flash_attention_bwd', 'bfloat16', 'encoder',
              step_launches, REPLACES['flash_attention_bwd'])):
         r = pick(kernel, dtype, case)
-        table.append(dict(name=kernel, tpu_kernel=kid, route='cuda',
-                          source=SOURCES[kernel], replaces=replaces,
-                          launches=launches[kernel],
+        table.append(dict(name=kernel, tpu_kernel=kid, case=case,
+                          route='cuda', source=SOURCES[kernel],
+                          replaces=replaces, launches=launches[kernel],
+                          launches_per_movability_call=(
+                              per_movability[kernel]
+                              if launches is default_launches else 0),
                           max_abs_err=r['max_abs_err'], ms=r['ms'],
                           plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                           bound_by=r['bound_by'],

@@ -1,10 +1,11 @@
 """RAFT building blocks (NCHW, nn.Conv2d).
 
 Port of counterfactualworldmodels_tpu/models/raft/layers.py (the large
-model's blocks). Module and parameter names follow the reference torch
-RAFT, so a reference-layout state dict loads with strict=True. Every
-convolution runs in the model's compute dtype (inputs, weights and bias
-cast at the call, as flax's nn.Conv(dtype=...) does); weights stay f32.
+and the small model's blocks). Module and parameter names follow the
+reference torch RAFT, so a reference-layout state dict loads with
+strict=True. Every convolution runs in the model's compute dtype (inputs,
+weights and bias cast at the call, as flax's nn.Conv(dtype=...) does);
+weights stay f32.
 """
 from __future__ import annotations
 
@@ -63,7 +64,12 @@ def make_norm(norm_fn: str, features: int) -> nn.Module:
         return FrozenBatchNorm(features)
     if norm_fn == 'instance':
         return InstanceNorm()
-    raise ValueError(f'norm {norm_fn!r} is not ported')
+    if norm_fn == 'group':
+        # flax's GroupNorm epsilon (torch's default is 1e-5)
+        return nn.GroupNorm(features // 8, features, eps=1e-6)
+    if norm_fn == 'none':
+        return nn.Identity()
+    raise ValueError(f'unknown norm {norm_fn!r}')
 
 
 class ResidualBlock(nn.Module):
@@ -123,26 +129,35 @@ class BottleneckBlock(nn.Module):
 
 
 class BasicEncoder(nn.Module):
-    """Feature / context encoder of the large model. Input NCHW in [-1, 1]."""
+    """Feature / context encoder of the large model (residual blocks).
+    Input NCHW in [-1, 1]."""
+    dims, block = (64, 96, 128), ResidualBlock
 
     def __init__(self, output_dim: int = 128, norm_fn: str = 'batch',
                  dtype=torch.float32):
         super().__init__()
-        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, compute_dtype=dtype)
-        self.norm1 = make_norm(norm_fn, 64)
-        layers, in_planes = [], 64
-        for dim, stride in ((64, 1), (96, 2), (128, 2)):
+        stem = self.dims[0]
+        self.conv1 = Conv2d(3, stem, 7, stride=2, padding=3,
+                            compute_dtype=dtype)
+        self.norm1 = make_norm(norm_fn, stem)
+        layers, in_planes = [], stem
+        for dim, stride in zip(self.dims, (1, 2, 2)):
             layers.append(nn.Sequential(
-                ResidualBlock(in_planes, dim, norm_fn, stride, dtype),
-                ResidualBlock(dim, dim, norm_fn, 1, dtype)))
+                self.block(in_planes, dim, norm_fn, stride, dtype),
+                self.block(dim, dim, norm_fn, 1, dtype)))
             in_planes = dim
         self.layer1, self.layer2, self.layer3 = layers
-        self.conv2 = Conv2d(128, output_dim, 1, compute_dtype=dtype)
+        self.conv2 = Conv2d(in_planes, output_dim, 1, compute_dtype=dtype)
 
     def forward(self, x):
         x = F.relu(self.norm1(self.conv1(x)))
         x = self.layer3(self.layer2(self.layer1(x)))
         return self.conv2(x)
+
+
+class SmallEncoder(BasicEncoder):
+    """Feature / context encoder of the small model (bottleneck blocks)."""
+    dims, block = (32, 64, 96), BottleneckBlock
 
 
 class FlowHead(nn.Module):
@@ -191,6 +206,24 @@ class SepConvGRU(nn.Module):
         return h
 
 
+class ConvGRU(nn.Module):
+    """Plain ConvGRU (3x3 kernels) of the small model; z and r run as one
+    conv, as in SepConvGRU."""
+
+    def __init__(self, hidden_dim: int = 96, input_dim: int = 146,
+                 dtype=torch.float32):
+        super().__init__()
+        c = hidden_dim + input_dim
+        for g in 'zrq':
+            setattr(self, f'conv{g}', Conv2d(c, hidden_dim, 3, padding=1,
+                                             compute_dtype=dtype))
+
+    def forward(self, h, x):
+        z, r = SepConvGRU._zr(self.convz, self.convr, torch.cat([h, x], dim=1))
+        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
+        return (1 - z) * h + z * q
+
+
 class BasicMotionEncoder(nn.Module):
     def __init__(self, corr_levels: int = 4, corr_radius: int = 4,
                  dtype=torch.float32):
@@ -205,6 +238,23 @@ class BasicMotionEncoder(nn.Module):
 
     def forward(self, flow, corr):
         c = F.relu(self.convc2(F.relu(self.convc1(corr))))
+        f = F.relu(self.convf2(F.relu(self.convf1(flow))))
+        out = F.relu(self.conv(torch.cat([c, f], dim=1)))
+        return torch.cat([out, flow], dim=1)
+
+
+class SmallMotionEncoder(nn.Module):
+    def __init__(self, corr_levels: int = 4, corr_radius: int = 3,
+                 dtype=torch.float32):
+        super().__init__()
+        cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
+        self.convc1 = Conv2d(cor_planes, 96, 1, compute_dtype=dtype)
+        self.convf1 = Conv2d(2, 64, 7, padding=3, compute_dtype=dtype)
+        self.convf2 = Conv2d(64, 32, 3, padding=1, compute_dtype=dtype)
+        self.conv = Conv2d(32 + 96, 80, 3, padding=1, compute_dtype=dtype)
+
+    def forward(self, flow, corr):
+        c = F.relu(self.convc1(corr))
         f = F.relu(self.convf2(F.relu(self.convf1(flow))))
         out = F.relu(self.conv(torch.cat([c, f], dim=1)))
         return torch.cat([out, flow], dim=1)
@@ -229,3 +279,19 @@ class BasicUpdateBlock(nn.Module):
         delta = self.flow_head(net)
         mask = 0.25 * self.mask(net)
         return net, mask, delta
+
+
+class SmallUpdateBlock(nn.Module):
+    """The small model's update: no upsampling mask (it returns None)."""
+
+    def __init__(self, corr_levels: int = 4, corr_radius: int = 3,
+                 hidden_dim: int = 96, dtype=torch.float32):
+        super().__init__()
+        self.encoder = SmallMotionEncoder(corr_levels, corr_radius, dtype)
+        self.gru = ConvGRU(hidden_dim, 82 + 64, dtype)
+        self.flow_head = FlowHead(hidden_dim, 128, dtype)
+
+    def forward(self, net, inp, corr, flow):
+        motion = self.encoder(flow, corr)
+        net = self.gru(net, torch.cat([inp, motion], dim=1))
+        return net, None, self.flow_head(net)

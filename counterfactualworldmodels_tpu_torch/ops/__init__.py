@@ -1,1 +1,2 @@
-from . import flash_attention, normalization, patches, pos_embed  # noqa: F401
+from . import (coords, flash_attention, flow_viz, normalization,  # noqa: F401
+               patches, pos_embed)

@@ -25,6 +25,20 @@ def canonical_patch_size(patch_size) -> Tuple[int, int, int]:
     return patch_size
 
 
+def num_patches(video_shape: Sequence[int], patch_size) -> int:
+    """Number of patch tokens for a [B,T,C,H,W] video shape."""
+    pt, ph, pw = canonical_patch_size(patch_size)
+    _, t, _, h, w = video_shape
+    return (t // pt) * (h // ph) * (w // pw)
+
+
+def mask_shape(video_shape: Sequence[int], patch_size) -> Tuple[int, int, int]:
+    """(T', H', W') grid of patch tokens for a [B,T,C,H,W] video shape."""
+    pt, ph, pw = canonical_patch_size(patch_size)
+    _, t, _, h, w = video_shape
+    return (t // pt, h // ph, w // pw)
+
+
 def patchify(x: torch.Tensor, patch_size, temporal_dim: int = 1,
              squeeze_channel_dim: bool = True) -> torch.Tensor:
     """Video [B,T,C,H,W] (or image [B,C,H,W]) -> patch vectors
@@ -74,3 +88,11 @@ def unpatchify(patches: torch.Tensor, patch_size, video_shape: Sequence[int],
     if temporal_dim == 1:
         vid = vid.transpose(1, 2)
     return vid
+
+
+def average_within_patches(z: torch.Tensor, num_channels: int) -> torch.Tensor:
+    """Mean over the intra-patch dim, broadcast back: z [B, N, D*C] (as
+    [B, N, D, C]) or [B, N, D, C]."""
+    if z.dim() == 3:
+        z = z.reshape(z.shape[0], z.shape[1], -1, num_channels)
+    return z.mean(-2, keepdim=True).expand(z.shape)

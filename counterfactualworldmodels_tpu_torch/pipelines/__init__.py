@@ -1,1 +1,2 @@
-from . import perturbation, segmentation  # noqa: F401
+from . import movability, perturbation, segmentation  # noqa: F401
+from .movability import MovabilityPredictor  # noqa: F401

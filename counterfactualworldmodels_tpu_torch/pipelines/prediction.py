@@ -11,7 +11,15 @@ builds the exact model from them on its device, with
 ``attn_impl='flash'`` (K1 on the card, its plain version on the CPU).
 Where the JAX wrapper holds a PRNG key, the port holds a seeded
 ``torch.Generator`` on its device; each draw is one method of the wrapper
-(``_draw_mask_noise`` here), so tests can put the JAX draws in its place.
+(``_draw_mask_noise``, ``_draw_shifts``, ``_draw_prompt_noise``), so tests
+can put the JAX draws in their place.
+
+Modules carry their weights, so a keypoint predictor is a callable
+``x [B, T, C, H, W] -> [B, 1, 1, H, W]`` (the JAX package's also takes its
+params), e.g. ``models.raft.raft.RaftKeypointPredictor`` around a
+``RAFT(output_dim=1)``; ``keypoint_params`` and
+``keypoint_predictor_load_path`` load with strict=True into the module it
+wraps. ``MaeWrapper``'s predictor is likewise called without params.
 
 Wrapper video layout: [B, T, C, H, W]; predictor layout: [B, C, T, H, W].
 Masks: bool [B, N], True = masked.
@@ -29,7 +37,8 @@ from ..masking import mask_ops
 from ..models.vmae import (PretrainVisionTransformerModule, apply_vmae,
                            mask_order, take_tokens)
 from ..ops import patches as patch_ops
-from ..ops.normalization import imagenet_normalize
+from ..ops.normalization import imagenet_normalize, imagenet_unnormalize
+from ..ops.sampling import boltzmann
 from . import perturbation as perturb
 
 
@@ -52,6 +61,15 @@ def load_vmae_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     if 'model' in weights and hasattr(weights['model'], 'keys'):
         weights = strip_prefixes(weights['model'])
     return weights
+
+
+def load_raft_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference RAFT checkpoint as a state dict (the ``'model'`` entry
+    when there is one, without ``module.`` prefixes)."""
+    weights = torch.load(path, map_location='cpu', weights_only=False)
+    if isinstance(weights, dict) and 'model' in weights:
+        weights = weights['model']
+    return strip_prefixes(weights)
 
 
 def scatter_pred_patches(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
@@ -123,33 +141,33 @@ def predict_counterfactuals(module: PretrainVisionTransformerModule, x, masks,
                           frame, t_dim), x_mocos, mask_mocos)
 
 
-_UNPORTED = ('keypoint_predictor', 'keypoint_params',
-             'keypoint_predictor_load_path', 'error_func')
-
-
 class PredictorBasedGenerator:
     """Stateful wrapper mirroring the reference PredictorBasedGenerator.
 
-    device: where the weights, inputs and draws live ('cuda' by default;
-    it raises without a GPU unless 'cpu' is asked for)."""
+    keypoint_predictor: a callable x [B, T, C, H, W] -> [B, 1, 1, H, W]
+    (see the module docstring); error_func: the elementwise error of the
+    error APIs (default squared error). device: where the weights, inputs
+    and draws live ('cuda' by default; it raises without a GPU unless 'cpu'
+    is asked for)."""
 
     def __init__(self,
                  predictor=None,
                  params=None,
                  predictor_load_path: Optional[str] = None,
+                 keypoint_predictor=None,
+                 keypoint_params=None,
+                 keypoint_predictor_load_path: Optional[str] = None,
                  imagenet_normalize_inputs: bool = False,
                  temporal_dim: int = 2,
                  seed: int = 0,
                  mask_generator=None,
                  max_shift_fraction: float = 0.15,
+                 error_func=None,
                  device='cuda',
                  **kwargs):
-        unported = [k for k in _UNPORTED if kwargs.get(k) is not None]
-        if unported:
-            raise NotImplementedError(
-                f'{unported}: the keypoint predictor and the error APIs are '
-                'not ported yet')
         self.device = resolve_device(device)
+        self.error_func = (error_func if error_func is not None
+                           else (lambda p, t: (p - t) ** 2))
         self.predictor = predictor
         self.params = params
         self.imagenet_normalize_inputs = imagenet_normalize_inputs
@@ -167,6 +185,12 @@ class PredictorBasedGenerator:
         self.shifts = []
         if params is None and predictor_load_path is not None:
             self.load_predictor(predictor_load_path)
+        self.keypoint_predictor = keypoint_predictor
+        self.keypoint_params = None
+        if keypoint_params is None and keypoint_predictor_load_path is not None:
+            keypoint_params = load_raft_checkpoint(keypoint_predictor_load_path)
+        if keypoint_params is not None:
+            self.set_keypoint_params(keypoint_params)
 
     # ------------------------------------------------------------------
     # bookkeeping / properties
@@ -192,9 +216,50 @@ class PredictorBasedGenerator:
         self._module = None
         self._module_src = None
 
+    def _check_device(self, module: torch.nn.Module, what: str) -> None:
+        """Raise unless the module's weights are on the generator's device."""
+        dev = next(module.parameters()).device
+        want = self.device
+        if dev.type != want.type or (want.index is not None
+                                     and dev.index != want.index):
+            raise ValueError(f'{what} is on {dev}, the generator on '
+                             f'{self.device}')
+
+    def keypoint_module(self) -> Optional[torch.nn.Module]:
+        """The module the keypoint predictor wraps: the predictor itself when
+        it is an nn.Module, else its ``module`` attribute (None if neither)."""
+        kp = self.keypoint_predictor
+        m = kp if isinstance(kp, torch.nn.Module) else getattr(kp, 'module',
+                                                               None)
+        return m if isinstance(m, torch.nn.Module) else None
+
+    def set_keypoint_params(self, params) -> None:
+        """Load reference-layout keypoint weights with strict=True into the
+        module the keypoint predictor wraps; raise if it wraps none."""
+        module = self.keypoint_module()
+        if module is None:
+            raise ValueError('keypoint weights need a keypoint_predictor '
+                             'that is an nn.Module or has a `module` one')
+        self._check_device(module, 'the keypoint predictor')
+        module.load_state_dict(params, strict=True)
+        self.keypoint_params = params
+
     def _draw_mask_noise(self, rows: int, n: int) -> torch.Tensor:
         """Uniform [0, 0.999) draws [rows, n] for ``rectangularize`` (one
         key for the block in the JAX package)."""
+        return torch.rand(rows, n, generator=self.generator,
+                          device=self.device) * 0.999
+
+    def _draw_shifts(self, num_samples):
+        """[S, 2] random nonzero patch-unit shifts for the held input's
+        image size."""
+        return perturb.random_shift(self.max_shift_fraction,
+                                    self.x.shape[-2:], self.patch_size,
+                                    num=num_samples, generator=self.generator)
+
+    def _draw_prompt_noise(self, rows: int, n: int) -> torch.Tensor:
+        """The rectangularizer's uniform [0, 0.999) draws for ``rows``
+        prompts of n patches (one key per prompt in the JAX package)."""
         return torch.rand(rows, n, generator=self.generator,
                           device=self.device) * 0.999
 
@@ -313,6 +378,14 @@ class PredictorBasedGenerator:
         if invert:
             mask = 1 - mask if upsample else ~mask
         return mask
+
+    def maskshow(self, mask, shape=None, ex=0, **kwargs):
+        """Show one example's mask frames as heatmaps (matplotlib)."""
+        from ..vis_utils import imshow
+        m = self.get_mask_image(mask, shape=shape)
+        t = m.shape[1]
+        return imshow(m[ex:ex + 1].float().reshape(1, t, 1, *m.shape[-2:]),
+                      cmap='inferno', vmin=0, vmax=1, **kwargs)
 
     @staticmethod
     def invert_mask_frame(mask, size, frame=-1):
@@ -541,3 +614,308 @@ class PredictorBasedGenerator:
                 ys.append(self.predict(x[b0:b1], masks[b0:b1], frame=frame,
                                        **kwargs))
         return torch.cat(ys, -1 if sample_dim != 0 else 0)
+
+    def predict_with_mask(self, mask, invert_mask=False, *args, **kwargs):
+        """Predict on the held input with the given mask."""
+        if self.x is None:
+            raise ValueError('no input is set (set_input)')
+        mask = self._tensor(mask)
+        if invert_mask:
+            mask = ~mask
+        return self.predict(self.x, mask.reshape(*self.inp_mask_shape),
+                            *args, **kwargs)
+
+    def error_with_mask(self, mask, invert_mask=False, frame=-1, *args,
+                        **kwargs):
+        """Prediction error on the held input under the given mask. The
+        default single-frame prediction supports frame=-1 only (another
+        frame raises IndexError); ``frame=None`` predicts and compares the
+        full video."""
+        if frame is None:
+            x_pred = self.predict_with_mask(mask, invert_mask, frame=None,
+                                            *args, **kwargs)
+            return self._get_error(x_pred, self.x, dim=-3)
+        x_pred = self.predict_with_mask(mask, invert_mask, *args, **kwargs)
+        t = x_pred.shape[1]
+        if not -t <= frame < t:
+            raise IndexError(
+                f'frame {frame} out of range for the {t}-frame prediction; '
+                f'frame=None compares the full video')
+        return self._get_error(x_pred[:, frame][:, None],
+                               self.x[:, frame][:, None], dim=-3)
+
+    def get_initial_mask(self, x):
+        """Abstract hook, as in the reference."""
+        raise NotImplementedError(
+            'Need to specify how to get the initial mask')
+
+    def shift_patches_and_mask(self, x, mask, max_shift_fraction=0.1,
+                               frame=-1, padding_mode='reflect'):
+        """Translate one frame's pixels and its mask by a random
+        patch-quantized shift via pad + center-crop. Draws two integers from
+        the numpy ``rng``, as the reference does, and keeps its quirk of
+        dividing the mask's x-pad by the height patch size (the same for
+        square patches). Returns (x [B, C, H, W], mask [B, 1, h, w])."""
+        x = self._tensor(x)
+        h, w = x.shape[-2:]
+        if x.dim() == 5:
+            x = x[:, frame]
+        max_shift = [int(max_shift_fraction * s) for s in (h, w)]
+        dy = int(self.rng.randint(-max_shift[0], max_shift[0] + 1))
+        dx = int(self.rng.randint(-max_shift[1], max_shift[1] + 1))
+        ph, pw = self.patch_size[-2], self.patch_size[-1]
+        dy = (dy // ph) * ph
+        dx = (dx // pw) * pw
+
+        def _pad(p):
+            return (2 * p, 0) if p > 0 else (0, -2 * p)
+
+        def _shift2d(z, pad_lr, pad_tb):
+            zp = torch.nn.functional.pad(z, (*pad_lr, *pad_tb),
+                                         mode=padding_mode)
+            top = (zp.shape[-2] - z.shape[-2]) // 2
+            left = (zp.shape[-1] - z.shape[-1]) // 2
+            return zp[..., top:top + z.shape[-2], left:left + z.shape[-1]]
+
+        x_shift = _shift2d(x, _pad(dx), _pad(dy))
+        m = self._tensor(mask).reshape(x.shape[0], -1, h // ph, w // pw)
+        if m.shape[1] > 1:
+            m = m[:, frame][:, None]
+        m_shift = _shift2d(m.float(), _pad(dx // ph),
+                           _pad(dy // pw)).bool()
+        return x_shift, m_shift
+
+    def get_frame_pairs(self, x, frame=None):
+        """Pairs (frame_t, target_frame) [B, 2, C, H, W] for every
+        non-target frame (target: ``frame``, default the middle one)."""
+        x = self._tensor(x)
+        if x.dim() != 5:
+            raise ValueError(f'expected a [B, T, C, H, W] video: '
+                             f'{tuple(x.shape)}')
+        t = x.shape[1]
+        self.num_frame_pairs = t - 1
+        self.target_frame = frame if frame is not None else (t // 2)
+        return [torch.stack([x[:, i], x[:, self.target_frame]], 1)
+                for i in range(t) if i != self.target_frame]
+
+    # ------------------------------------------------------------------
+    # counterfactuals
+    # ------------------------------------------------------------------
+    def _shift(self, x, mask, active_patches=None, shift=None, frame=1):
+        """Shift the active patches of each row by one shift (drawn for the
+        held input's size when not given); returns (x_shift, mask_shift)."""
+        x = self._tensor(x)
+        mask = self._tensor(mask)
+        if active_patches is None:
+            active_patches = torch.ones_like(mask)
+        active_patches = self._tensor(active_patches)
+        if shift is None:
+            shift = self._draw_shifts(1)[0]
+        shift = self._tensor(shift).long()
+        self.shift = shift.cpu().numpy().tolist()
+        self.shifts.append(shift.cpu().numpy())
+        n_vis = int(((~mask) | (~active_patches)).sum(-1).max())
+        b = x.shape[0]
+        npf = mask.shape[-1] // x.shape[1]
+        return perturb.make_motion_counterfactual(
+            x, mask, active_patches, shift.expand(b, 2),
+            self._draw_prompt_noise(b, npf), self.patch_size,
+            n_vis_target=n_vis, frame=frame, fix_passive=False)
+
+    def get_counterfactual_prediction(self, x, mask=None, active_patches=None,
+                                      shift=None, fix_passive=False,
+                                      **kwargs):
+        """Predict the video after shifting the active patches; an image
+        becomes a two-frame static movie."""
+        x = self._tensor(x)
+        if x.dim() == 3:
+            x = x[None, None]
+        elif x.dim() == 4:
+            x = x[:, None]
+        if x.shape[1] == 1:
+            x = self.make_static_movie(x, t=2)
+        self.set_input(x)
+        if mask is None:
+            mask = self.get_zeros_mask(x)
+        if active_patches is None:
+            active_patches = self.get_zeros_mask(x)
+        if fix_passive:
+            x = perturb.make_static(x, self._tensor(mask), self.patch_size)
+        x_p, mask_p = self._shift(x, mask, active_patches, shift, frame=1)
+        return self.predict(x_p, mask_p, frame=None, **kwargs)
+
+    # ------------------------------------------------------------------
+    # errors
+    # ------------------------------------------------------------------
+    def _get_error(self, pred, gt, dim=-3):
+        """Elementwise error summed over ``dim``; the prediction's trailing
+        frames are aligned with gt's."""
+        t = gt.shape[1]
+        return self.error_func(pred[:, -t:], gt).sum(dim, keepdim=True)
+
+    def predict_error(self, x=None, mask=None, target=None, frame=None,
+                      dim=-3):
+        if x is None:
+            x = self.x
+        if mask is None:
+            mask = self.generate_mask(x)
+        pred = self.predict(x, mask, frame=frame)
+        target = self._tensor(x if target is None else target)
+        if frame is not None:
+            target = target[:, frame][:, None]
+        return self.error_func(pred, target).sum(dim, keepdim=True)
+
+    def get_error_on_target_region(self, x, mask, target_mask, target=None,
+                                   average_error=True, frame=-1,
+                                   aggregate_over_patches=True,
+                                   patch_size=None, **kwargs):
+        """The error inside the target region (the visible entries of
+        target_mask), per patch or averaged over the region."""
+        x = self._tensor(x)
+        target = x if target is None else self._tensor(target)
+        target_mask = self._tensor(target_mask)
+        th, tw = self.mask_shape[-2:]
+        if target_mask.dim() == 2:
+            target_mask = target_mask.reshape(x.shape[0], -1, th, tw)
+        region = 1.0 - target_mask.float()
+        pred = self.predict(x, mask, frame=frame, **kwargs)
+        err = self._get_error(pred, target)
+        if not aggregate_over_patches:
+            return err
+        ps = patch_size or self.patch_size
+        b, t, _, h, w = err.shape
+        err = err.reshape(b, t // ps[0], ps[0], 1, h // ps[1], ps[1],
+                          w // ps[2], ps[2]).mean((2, 5, 7))[:, :, 0]
+        err = err * region
+        if not average_error:
+            return err
+        return err.sum((1, 2, 3)) / torch.clamp(region.sum((1, 2, 3)), min=1)
+
+    # ------------------------------------------------------------------
+    # keypoints
+    # ------------------------------------------------------------------
+    def predict_keypoints_map(self, x, **kwargs):
+        """The keypoint predictor's map [B, 1, 1, H, W] (ones without
+        one)."""
+        x = self._tensor(x)
+        if x.dim() != 5:
+            raise ValueError(f'expected a [B, T, C, H, W] video: '
+                             f'{tuple(x.shape)}')
+        if self.keypoint_predictor is None:
+            return torch.ones_like(x[:, 0:1, 0:1])
+        return self.keypoint_predictor(x, **kwargs)
+
+    def predict_keypoints_distribution(self, x, power=8, eps=1e-3):
+        """sigmoid(map) ** power, min-max normalised per image:
+        [B, 1, H, W] in [0, 1]."""
+        v = self.predict_keypoints_map(x).squeeze(-3)
+        v = torch.sigmoid(v) ** power
+        v = v - v.amin((-2, -1), keepdim=True)
+        return v / torch.clamp(v.amax((-2, -1), keepdim=True), min=eps)
+
+    def patchify_energy_density(self, density, mode='min', beta=None):
+        """Pool an energy density [B, T, C, H, W] (or [B, C, H, W]) over
+        each patch by ``mode`` ('mean', 'max' or 'min')."""
+        density = boltzmann(self._tensor(density), beta)
+        ps = self.patch_size
+        red = {'mean': torch.mean, 'max': torch.amax, 'min': torch.amin}[mode]
+        if density.dim() == 5:
+            b, t, c, h, w = density.shape
+            d = density.reshape(b, t // ps[0], ps[0], c, h // ps[1], ps[1],
+                                w // ps[2], ps[2])
+            return red(d, dim=(2, 5, 7)).squeeze(2)
+        b, c, h, w = density.shape
+        d = density.reshape(b, c, h // ps[1], ps[1], w // ps[2], ps[2])
+        return red(d, dim=(3, 5))
+
+    def __call__(self, x, mask=None, frame=None, **kwargs):
+        self.set_input(x, mask)
+        if mask is None:
+            self.mask = self.generate_mask(self.x)
+        return self.predict(self.x, self.mask, frame=frame, **kwargs)
+
+    def forward(self, *args, **kwargs):
+        """torch-style alias of __call__ (subclass overrides honored)."""
+        return self(*args, **kwargs)
+
+    # ------------------------------------------------------------------
+    # visualization support
+    # ------------------------------------------------------------------
+    def get_masked_pred_patches(self, preds, mask, invert=False,
+                                fill_value=None):
+        """preds [B, T, C, H, W] kept at the masked patches (True entries of
+        mask) and zeroed, or set to ``fill_value`` per channel, at the
+        visible ones (the reverse with ``invert``)."""
+        preds = self._tensor(preds)
+        th, tw = self.mask_shape[-2:]
+        mask = self._tensor(mask)
+        m = mask.reshape(mask.shape[0], -1, th, tw)
+        m_pix = mask_ops.upsample_masks(m, preds.shape[-2:]).to(preds.dtype)
+        if invert:
+            m_pix = 1.0 - m_pix
+        out = preds * m_pix[:, :, None]
+        if fill_value is not None:
+            fv = torch.as_tensor(fill_value, dtype=preds.dtype,
+                                 device=preds.device).reshape(1, 1, -1, 1, 1)
+            out = out + (1.0 - m_pix[:, :, None]) * fv
+        return out
+
+    @staticmethod
+    def unmask_one_patch(mask, idx, mask_shape=None, frame=0):
+        """Reveal the patch at idx: a flat index, or with ``mask_shape``
+        (t, i, j) or (i, j) in ``frame``. Returns a new mask."""
+        mask = torch.as_tensor(mask).clone()
+        if mask_shape is None:
+            mask[:, idx] = False
+            return mask
+        m = mask.reshape(-1, *mask_shape)
+        if len(idx) == 2:
+            idx = [frame] + list(idx)
+        m[(slice(None),) + tuple(idx)] = False
+        return m.reshape(mask.shape)
+
+
+class MaeWrapper(PredictorBasedGenerator):
+    """Wrapper for single-image MAE models.
+
+    ``predictor`` is any callable with the timm-MAE signature
+    ``predictor(x, mask_ratio=..., mask=...) -> (loss, pred_patches, mask)``
+    (it carries its weights), with ``unpatchify(pred) -> image``; the
+    wrapper handles frame select and imagenet (un)normalization."""
+
+    def __init__(self, *args, unpatchify=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._unpatchify = unpatchify
+
+    def imagenet_normalize(self, x):
+        """Single-image [B, 3, H, W] normalize."""
+        x = self._tensor(x)
+        if x.dim() != 4 or x.shape[1] != 3:
+            raise ValueError(f'expected [B, 3, H, W]: {tuple(x.shape)}')
+        return imagenet_normalize(x[:, None], temporal_dim=1)[:, 0]
+
+    def imagenet_unnormalize(self, x):
+        """Single-image [B, 3, H, W] unnormalize."""
+        x = self._tensor(x)
+        if x.dim() != 4 or x.shape[1] != 3:
+            raise ValueError(f'expected [B, 3, H, W]: {tuple(x.shape)}')
+        return imagenet_unnormalize(x[:, None], temporal_dim=1)[:, 0]
+
+    def predict(self, x=None, mask=None, frame=0, mask_ratio=0.9, **kwargs):
+        if x is None:
+            x = self.x
+        x = self._tensor(x)
+        is_video = x.dim() == 5
+        if is_video:
+            x = x[:, frame]
+        if self.imagenet_normalize_inputs:
+            x = self.imagenet_normalize(x)
+        _, y, mask_out = self.predictor(x, mask_ratio=mask_ratio, mask=mask)
+        self.mask = mask_out
+        if self._unpatchify is not None:
+            y = self._unpatchify(y)
+        if self.imagenet_normalize_inputs:
+            y = self.imagenet_unnormalize(y)
+        if is_video:
+            y = y[:, None]
+        return y

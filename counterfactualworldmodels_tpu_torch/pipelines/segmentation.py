@@ -28,8 +28,8 @@ from ..models.raft.raft import RAFT, apply_raft_shared0, apply_raft_video
 from ..ops.sampling import boltzmann
 from . import perturbation as perturb
 from .filters import FlowSampleFilter
-from .prediction import (PredictorBasedGenerator, make_counterfactuals,
-                         predict_video, strip_prefixes)
+from .prediction import (PredictorBasedGenerator, load_raft_checkpoint,
+                         make_counterfactuals, predict_video)
 
 
 def _rect_noise(noise, rows: int, n: int, device):
@@ -86,19 +86,21 @@ def compute_flow_corrs(flow_samples: torch.Tensor,
                        range_thresh: Optional[float] = None) -> torch.Tensor:
     """Pixel x pixel covariance / correlation of flow magnitude across
     counterfactual samples. flow_samples: [B, C, H, W, S]. Returns
-    [B, 1, H/ds, W/ds, H/ds, W/ds]."""
+    [B, 1, H/ds, W/ds, H/ds, W/ds]. Raises ValueError when take_top_k
+    exceeds S."""
     b, c, h, w, s = flow_samples.shape
     if s == 0:
         flow_samples = torch.zeros((b, c, h, w, 1), dtype=torch.float32,
                                    device=flow_samples.device)
         s = 1
     k = s if take_top_k is None else take_top_k
+    if k > s:
+        raise ValueError(f'take_top_k={k} exceeds the {s} flow samples')
     ds = downsample
 
     def _ds(fs):
         fs = fs[..., :k]
-        return fs.reshape(b, c, h // ds, ds, w // ds, ds,
-                          fs.shape[-1]).mean((3, 5))
+        return fs.reshape(b, c, h // ds, ds, w // ds, ds, k).mean((3, 5))
 
     flow_inp = _ds(flow_samples)
     if flow_samples_swap is not None:
@@ -131,15 +133,6 @@ def compute_flow_corrs(flow_samples: torch.Tensor,
 
     corrs = torch.stack([per_batch(fi) for fi in flow_inp])
     return corrs.reshape(b, 1, h // ds, w // ds, h // ds, w // ds)
-
-
-def _load_raft_checkpoint(path: str):
-    """A reference RAFT checkpoint as a state dict (the ``'model'`` entry
-    when there is one, without ``module.`` prefixes)."""
-    weights = torch.load(path, map_location='cpu', weights_only=False)
-    if isinstance(weights, dict) and 'model' in weights:
-        weights = weights['model']
-    return strip_prefixes(weights)
 
 
 class FlowGenerator(PredictorBasedGenerator):
@@ -236,14 +229,9 @@ class FlowGenerator(PredictorBasedGenerator):
         if flow_model is None:
             flow_model = RAFT(iters=self.raft_iters, device=self.device,
                               **kwargs)
-        dev = next(flow_model.parameters()).device
-        want = self.device
-        if dev.type != want.type or (want.index is not None
-                                     and dev.index != want.index):
-            raise ValueError(f'flow_model is on {dev}, the generator on '
-                             f'{self.device}')
+        self._check_device(flow_model, 'flow_model')
         if flow_params is None and flow_model_load_path is not None:
-            flow_params = _load_raft_checkpoint(flow_model_load_path)
+            flow_params = load_raft_checkpoint(flow_model_load_path)
         if flow_params is not None:
             self.flow_params = flow_params
         if self.flow_params is not None:
@@ -390,18 +378,6 @@ class FlowGenerator(PredictorBasedGenerator):
     # ------------------------------------------------------------------
     def reset_shifts(self):
         self.shifts = []
-
-    def _draw_shifts(self, num_samples):
-        """[S, 2] random nonzero patch-unit shifts."""
-        return perturb.random_shift(self.max_shift_fraction,
-                                    self.x.shape[-2:], self.patch_size,
-                                    num=num_samples, generator=self.generator)
-
-    def _draw_prompt_noise(self, rows: int, n: int) -> torch.Tensor:
-        """The rectangularizer's uniform [0, 0.999) draws for ``rows``
-        prompts of n patches (one key per prompt in the JAX package)."""
-        return torch.rand(rows, n, generator=self.generator,
-                          device=self.device) * 0.999
 
     def _prep_shifts(self, shifts, num_samples):
         if shifts is None:
@@ -675,6 +651,24 @@ class FlowGenerator(PredictorBasedGenerator):
         return flows, active_patches, passive_patches
 
     compute_flow_corrs = staticmethod(compute_flow_corrs)
+
+    def flowshow(self, flow, set_max_speed=True, frame=0, ax=None,
+                 title=None, fontsize=12, **kwargs):
+        """Show a flow field [B, 2, H, W] (or frame ``frame`` of
+        [B, T, 2, H, W]) as RGB on the HSV wheel (matplotlib), at the
+        field's largest speed (or the last one shown)."""
+        from ..ops.flow_viz import flow_to_rgb
+        from ..vis_utils import imshow
+        flow = self._tensor(flow)
+        if flow.dim() == 5:
+            flow = flow[:, frame]
+        if set_max_speed:
+            max_speed = float(torch.sqrt((flow ** 2).sum(-3)).max())
+            self._last_max_speed = max_speed
+        else:
+            max_speed = getattr(self, '_last_max_speed', 1.0)
+        rgb = flow_to_rgb(flow, max_speed=max(max_speed, 1e-6))
+        return imshow(rgb, ax=ax, title=title, fontsize=fontsize, **kwargs)
 
     def get_error_maps(self, x, mask, frame=1, **kwargs):
         """True vs predicted flow and their error."""

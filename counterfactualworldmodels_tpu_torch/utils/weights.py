@@ -104,7 +104,11 @@ def _bn(out, prefix, node):
     out[prefix + '.num_batches_tracked'] = torch.zeros((), dtype=torch.long)
 
 
-def _encoder(out, prefix, tree, norm_fn):
+def _encoder(out, prefix, tree, norm_fn, bottleneck=False):
+    """A BasicEncoder (residual blocks of 2 convs) or, with bottleneck, a
+    SmallEncoder (3 convs). Only 'batch' norms carry weights ('instance'
+    and 'none' have none)."""
+    n_convs = 3 if bottleneck else 2
     _conv(out, prefix + '.conv1', tree['conv1'])
     if norm_fn == 'batch':
         _bn(out, prefix + '.norm1', tree['norm1'])
@@ -112,34 +116,46 @@ def _encoder(out, prefix, tree, norm_fn):
         for blk in (0, 1):
             node = tree[f'layer{layer}_{blk}']
             p = f'{prefix}.layer{layer}.{blk}'
-            for i in (1, 2):
+            for i in range(1, n_convs + 1):
                 _conv(out, f'{p}.conv{i}', node[f'conv{i}'])
                 if norm_fn == 'batch':
                     _bn(out, f'{p}.norm{i}', node[f'norm{i}'])
             if 'downsample_conv' in node:
                 _conv(out, f'{p}.downsample.0', node['downsample_conv'])
                 if norm_fn == 'batch':
-                    # the reference registers this norm twice (norm3 and
-                    # downsample.1): emit both aliases of the same tensors
-                    _bn(out, f'{p}.downsample.1', node['norm3'])
-                    _bn(out, f'{p}.norm3', node['norm3'])
+                    # the reference registers this norm twice (norm{n+1}
+                    # and downsample.1): emit both aliases of the tensors
+                    last = f'norm{n_convs + 1}'
+                    _bn(out, f'{p}.downsample.1', node[last])
+                    _bn(out, f'{p}.{last}', node[last])
     _conv(out, prefix + '.conv2', tree['conv2'])
 
 
 def raft_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """Flax RAFT params (large model) -> reference RAFT state dict."""
+    """Flax RAFT params -> reference RAFT state dict: the large or the small
+    model (told apart by the GRU's convolutions), with the output head's
+    ``output_block.0`` / ``.2`` when the tree has one."""
     out: Dict[str, torch.Tensor] = {}
-    _encoder(out, 'fnet', params['fnet'], 'instance')
-    _encoder(out, 'cnet', params['cnet'], 'batch')
     ub = params['update_step']['update_block']
-    for c in ('convc1', 'convc2', 'convf1', 'convf2', 'conv'):
+    small = 'convz' in ub['gru']
+    _encoder(out, 'fnet', params['fnet'], 'instance', small)
+    _encoder(out, 'cnet', params['cnet'], 'none' if small else 'batch', small)
+    enc = (('convc1', 'convf1', 'convf2', 'conv') if small
+           else ('convc1', 'convc2', 'convf1', 'convf2', 'conv'))
+    for c in enc:
         _conv(out, f'update_block.encoder.{c}', ub['encoder'][c])
-    for c in ('convz1', 'convr1', 'convq1', 'convz2', 'convr2', 'convq2'):
+    gru = (('convz', 'convr', 'convq') if small else
+           ('convz1', 'convr1', 'convq1', 'convz2', 'convr2', 'convq2'))
+    for c in gru:
         _conv(out, f'update_block.gru.{c}', ub['gru'][c])
     for c in ('conv1', 'conv2'):
         _conv(out, f'update_block.flow_head.{c}', ub['flow_head'][c])
-    _conv(out, 'update_block.mask.0', ub['mask_0'])
-    _conv(out, 'update_block.mask.2', ub['mask_2'])
+    if not small:
+        _conv(out, 'update_block.mask.0', ub['mask_0'])
+        _conv(out, 'update_block.mask.2', ub['mask_2'])
+    if 'output_block_0' in params:
+        _conv(out, 'output_block.0', params['output_block_0'])
+        _conv(out, 'output_block.2', params['output_block_2'])
     return out
 
 
@@ -224,7 +240,9 @@ def init_vmae_state_dict(model: PretrainVisionTransformer,
 def init_raft(model: torch.nn.Module, generator: torch.Generator):
     """Fill a RAFT module's weights in place from the JAX initialisers'
     distributions (conv kernels lecun_normal, biases zeros, frozen batch
-    norms at identity statistics). Returns the module."""
+    norms at identity statistics, group norms ones and zeros): the large or
+    the small model, with or without the output head. Returns the
+    module."""
     for m in model.modules():
         if isinstance(m, Conv2d):
             o, i, kh, kw = m.weight.shape
@@ -235,4 +253,7 @@ def init_raft(model: torch.nn.Module, generator: torch.Generator):
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, torch.nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
     return model

@@ -22,7 +22,6 @@ import torch
 from counterfactualworldmodels_tpu.models import fast_vmae as jfv
 from counterfactualworldmodels_tpu.models import vmae as jvmae
 from counterfactualworldmodels_tpu.models.raft import raft as jraft
-from counterfactualworldmodels_tpu.pipelines import perturbation as jperturb
 from counterfactualworldmodels_tpu.pipelines import segmentation as jseg
 from counterfactualworldmodels_tpu_torch.models import fast_vmae as tfv
 from counterfactualworldmodels_tpu_torch.models import vmae as tvmae
@@ -30,51 +29,10 @@ from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
 from counterfactualworldmodels_tpu_torch.pipelines import segmentation as tseg
 from counterfactualworldmodels_tpu_torch.utils import weights
 
-from torch_port_common import assert_close, jax_uniform_noise, t
+from torch_port_common import (TINY, JaxDraws, assert_close,
+                               jax_uniform_noise, t)
 
-# tests/test_segmentation.py's tiny predictor
-TINY = dict(img_size=(32, 32), patch_size=(4, 4), encoder_embed_dim=64,
-            encoder_depth=2, encoder_num_heads=4, decoder_embed_dim=32,
-            decoder_depth=1, decoder_num_heads=2, num_frames=2, qkv_bias=True)
 N, N0 = 128, 64
-
-
-class JaxDraws:
-    """Put the JAX generator's draws in place of the port generator's: one
-    key chain from PRNGKey(seed), split at the points where the JAX
-    FlowGenerator calls next_key()."""
-
-    def __init__(self, gen, seed=0):
-        self.gen = gen
-        self.key = jax.random.PRNGKey(seed)
-        gen._draw_shifts = self.shifts
-        gen._draw_prompt_noise = self.prompt_noise
-        gen._draw_mask_noise = self.mask_noise
-        gen._draw_patch_indices = self.patch_indices
-
-    def next_key(self):
-        self.key, sub = jax.random.split(self.key)
-        return sub
-
-    def shifts(self, num_samples):
-        g = self.gen
-        keys = jax.random.split(self.next_key(), num_samples)
-        d = jax.vmap(lambda k: jperturb.random_shift(
-            k, g.max_shift_fraction, g.x.shape[-2:], g.patch_size))(keys)
-        return t(d).long()
-
-    def prompt_noise(self, rows, n):
-        return t(jax_uniform_noise(jax.random.split(self.next_key(), rows), n))
-
-    def mask_noise(self, rows, n):
-        return t(jax.random.uniform(self.next_key(), (rows, n), minval=0.0,
-                                    maxval=0.999))
-
-    def patch_indices(self, p, num_points):
-        logits = jnp.log(jnp.clip(jnp.asarray(p.numpy()), min=1e-30))
-        idx = jax.random.categorical(self.next_key(), logits, axis=-1,
-                                     shape=(num_points, p.shape[0])).T
-        return t(idx).long()
 
 
 @pytest.fixture(scope='module')
@@ -395,15 +353,24 @@ CORR_CASES = [dict(), dict(use_covariance=True), dict(do_spearman=True),
               dict(thresh=0.8), dict(thresh=0.8, binarize=True),
               dict(range_thresh=0.5), dict(normalize=True),
               dict(zscore=True, use_covariance=True), dict(take_top_k=3),
-              dict(swap=True)]
+              dict(swap=True), dict(take_top_k=6, raises=True)]
 
 
 @pytest.mark.parametrize('case', CORR_CASES,
                          ids=lambda c: '-'.join(c) or 'corr')
 def test_compute_flow_corrs_matches_jax(case):
+    """Every option against JAX. take_top_k above the S = 5 samples is an
+    error on both sides: JAX's reshape to k samples raises (a TypeError or
+    a ValueError, by JAX version), the port a ValueError."""
     rng = np.random.RandomState(1)
     flows = rng.randn(2, 2, 8, 8, 5).astype(np.float32)
     kw = dict(case)
+    if kw.pop('raises', False):
+        with pytest.raises((TypeError, ValueError), match='reshape'):
+            jseg.compute_flow_corrs(jnp.asarray(flows), downsample=2, **kw)
+        with pytest.raises(ValueError, match='take_top_k'):
+            tseg.compute_flow_corrs(t(flows), downsample=2, **kw)
+        return
     swap = None
     if kw.pop('swap', False):
         swap = rng.randn(2, 2, 8, 8, 5).astype(np.float32)

@@ -146,17 +146,21 @@ def test_generator_entry_points_raise_without_cuda_unless_cpu_is_asked():
 
 
 def test_new_modules_import_in_a_fresh_process_without_jax():
+    """The port's modules import without JAX and without matplotlib (only
+    the plotting calls import it)."""
     mods = ('ops.sampling', 'masking.mask_ops', 'masking.generators',
             'pipelines.perturbation', 'pipelines.filters',
             'pipelines.prediction', 'pipelines.segmentation',
-            'models.fast_vmae')
+            'models.fast_vmae', 'ops.coords', 'ops.flow_viz', 'vis_utils',
+            'pipelines.movability')
     code = ('import importlib, sys; '
             'pkg = "counterfactualworldmodels_tpu_torch."; '
             f'[importlib.import_module(pkg + m) for m in {mods!r}]; '
             'bad = [m for m in sys.modules if m == "jax" or '
             'm.startswith("jax.") or m == "flax" or m.startswith("flax.") or '
             'm == "counterfactualworldmodels_tpu" or '
-            'm.startswith("counterfactualworldmodels_tpu.")]; '
+            'm.startswith("counterfactualworldmodels_tpu.") or '
+            'm == "matplotlib"]; '
             'print(bad); sys.exit(1 if bad else 0)')
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,

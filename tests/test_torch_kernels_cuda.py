@@ -224,21 +224,39 @@ def test_flash_attention_bwd_kernel_is_deterministic(dev):
         assert all(torch.equal(a, b) for a, b in zip(first, second)), shape
 
 
+def _device_kernel_names(fn):
+    """The names of the device kernels ``fn`` launches, by torch.profiler.
+    A later profiler session in a process sometimes records the launches
+    but no device kernel at all; such a session is taken again, up to three
+    times (a session with kernels is never retaken)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return ' '.join(names)
+
+
 def test_bf16_attention_runs_on_the_tensor_core_kernels(dev):
     """bf16 calls launch the wgmma kernels, f32 calls the CUDA-core ones."""
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(8)
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = _grad_inputs(rng, dev, dtype, 1, 2, 130, 130, 64)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def calls():
             out, lse = fa._flash_forward_lse(q, k, v)
             fa.flash_attention_prefix(q, k, v, k, v, 1.0, 4.0)
             fa._flash_backward(q, k, v, do, lse,
                                (do.float() * out.float()).sum(-1))
-            torch.cuda.synchronize()
-        names[dtype] = ' '.join(e.key for e in prof.key_averages())
+
+        names[dtype] = _device_kernel_names(calls)
     for kernel in ('attention_fwd_sm90', 'dkdv_sm90', 'dq_sm90'):
         assert kernel in names[torch.bfloat16]
         assert kernel not in names[torch.float32]
@@ -352,3 +370,60 @@ def test_flow_generator_on_the_card_matches_the_cpu(dev, engine):
         # apply_vmae per chunk (K1 in every block)
         want = dict(flash_attention=3 * depth, window_lookup=3 * 2)
     assert lg == dict({k: 0 for k in lg}, **want), lg
+
+
+def _raft_on_both(cpu_model_fn, monkeypatch):
+    """A RAFT with seeded weights on the CPU and the same weights on the
+    card, and a spy that records the radius of every lookup call."""
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = weights.init_raft(cpu_model_fn('cpu'),
+                            torch.Generator().manual_seed(1))
+    gpu = cpu_model_fn('cuda')
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    radii = []
+    real = traft.lookup_pyramid
+
+    def spy(pyramid, coords, radius, *a):
+        radii.append(radius)
+        return real(pyramid, coords, radius, *a)
+
+    monkeypatch.setattr(traft, 'lookup_pyramid', spy)
+    return cpu, gpu, radii
+
+
+def test_small_raft_runs_the_radius_3_lookup(dev, monkeypatch):
+    """RAFT(small=True) at 64 px, 2 iterations, f32 (TF32 off): flows within
+    1e-3 px of the CPU's; on the card one radius-3 lookup launch per
+    iteration, on the CPU none."""
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    cpu, gpu, radii = _raft_on_both(
+        lambda d: traft.RAFT(iters=2, small=True, device=d), monkeypatch)
+    rng = np.random.RandomState(9)
+    video = torch.from_numpy(rng.rand(3, 2, 3, 64, 64).astype(np.float32))
+    kernels.reset_launches()
+    ref = traft.apply_raft_shared0(cpu, video)
+    assert kernels.LAUNCHES['window_lookup'] == 0
+    out = traft.apply_raft_shared0(gpu, video.to(dev))
+    assert kernels.LAUNCHES['window_lookup'] == 2
+    assert radii == [3] * 4
+    assert _err(out.cpu(), ref) <= 1e-3
+
+
+def test_keypoint_raft_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """RAFT(output_dim=1) (the large model's keypoint head, convex
+    upsampling of one channel) through RaftKeypointPredictor at 64 px: the
+    map within 1e-4 of the CPU's, one radius-4 lookup per iteration."""
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    cpu, gpu, radii = _raft_on_both(
+        lambda d: traft.RAFT(iters=2, output_dim=1, device=d), monkeypatch)
+    x = torch.from_numpy(np.random.RandomState(10).rand(
+        2, 2, 3, 64, 64).astype(np.float32))
+    ref = traft.RaftKeypointPredictor(cpu)(x)
+    kernels.reset_launches()
+    out = traft.RaftKeypointPredictor(gpu)(x.to(dev))
+    assert kernels.LAUNCHES['window_lookup'] == 2 and radii == [4] * 4
+    assert out.shape == ref.shape == (2, 1, 1, 64, 64)
+    assert _err(out.cpu(), ref) <= 1e-4

@@ -18,7 +18,8 @@ from counterfactualworldmodels_tpu_torch.models import vmae as tvmae
 from counterfactualworldmodels_tpu_torch.pipelines import prediction as tpred
 from counterfactualworldmodels_tpu_torch.utils import weights
 
-from torch_port_common import SMALL_VMAE, assert_close, jax_uniform_noise, t
+from torch_port_common import (SMALL_VMAE, JaxDraws, assert_close,
+                               jax_uniform_noise, t)
 
 N, N0, PATCH = 128, 64, (1, 4, 4)
 
@@ -213,6 +214,65 @@ def test_mask_utilities_match_jax(nets):
                                           jnp.asarray(mask)), 1e-6)
 
 
+def _check_keypoint_contract(tg):
+    """The keypoint predictor is a callable x -> [B, 1, 1, H, W];
+    keypoint_params and keypoint_predictor_load_path load with strict=True
+    into the module it wraps, and raise when it wraps none."""
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    kw = dict(predictor=tg.predictor, device='cpu')
+    src = weights.init_raft(traft.RAFT(iters=1, output_dim=1, device='cpu'),
+                            torch.Generator().manual_seed(3))
+    sd = src.state_dict()
+    for predictor in (None, lambda x: x[:, :1, :1]):
+        with pytest.raises(ValueError, match='keypoint'):
+            tpred.PredictorBasedGenerator(keypoint_predictor=predictor,
+                                          keypoint_params=sd, **kw)
+    kp = traft.RaftKeypointPredictor(traft.RAFT(iters=1, output_dim=1,
+                                                device='cpu'))
+    g = tpred.PredictorBasedGenerator(keypoint_predictor=kp,
+                                      keypoint_params=sd,
+                                      error_func=lambda p, t: abs(p - t), **kw)
+    assert g.keypoint_module() is kp.module and g.keypoint_params is sd
+    x = torch.rand(1, 2, 3, 32, 32, generator=torch.Generator().manual_seed(4))
+    assert torch.equal(g.predict_keypoints_map(x),
+                       traft.RaftKeypointPredictor(src)(x))
+    assert g.predict_keypoints_map(x).shape == (1, 1, 1, 32, 32)
+    assert torch.equal(g.error_func(torch.ones(2), torch.zeros(2)),
+                       torch.ones(2))
+    return src
+
+
+def test_keypoint_checkpoint_loads_strict(nets, tmp_path):
+    """keypoint_predictor_load_path: a reference .pth ({'model': ...} with
+    DDP prefixes) loads with strict=True; a checkpoint with a missing key
+    fails at once; without a module to load into it raises."""
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    _, tg = make_pair(nets)
+    src = _check_keypoint_contract(tg)
+    path = tmp_path / 'keypoints.pth'
+    torch.save({'model': {'module.' + k: v
+                          for k, v in src.state_dict().items()}}, path)
+    kp = traft.RaftKeypointPredictor(traft.RAFT(iters=1, output_dim=1,
+                                                device='cpu'))
+    tpred.PredictorBasedGenerator(
+        predictor=tg.predictor, keypoint_predictor=kp,
+        keypoint_predictor_load_path=str(path), device='cpu')
+    for k, v in src.state_dict().items():
+        assert torch.equal(kp.module.state_dict()[k], v), k
+    bad = dict(src.state_dict())
+    bad.pop('output_block.2.bias')
+    torch.save(bad, path)
+    with pytest.raises(RuntimeError, match='output_block.2.bias'):
+        tpred.PredictorBasedGenerator(
+            predictor=tg.predictor, keypoint_predictor=kp,
+            keypoint_predictor_load_path=str(path), device='cpu')
+    with pytest.raises(ValueError, match='keypoint'):
+        tpred.PredictorBasedGenerator(
+            predictor=tg.predictor, keypoint_predictor_load_path=str(path),
+            device='cpu')
+
+
 def test_generator_settings_and_unported_arguments(nets):
     _, tg = make_pair(nets)
     with pytest.raises(ValueError, match='temporal_dim'):
@@ -220,13 +280,202 @@ def test_generator_settings_and_unported_arguments(nets):
     tg.set_image_size(32)
     with pytest.raises(ValueError, match='built for image size'):
         tg.set_image_size(64, 64)
-    with pytest.raises(NotImplementedError, match='keypoint'):
-        tpred.PredictorBasedGenerator(predictor=tg.predictor,
-                                      keypoint_predictor=object(),
-                                      device='cpu')
+    _check_keypoint_contract(tg)
     with pytest.raises(ValueError, match='mask_generator'):
         tg.generate_mask(torch.zeros(1, 2, 3, 32, 32))
     # set_predictor with new weights rebuilds the exact model
     first = tg._exact_module()
     tg.set_predictor(tg.predictor, params=dict(tg.params))
     assert tg._exact_module() is not first
+
+
+class _PredictionDraws(JaxDraws):
+    """JaxDraws for PredictorBasedGenerator._shift, whose one shift the JAX
+    package draws from next_key() itself (FlowGenerator splits it)."""
+
+    def shifts(self, num_samples):
+        from counterfactualworldmodels_tpu.pipelines import perturbation
+        g = self.gen
+        return t(perturbation.random_shift(
+            self.next_key(), g.max_shift_fraction, g.x.shape[-2:],
+            g.patch_size))[None].long()
+
+
+def _draw_pair(nets, seed=0, **kw):
+    jm, params, tm, sd = nets
+    jg = jpred.PredictorBasedGenerator(predictor=jm, params=params, seed=seed,
+                                       **kw)
+    tg = tpred.PredictorBasedGenerator(predictor=tm, params=sd, seed=seed,
+                                       device='cpu', **kw)
+    _PredictionDraws(tg, seed)
+    return jg, tg
+
+
+@pytest.mark.parametrize('error_func', [None, 'abs'])
+def test_error_apis_match_jax(nets, error_func):
+    """predict_with_mask, error_with_mask (with its IndexError),
+    predict_error and get_error_on_target_region, with the default squared
+    error and a given one; errors within 1e-3 (sums of the predictions'
+    2e-4 differences over channels)."""
+    kw = dict(imagenet_normalize_inputs=True)
+    if error_func == 'abs':
+        kw['error_func'] = lambda p, q: abs(p - q)
+    jg, tg = _draw_pair(nets, seed=3, **kw)
+    rng = np.random.RandomState(10)
+    x = rng.rand(2, 2, 3, 32, 32).astype(np.float32)
+    mask = _masks(rng, 2, (6, 6))
+    jg.set_input(jnp.asarray(x))
+    tg.set_input(x)
+    for invert in (False, True):
+        assert_close(tg.predict_with_mask(mask, invert).numpy(),
+                     jg.predict_with_mask(jnp.asarray(mask), invert),
+                     2e-4, 1e-4)
+    for frame in (-1, None):
+        assert_close(tg.error_with_mask(mask, frame=frame).numpy(),
+                     jg.error_with_mask(jnp.asarray(mask), frame=frame),
+                     1e-3, 1e-4)
+        assert_close(tg.predict_error(x, mask, frame=frame).numpy(),
+                     jg.predict_error(jnp.asarray(x), jnp.asarray(mask),
+                                      frame=frame), 1e-3, 1e-4)
+    for g, m in ((jg, jnp.asarray(mask)), (tg, mask)):
+        with pytest.raises(IndexError, match='out of range'):
+            g.error_with_mask(m, frame=1)
+    target = rng.rand(2, N) > 0.7
+    for kwargs in (dict(), dict(average_error=False),
+                   dict(aggregate_over_patches=False, frame=None),
+                   dict(frame=None)):
+        ref = jg.get_error_on_target_region(
+            jnp.asarray(x), jnp.asarray(mask), jnp.asarray(target), **kwargs)
+        out = tg.get_error_on_target_region(x, mask, target, **kwargs)
+        assert tuple(out.shape) == ref.shape
+        assert_close(out.numpy(), ref, 1e-3, 1e-4)
+    with pytest.raises(NotImplementedError):
+        tg.get_initial_mask(x)
+
+
+def test_shift_patches_and_mask_matches_jax(nets):
+    """Random patch-quantized shifts from the seeded numpy rng (two draws a
+    call, as the reference), reflect padding of the frame and of its mask
+    (cast to float and back): pixels and masks bitwise."""
+    jg, tg = _draw_pair(nets, seed=4)
+    rng = np.random.RandomState(11)
+    x = rng.rand(2, 2, 3, 32, 32).astype(np.float32)
+    mask = rng.rand(2, N) > 0.5
+    for frac, frame, xin in ((0.3, -1, x), (0.3, 0, x), (0.2, -1, x[:, 1]),
+                             (0.0, -1, x)):
+        m_in = mask if xin.ndim == 5 else mask[:, N0:]
+        jx, jm = jg.shift_patches_and_mask(jnp.asarray(xin), jnp.asarray(m_in),
+                                           frac, frame)
+        tx, tm = tg.shift_patches_and_mask(xin, m_in, frac, frame)
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    assert tg.rng.randint(1000) == jg.rng.randint(1000)
+
+
+@pytest.mark.parametrize('fix_passive', [False, True])
+def test_counterfactual_prediction_matches_jax(nets, fix_passive):
+    """get_counterfactual_prediction on an image (made a static movie) with
+    active frame-1 patches: a given shift, then one drawn from the JAX key
+    (_draw_shifts), the rectangularizer's noise from it too
+    (_draw_prompt_noise); the shifts kept, the videos within 2e-4 / 1e-4.
+    Then __call__ and forward with a mask."""
+    jg, tg = _draw_pair(nets, seed=5, imagenet_normalize_inputs=True)
+    rng = np.random.RandomState(12)
+    img = rng.rand(1, 3, 32, 32).astype(np.float32)
+    active = np.ones((1, N), dtype=bool)
+    active[0, N0 + rng.choice(N0, 3, replace=False)] = False
+    passive = np.ones((1, N), dtype=bool)
+    passive[0, :N0] = False
+    passive[0, N0 + rng.choice(N0, 4, replace=False)] = False
+    for shift in ([1, -1], None):
+        ref = jg.get_counterfactual_prediction(
+            jnp.asarray(img), jnp.asarray(passive), jnp.asarray(active),
+            shift=shift, fix_passive=fix_passive)
+        out = tg.get_counterfactual_prediction(
+            img, passive, active, shift=shift, fix_passive=fix_passive)
+        assert tuple(out.shape) == ref.shape == (1, 2, 3, 32, 32)
+        assert_close(out.numpy(), ref, 2e-4, 1e-4)
+        assert tg.shift == jg.shift
+    np.testing.assert_array_equal(np.stack(tg.shifts), np.stack(jg.shifts))
+    x = rng.rand(1, 2, 3, 32, 32).astype(np.float32)
+    mask = _masks(rng, 1, (5,))
+    ref = jg(jnp.asarray(x), jnp.asarray(mask))
+    assert_close(tg(x, mask).numpy(), ref, 2e-4, 1e-4)
+    assert_close(tg.forward(x, mask, frame=-1).numpy(),
+                 jg.forward(jnp.asarray(x), jnp.asarray(mask), frame=-1),
+                 2e-4, 1e-4)
+
+
+def test_visualization_helpers_match_jax(nets):
+    """get_masked_pred_patches (invert, fill), unmask_one_patch,
+    get_frame_pairs; maskshow draws under matplotlib's Agg backend."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    jg, tg = _draw_pair(nets)
+    rng = np.random.RandomState(13)
+    preds = rng.rand(2, 2, 3, 32, 32).astype(np.float32)
+    mask = rng.rand(2, N) > 0.5
+    for kw in (dict(), dict(invert=True), dict(fill_value=[1.0, 0.0, 0.5])):
+        np.testing.assert_array_equal(
+            tg.get_masked_pred_patches(preds, mask, **kw).numpy(),
+            np.asarray(jg.get_masked_pred_patches(jnp.asarray(preds),
+                                                  jnp.asarray(mask), **kw)))
+    for idx, shape, frame in ((7, None, 0), ((3, 4), (2, 8, 8), 1),
+                              ((1, 2, 6), (2, 8, 8), 0)):
+        np.testing.assert_array_equal(
+            tpred.PredictorBasedGenerator.unmask_one_patch(
+                t(mask), idx, shape, frame).numpy(),
+            np.asarray(jpred.PredictorBasedGenerator.unmask_one_patch(
+                jnp.asarray(mask), idx, shape, frame)))
+    video = rng.rand(1, 3, 3, 8, 8).astype(np.float32)
+    for frame in (None, 0):
+        jp = jg.get_frame_pairs(jnp.asarray(video), frame)
+        tp = tg.get_frame_pairs(video, frame)
+        assert len(tp) == len(jp) == 2
+        for a, b in zip(tp, jp):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert (tg.target_frame, tg.num_frame_pairs) == (jg.target_frame,
+                                                         jg.num_frame_pairs)
+    ax = tg.maskshow(mask)
+    assert len(ax.images) == 1
+    plt.close('all')
+
+
+def test_mae_wrapper_matches_jax():
+    """MaeWrapper around a single-image MAE (here a fixed function of the
+    image: its patches doubled): frame select, imagenet normalization of
+    the input and unnormalization of the output, the returned mask. The
+    port's predictor carries its weights; JAX's takes params."""
+    from counterfactualworldmodels_tpu.ops import patches as jpatches
+    from counterfactualworldmodels_tpu_torch.ops import patches as tpatches
+
+    def jmae(params, x, mask_ratio=0.9, mask=None):
+        return 0.0, params['scale'] * jpatches.patchify(x, 4), mask
+
+    def tmae(x, mask_ratio=0.9, mask=None):
+        return 0.0, 2.0 * tpatches.patchify(x, 4), mask
+
+    rng = np.random.RandomState(14)
+    x = rng.rand(2, 2, 3, 16, 16).astype(np.float32)
+    mask = rng.rand(2, 16) > 0.5
+    for normalize in (True, False):
+        jw = jpred.MaeWrapper(
+            predictor=jmae, params={'scale': 2.0},
+            imagenet_normalize_inputs=normalize,
+            unpatchify=lambda y: jpatches.unpatchify(y, 4, (2, 3, 16, 16)))
+        tw = tpred.MaeWrapper(
+            predictor=tmae, imagenet_normalize_inputs=normalize,
+            unpatchify=lambda y: tpatches.unpatchify(y, 4, (2, 3, 16, 16)),
+            device='cpu')
+        for xin, frame in ((x, 0), (x, 1), (x[:, 0], 0)):
+            ref = jw.predict(jnp.asarray(xin), jnp.asarray(mask), frame=frame)
+            out = tw.predict(xin, t(mask), frame=frame)
+            assert tuple(out.shape) == ref.shape
+            assert_close(out.numpy(), ref, 1e-6)
+            np.testing.assert_array_equal(tw.mask.numpy(), np.asarray(jw.mask))
+        img = x[:, 0]
+        assert_close(tw.imagenet_unnormalize(img).numpy(),
+                     jw.imagenet_unnormalize(jnp.asarray(img)), 1e-6)
+        assert_close(tw.imagenet_normalize(img).numpy(),
+                     jw.imagenet_normalize(jnp.asarray(img)), 1e-6)

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import torch
 
 from counterfactualworldmodels_tpu.models import vmae as jvmae
+from counterfactualworldmodels_tpu.pipelines import perturbation as jperturb
 from counterfactualworldmodels_tpu_torch.models import fast_vmae as tfv
 from counterfactualworldmodels_tpu_torch.models import vmae as tvmae
 from counterfactualworldmodels_tpu_torch.utils import weights
@@ -19,6 +20,11 @@ SMALL_VMAE = dict(img_size=(32, 32), patch_size=(4, 4), encoder_embed_dim=64,
                   encoder_depth=3, encoder_num_heads=4, decoder_embed_dim=32,
                   decoder_depth=2, decoder_num_heads=2, num_frames=2,
                   qkv_bias=True)
+
+# tests/test_segmentation.py's tiny predictor
+TINY = dict(img_size=(32, 32), patch_size=(4, 4), encoder_embed_dim=64,
+            encoder_depth=2, encoder_num_heads=4, decoder_embed_dim=32,
+            decoder_depth=1, decoder_num_heads=2, num_frames=2, qkv_bias=True)
 
 # (prefix_pool, suffix_pool, gelu): the exact rung and the pooled rungs
 RUNGS = [(1, 1, 'erf'), (2, 2, 'tanh'), (4, 4, 'tanh')]
@@ -66,3 +72,41 @@ def assert_close(a, b, atol, rtol=0.0):
     np.testing.assert_allclose(np.asarray(a, np.float64),
                                np.asarray(b, np.float64), atol=atol, rtol=rtol)
 
+
+
+class JaxDraws:
+    """Put the JAX generator's draws in place of the port generator's: one
+    key chain from PRNGKey(seed), split at the points where the JAX
+    FlowGenerator calls next_key()."""
+
+    def __init__(self, gen, seed=0):
+        self.gen = gen
+        self.key = jax.random.PRNGKey(seed)
+        gen._draw_shifts = self.shifts
+        gen._draw_prompt_noise = self.prompt_noise
+        gen._draw_mask_noise = self.mask_noise
+        gen._draw_patch_indices = self.patch_indices
+
+    def next_key(self):
+        self.key, sub = jax.random.split(self.key)
+        return sub
+
+    def shifts(self, num_samples):
+        g = self.gen
+        keys = jax.random.split(self.next_key(), num_samples)
+        d = jax.vmap(lambda k: jperturb.random_shift(
+            k, g.max_shift_fraction, g.x.shape[-2:], g.patch_size))(keys)
+        return t(d).long()
+
+    def prompt_noise(self, rows, n):
+        return t(jax_uniform_noise(jax.random.split(self.next_key(), rows), n))
+
+    def mask_noise(self, rows, n):
+        return t(jax.random.uniform(self.next_key(), (rows, n), minval=0.0,
+                                    maxval=0.999))
+
+    def patch_indices(self, p, num_points):
+        logits = jnp.log(jnp.clip(jnp.asarray(p.numpy()), min=1e-30))
+        idx = jax.random.categorical(self.next_key(), logits, axis=-1,
+                                     shape=(num_points, p.shape[0])).T
+        return t(idx).long()
