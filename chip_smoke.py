@@ -10,9 +10,12 @@ counterfactual flows, through the shared-prefix dispatch
 @224 + RAFT-24, bf16, S = 16 prompts) and through ``FlowGenerator``, which
 serves the motion maps, the per-click predictions and the multi-scene
 dispatch; movability, through ``pipelines.movability.MovabilityPredictor``
-(the same models and a RAFT-24 keypoint predictor); and VMAE training
-``training.train.make_train_step`` (ViT-L 4x4 @224, bf16, batch 4, mask
-ratio 0.9), all from seeded random weights. Phases:
+(the same models and a RAFT-24 keypoint predictor); the IMU-conditioned
+path, through ``pipelines.imu.ImuConditionedFlowGenerator`` and
+``pipelines.movability.ImuConditionedMovabilityPredictor`` (the
+IMU-conditioned ViT-B 4x4 predictor and flow2imu, bf16, with RAFT-24);
+and VMAE training ``training.train.make_train_step`` (ViT-L 4x4 @224,
+bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
 
 1. device: name, power limit, torch and CUDA versions;
 2. build: nvcc for sm_90a, with the seconds it took; each kernel's
@@ -28,7 +31,9 @@ ratio 0.9), all from seeded random weights. Phases:
    large RAFT's radius 4 and the small one's 3, with f32 and bf16 output,
    timed by CUDA-graph replay beside CUDA events; the
    training pair (K5 forward with logsumexp, K6 backward) at the encoder
-   and decoder training shapes, with K6's determinism check;
+   and decoder training shapes, with K6's determinism check; the IMU
+   path's shapes: K1 at the ViT-B 4x4 prefix and at the IMU stream's head
+   dim 32, K2 at the conjoined decoder suffix;
 4. both paths at the tests' small configurations on the card and on the
    CPU (f32, TF32 off): masks equal, videos and flows within tolerance;
    three train steps with equal losses and gradient norms; FlowGenerator
@@ -36,7 +41,10 @@ ratio 0.9), all from seeded random weights. Phases:
    1e-3 px); RAFT(small=True) and the keypoint head RAFT(output_dim=1) at
    64x64 (flows within 1e-3 px, the map within 1e-4, the small model's
    lookups at radius 3); a small MovabilityPredictor (num_iters=1) from the
-   same draws (maps within 1e-3, every iteration's patches equal);
+   same draws (maps within 1e-3, every iteration's patches equal); the
+   small IMU-conditioned pipeline (both engines, with the static-scene
+   IMU from flow2imu) and a small IMU movability predictor, card against
+   CPU within 1e-3, with their launch counts;
 5. the full-width dispatch at the library-default rung and the exact rung:
    shapes, finite flows, visible frame-1 pixels pasted unchanged, and the
    launch counts that show every kernel of the path ran; then (5b)
@@ -57,8 +65,18 @@ ratio 0.9), all from seeded random weights. Phases:
    call, the launches per call (K1 36, K2 144, lookup 312), the outputs'
    checks, flow_to_rgb on the card against the CPU, one more call's split
    (keypoints, samplers, chunks, filters) and one timed call without the
-   flow-sample filter (its later iterations sample from a real map); the
-   default dispatch's profile comes after these;
+   flow-sample filter (its later iterations sample from a real map); then
+   (5d) the IMU-conditioned path at full width: (a) a cold motion map of
+   16 prompts in one chunk with the static-scene IMU (K1 48: flow2imu's
+   32 and the prefix's 16; K2 4; lookup 72: FramePairFlow's forward and
+   backward RAFT-24 and the probe), (b) the same scene again (an LRU hit:
+   K1 32, K2 4, lookup 72), (c) the exact engine on 4 prompts (K1 64,
+   lookup 72), (d) ``ImuConditionedMovabilityPredictor(...)(x)`` at the
+   library defaults with a RAFT-24 keypoint predictor (K1 112, K2 48,
+   lookup 456 per call) and one unfiltered call, each the median of 3
+   after a warm-up, with peak memory and the split of one more cold map
+   (flow2imu, sampler, chunk, filter, the rest); the default dispatch's
+   profile comes after these;
 6. full-width training: one warm-up and three timed steps with finite
    losses, sec/step, clips/s, MFU and peak memory, and the launch counts
    of every step (K5 72, K6 36, K1 0); then the exact forward
@@ -68,8 +86,10 @@ ratio 0.9), all from seeded random weights. Phases:
    (torch.profiler, last: it makes every later launch cost more).
 
 Exits non-zero without a result line if there is no GPU or any phase
-fails. Otherwise the last three lines are the kernel table (JSON), the
-card's ``nvidia-smi`` name and power limit, and the result line.
+fails. Otherwise the last three lines are the kernel table (JSON: each
+row's launches on the path of its shapes, and the kernel's launches on
+every path), the card's ``nvidia-smi`` name and power limit, and the
+result line.
 ``--record PATH`` also writes the full record of every phase (timings,
 errors, the profile of a dispatch) as JSON to PATH.
 """
@@ -272,6 +292,10 @@ def attention_cases(torch, F, fa, rec):
         ('decoder prefix', 1, 8, 3136, 3136, 64),
         ('ragged', 2, 3, 1000, 777, 64),
         ('Nq != Nk (concat route)', 1, 8, 3136, 6272, 64),
+        # the IMU-conditioned path (phase 5d): the ViT-B 4x4 prefix and
+        # the IMU context decoder of the exact engine (head dim 32)
+        ('ViT-B 4x4 prefix', 1, 12, 3136, 3136, 64),
+        ('IMU context decoder, D 32', 4, 6, 50, 50, 32),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split('.')[1]
@@ -307,6 +331,9 @@ def attention_cases(torch, F, fa, rec):
         ('pool4 rung', 16, 8, 3136, 196, 196, 1, 16.0, 16.0),
         # the multi-scene dispatch: 4 scenes' prefixes, the exact rung
         ('stacked prefixes s0=S', 4, 8, 3136, 3136, 3136, 4, 1.0, 1.0),
+        # the conjoined decoder suffix (phase 5d): frame 1's 3136 rows and
+        # the 64 null-padding rows against the prefix and themselves
+        ('conjoined decoder suffix', 16, 6, 3200, 3136, 3200, 1, 1.0, 1.0),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split('.')[1]
@@ -1035,6 +1062,148 @@ def small_movability(torch, port, rec):
         raise AssertionError(f'small movability card vs CPU: {r}')
 
 
+def small_imu_models(torch, dev):
+    """The small IMU-conditioned predictor and flow2imu (64 px, 8x8
+    patches, 2 layers; every head dim 16, the smallest the kernels take),
+    seeded weights from the CPU: (predictor, flow2imu) modules with their
+    state dicts loaded."""
+    from counterfactualworldmodels_tpu_torch.models import conjoined as C
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    ctx = dict(is_imu=True, in_chans=6, sequence_length=48, imu_tubelet=8,
+               encoder_embed_dim=32, encoder_depth=2, encoder_num_heads=2,
+               decoder_embed_dim=32, decoder_depth=2, decoder_num_heads=2,
+               decoder_num_classes=48, mlp_ratio=2.0)
+    main = dict(img_size=(64, 64), patch_size=(8, 8), encoder_embed_dim=64,
+                encoder_depth=2, encoder_num_heads=4, decoder_embed_dim=32,
+                decoder_depth=2, decoder_num_heads=2, mlp_ratio=2.0)
+    pairs = dict(conjoin_encoder_layers=((0, 0), (-1, -1)),
+                 conjoin_decoder_layers=((0, 0), (1, 1)))
+    specs = (
+        (C.StreamSpec(in_chans=3, num_frames=2, padded=True,
+                      max_padding_tokens=8, **main),
+         C.StreamSpec(concat_dummy_token=False, padded=True,
+                      max_padding_tokens=6, **ctx)),
+        (C.StreamSpec(in_chans=7, num_frames=1, decoder_num_classes=448,
+                      **main),
+         C.StreamSpec(concat_dummy_token=True, **ctx)))
+    out = []
+    for i, (m, c) in enumerate(specs):
+        cpu = C.ConjoinedVMAE(main=m, context=c, device='cpu', **pairs)
+        sd = weights.init_conjoined_state_dict(
+            cpu, torch.Generator().manual_seed(30 + i))
+        mod = C.ConjoinedVMAE(main=m, context=c, device=dev, **pairs)
+        mod.load_state_dict(sd, strict=True)
+        out.append((mod, {k: v.to(dev) for k, v in sd.items()}))
+    return out
+
+
+def imu_launches(imu, f2i, raft_iters, maps, chunks, prefixes,
+                 exact_chunks=0):
+    """The launches the IMU-conditioned path's code gives: per motion map
+    flow2imu's exact forward (K1 in every block of both streams; its
+    FramePairFlow runs RAFT forward and backward); per fast chunk the
+    suffix decoder (K2 in every main decoder block) and the RAFT probe;
+    per exact chunk the exact predictor (K1 in every block) and the probe;
+    per LRU miss the prefix (K1 in every main block)."""
+    def blocks(m):
+        return (m.main.encoder_depth + m.main.decoder_depth
+                + m.context.encoder_depth + m.context.decoder_depth)
+    return dict(
+        flash_attention=(maps * blocks(f2i) + exact_chunks * blocks(imu)
+                         + prefixes * (imu.main.encoder_depth
+                                       + imu.main.decoder_depth)),
+        flash_attention_prefix=chunks * imu.main.decoder_depth,
+        window_lookup=raft_iters * (2 * maps + chunks + exact_chunks))
+
+
+def small_imu(torch, port, rec):
+    """The IMU-conditioned pipeline at the small configuration, f32 (TF32
+    off), on the card and on the CPU from the same weights and draws:
+    ImuConditionedFlowGenerator's counterfactuals with the static-scene
+    IMU on both engines, and ImuConditionedMovabilityPredictor (num_iters
+    1, S = 2); videos, flows and maps within 1e-3, patches equal, the
+    launch counts the code gives on the card and none on the CPU."""
+    from counterfactualworldmodels_tpu_torch.models.conjoined import (
+        ConjoinedPredictorWrapper)
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    from counterfactualworldmodels_tpu_torch.pipelines.imu import (
+        ImuConditionedFlowGenerator)
+    from counterfactualworldmodels_tpu_torch.pipelines.movability import (
+        ImuConditionedMovabilityPredictor)
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    raft_cpu = weights.init_raft(traft.RAFT(iters=2, device='cpu'),
+                                 torch.Generator().manual_seed(31))
+    rng = np.random.RandomState(14)
+    x = rng.rand(1, 3, 64, 64).astype(np.float32)
+    n0 = 64
+    active = np.ones((1, 2 * n0, 4), dtype=bool)
+    active[:, :n0] = False
+    for i in range(4):
+        active[0, n0 + rng.choice(n0, 2, replace=False), i] = False
+    mov_kw = dict(initialize_from_keypoints=False, num_initial_samples=2,
+                  num_samples_per_iteration=2, sample_batch_size=2,
+                  num_iters=1)
+    runs = {}
+    for dev in ('cpu', 'cuda'):
+        (imu, imu_sd), (f2i, f2i_sd) = small_imu_models(torch, dev)
+        raft = raft_cpu
+        if dev == 'cuda':
+            raft = traft.RAFT(iters=2, device=dev)
+            raft.load_state_dict(raft_cpu.state_dict(), strict=True)
+        common = dict(
+            predictor=ConjoinedPredictorWrapper(
+                imu, params=imu_sd, main_input='rgb01', context_input='imu'),
+            head_motion_predictor=ConjoinedPredictorWrapper(
+                f2i, params=f2i_sd, main_input='flowback_rgb01',
+                main_input_kwargs={'iters': 2, 'flow_model': raft},
+                context_input='imu'),
+            flow_model=raft, raft_iters=2, imagenet_normalize_inputs=True,
+            device=dev)
+        out = {}
+        for engine in ('fast', 'exact'):
+            gen = fixed_draws(torch, ImuConditionedFlowGenerator(
+                engine=engine, **common), 9)
+            port.kernels.reset_launches()
+            y, f = gen.predict_counterfactual_videos_and_flows(
+                x, active, num_samples=4, sample_batch_size=2)
+            out[engine] = ([y.cpu(), f.cpu()], dict(port.kernels.LAUNCHES))
+        gen = fixed_draws(torch, ImuConditionedMovabilityPredictor(
+            engine='fast', **common, **mov_kw), 10)
+        port.kernels.reset_launches()
+        m = gen(x, do_filter=False)
+        out['movability'] = (
+            [m.cpu(), *[v.cpu() for v in gen.movability_maps],
+             *[v.cpu() for v in gen.active_patches_per_iter],
+             *[v.cpu() for v in gen.passive_patches_per_iter]],
+            dict(port.kernels.LAUNCHES))
+        runs[dev] = out
+    want = {
+        'fast': imu_launches(imu, f2i, 2, 1, 2, 1),
+        'exact': imu_launches(imu, f2i, 2, 1, 0, 0, exact_chunks=2),
+        'movability': imu_launches(imu, f2i, 2, 2, 2, 1)}
+    failures = []
+    for case, (cvals, lc) in runs['cpu'].items():
+        gvals, lg = runs['cuda'][case]
+        floats = [(a, b) for a, b in zip(cvals, gvals)
+                  if a.dtype != torch.bool]
+        bools = [(a, b) for a, b in zip(cvals, gvals)
+                 if a.dtype == torch.bool]
+        expect = dict({k: 0 for k in lg}, **want[case])
+        r = dict(case=f'imu small {case}', max_err=max(
+            max_err(a, b) for a, b in floats),
+            masks_equal=all(torch.equal(a, b) for a, b in bools),
+            launches_cpu=lc, launches_gpu=lg, expected_gpu=expect, tol=1e-3)
+        rec['phase4'].append(r)
+        log('4 small imu', json.dumps(r))
+        if not (r['max_err'] <= 1e-3 and r['masks_equal']
+                and not any(lc.values()) and lg == expect):
+            failures.append(str(r))
+    if failures:
+        raise AssertionError('; '.join(failures))
+
+
 def timed_runs(torch, port, fn, check, reps=4):
     """fn() reps times (the first a warm-up), each from launch counts of 0
     and ending in a synchronize; check(i, launches, out) after each.
@@ -1477,6 +1646,230 @@ def movability_phase(torch, port, rec, smi, ctx):
     return out
 
 
+def imu_phase(torch, port, rec, smi, ctx):
+    """The IMU-conditioned path at full width through its entry points:
+    the IMU-conditioned ViT-B 4x4 predictor
+    (``imu400_base_4x4patch_2frames_1tube``) and flow2imu
+    (``imu400_8x8patch_2frames_1tube_flowbackrgb01``) in bf16 from seeded
+    weights, with phase 5's RAFT-24 (bf16) as both flow2imu's flow
+    preprocessor and the probe. ImuConditionedFlowGenerator: (a) a cold
+    motion map (a new image: flow2imu on the static scene, the prefix, one
+    chunk of S = 16), (b) the same scene again (an LRU hit), (c) the exact
+    engine on 4 prompts; ImuConditionedMovabilityPredictor(...)(x) at the
+    library defaults with a RAFT-24 keypoint predictor (d), a new image
+    each call, and one unfiltered call. Each timed as the median of 3 after
+    a warm-up, launches per call asserted, peak memory."""
+    from counterfactualworldmodels_tpu_torch.models import conjoined as C
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    from counterfactualworldmodels_tpu_torch.pipelines.imu import (
+        ImuConditionedFlowGenerator)
+    from counterfactualworldmodels_tpu_torch.pipelines.movability import (
+        ImuConditionedMovabilityPredictor)
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    dev = torch.device('cuda')
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(11)
+    imu = C.imu400_base_4x4patch_2frames_1tube(dtype=torch.bfloat16,
+                                               device=dev)
+    f2i = C.imu400_8x8patch_2frames_1tube_flowbackrgb01(dtype=torch.bfloat16,
+                                                        device=dev)
+    raft = ctx['raft']
+    common = dict(
+        predictor=C.ConjoinedPredictorWrapper(
+            imu, params=weights.init_conjoined_state_dict(imu, g),
+            main_input='rgb01', context_input='imu'),
+        head_motion_predictor=C.ConjoinedPredictorWrapper(
+            f2i, params=weights.init_conjoined_state_dict(f2i, g),
+            main_input='flowback_rgb01',
+            main_input_kwargs={'iters': 24, 'flow_model': raft},
+            context_input='imu'),
+        flow_model=raft, raft_iters=24, imagenet_normalize_inputs=True,
+        seed=0, device=dev)
+    gen = ImuConditionedFlowGenerator(engine='fast', **common)
+    torch.cuda.synchronize()
+    log('5d imu', f'weights ready in {time.perf_counter() - t0:.1f}s')
+    zero = {k: 0 for k in port.kernels.LAUNCHES}
+    want = dict(
+        a=dict(zero, **imu_launches(imu, f2i, 24, 1, 1, 1)),
+        b=dict(zero, **imu_launches(imu, f2i, 24, 1, 1, 0)),
+        c=dict(zero, **imu_launches(imu, f2i, 24, 1, 0, 0, exact_chunks=1)))
+    rng = np.random.RandomState(41)
+    failures, out = [], dict(
+        config='imu400_base_4x4patch_2frames_1tube bf16 + '
+               'imu400_8x8patch_2frames_1tube_flowbackrgb01 bf16 + '
+               'RAFT-24 bf16', card=smi)
+    lru = lambda: gen._conj_prefix_lru                         # noqa: E731
+    state = {}
+
+    def image():
+        return torch.from_numpy(rng.rand(1, 3, 224, 224).astype(
+            np.float32)).to(dev)
+
+    def motion_map(x):
+        before = (lru().misses, lru().hits) if lru() else (0, 0)
+        flows, act, _ = gen.sample_counterfactual_motion_map(
+            x, num_samples=S_FULL, sample_batch_size=S_FULL)
+        return flows, act, (lru().misses - before[0], lru().hits - before[1])
+
+    def check(case, lru_delta):
+        def fn(i, launches, res):
+            flows, act, delta = res
+            ok = dict(launches=launches == want[case], lru=delta,
+                      shape=tuple(flows.shape) == (1, 2, 224, 224, S_FULL),
+                      finite=bool(torch.isfinite(flows).all()),
+                      imu=tuple(gen._x_context.shape) == (1, 6, 400)
+                      and bool(torch.isfinite(gen._x_context).all()))
+            state.setdefault(case, []).append(ok)
+            if not (ok['launches'] and delta == lru_delta and ok['shape']
+                    and ok['finite'] and ok['imu']):
+                failures.append(f'({case}) call {i}: {ok}, {launches}')
+        return fn
+
+    torch.cuda.reset_peak_memory_stats()
+    scenes = []
+
+    def run_a(i):
+        scenes.append(image())
+        return motion_map(scenes[-1])
+
+    ms, runs = timed_runs(torch, port, run_a, check('a', (1, 0)))
+    out['a'] = dict(ms=ms, ms_runs=runs, launches=want['a'],
+                    checks=state['a'],
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    ms, runs = timed_runs(torch, port, lambda i: motion_map(scenes[-1]),
+                          check('b', (0, 1)))
+    out['b'] = dict(ms=ms, ms_runs=runs, launches=want['b'],
+                    checks=state['b'])
+
+    # one more cold motion map, split: each part between synchronizations
+    # (flow2imu on the static scene, the sampler, the chunk with its
+    # prefix pass, the filter); the rest is the generator's own host work
+    split = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[name] = (split.get(name, 0.0)
+                           + (time.perf_counter() - t1) * 1e3)
+            return res
+        return wrapper
+
+    filt = gen.flow_sample_filter
+    gen.predict_imu_from_video = timed('flow2imu', gen.predict_imu_from_video)
+    gen.sample_patches_from_energy = timed('sampler',
+                                           gen.sample_patches_from_energy)
+    gen._counterfactual_chunk = timed('chunk', gen._counterfactual_chunk)
+    gen.flow_sample_filter = timed('filter', filt)
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        motion_map(image())
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t1) * 1e3
+    finally:
+        del (gen.predict_imu_from_video, gen.sample_patches_from_energy,
+             gen._counterfactual_chunk)
+        gen.flow_sample_filter = filt
+    out['a_split_ms'] = dict(split, total=total,
+                             rest=total - sum(split.values()))
+
+    exact = ImuConditionedFlowGenerator(engine='exact', **common)
+    n0 = imu.main.num_patches // 2
+    active = np.ones((1, 2 * n0, 4), dtype=bool)
+    active[:, :n0] = False
+    for i in range(4):
+        active[0, n0 + rng.randint(n0), i] = False
+    active = torch.from_numpy(active).to(dev)
+
+    def run_c(i):
+        y, f = exact.predict_counterfactual_videos_and_flows(
+            scenes[-1], active, num_samples=4, sample_batch_size=4)
+        return f.reshape(1, 4, 2, 224, 224).movedim(1, -1), y, (0, 0)
+
+    def check_c(i, launches, res):
+        f, y, _ = res
+        ok = dict(launches=launches == want['c'],
+                  shape=tuple(y.shape) == (4, 2, 3, 224, 224),
+                  finite=bool(torch.isfinite(f).all()
+                              and torch.isfinite(y).all()),
+                  lru=exact._conj_prefix_lru is None)
+        state.setdefault('c', []).append(ok)
+        if not all(ok.values()):
+            failures.append(f'(c) call {i}: {ok}, {launches}')
+
+    ms, runs = timed_runs(torch, port, run_c, check_c)
+    out['c'] = dict(ms=ms, ms_runs=runs, launches=want['c'],
+                    checks=state['c'],
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del exact
+
+    # (d) movability at the library defaults with a RAFT-24 keypoint
+    # predictor: the keypoint RAFT once; three motion maps, each flow2imu
+    # on the static scene and 4 chunks of 4; the prefix on the first chunk
+    # (the IMU of maps 2 and 3 is the same embedding: LRU hits)
+    kp_raft = weights.init_raft(
+        traft.RAFT(iters=24, output_dim=1, dtype=torch.bfloat16, device=dev),
+        torch.Generator(device=dev).manual_seed(12))
+    mov = ImuConditionedMovabilityPredictor(
+        keypoint_predictor=traft.RaftKeypointPredictor(kp_raft),
+        engine='fast', **common)
+    maps = 1 + mov.num_iters
+    chunks = maps * (mov.num_initial_samples // mov.sample_batch_size)
+    want['d'] = dict(zero, **imu_launches(imu, f2i, 24, maps, chunks, 1))
+    want['d']['window_lookup'] += 24        # the keypoint RAFT-24
+
+    def run_d(i, **kw):
+        misses = mov._conj_prefix_lru.misses if mov._conj_prefix_lru else 0
+        m = mov(image(), **kw)
+        return m, mov._conj_prefix_lru.misses - misses
+
+    def check_d(i, launches, res):
+        m, misses = res
+        ok = dict(launches=launches == want['d'], lru_misses=misses,
+                  shape=tuple(m.shape) == (1, 1, 224, 224),
+                  finite=bool(torch.isfinite(m).all()) and all(
+                      bool(torch.isfinite(f).all())
+                      for f in mov.flow_samples_per_iter),
+                  in_unit=bool((m >= 0).all() and (m <= 1).all()),
+                  maps=len(mov.flow_samples_per_iter) == maps)
+        state.setdefault('d', []).append(ok)
+        if not (ok['launches'] and misses == 1 and ok['shape']
+                and ok['finite'] and ok['in_unit'] and ok['maps']):
+            failures.append(f'(d) call {i}: {ok}, {launches}')
+
+    ms, runs = timed_runs(torch, port, run_d, check_d)
+    port.kernels.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m_u, _ = run_d(4, do_filter=False)
+    torch.cuda.synchronize()
+    unfiltered = dict(
+        ms=(time.perf_counter() - t1) * 1e3,
+        launches=dict(port.kernels.LAUNCHES), map_max=float(m_u.max()),
+        map_min=float(m_u.min()), finite=bool(torch.isfinite(m_u).all()),
+        flow_abs_max=max(float(f.abs().max())
+                         for f in mov.flow_samples_per_iter))
+    if not (unfiltered['launches'] == want['d'] and unfiltered['finite']
+            and unfiltered['flow_abs_max'] > 0):
+        failures.append(f'(d) unfiltered call: {unfiltered}')
+    settings = {k: getattr(mov, k) for k in (
+        'initialize_from_keypoints', 'num_initial_samples',
+        'num_samples_per_iteration', 'num_iters', 'sample_batch_size')}
+    out['d'] = dict(ms=ms, ms_runs=runs, launches=want['d'],
+                    settings=settings,
+                    checks=state['d'], unfiltered=unfiltered,
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    out['seconds'] = time.perf_counter() - t0
+    rec['phase5d'] = out
+    log('5d imu', json.dumps(out))
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return out
+
+
 def profile_default(torch, rec, ctx):
     """The default dispatch under torch.profiler, after every timed run of
     phases 5 and 5b (its after-cost would move them)."""
@@ -1797,14 +2190,16 @@ def main():
         phase('4 small generator', small_generator, torch, port, rec)
         small_launches = phase('4 small raft', small_raft, torch, port, rec)
         phase('4 small movability', small_movability, torch, port, rec)
+        phase('4 small imu', small_imu, torch, port, rec)
         torch.backends.cudnn.allow_tf32 = True
         full = phase('5 full width', full_width, torch, port, rec, smi)
-        movability = None
+        movability = imu = None
         if full is not None:
             phase('5b generator', generator_phase, torch, port, rec, smi,
                   full[1])
             movability = phase('5c movability', movability_phase, torch,
                                port, rec, smi, full[1])
+            imu = phase('5d imu', imu_phase, torch, port, rec, smi, full[1])
             phase('5 profile', profile_default, torch, rec, full[1])
             full = full[0]
             torch.cuda.empty_cache()
@@ -1824,36 +2219,48 @@ def main():
         return next(r for r in rec['phase3'] if r['kernel'] == kernel
                     and r['dtype'] == dtype and r['case'] == case)
 
-    # launches: one default-rung dispatch (K1-K4), one train step (K5, K6),
-    # one small-RAFT call (the lookup at r = 3); beside them, per
-    # movability call (phase 5c)
-    default_launches = full[0]['launches']
-    step_launches = train['launches_per_step'][-1]
-    per_movability = movability['launches_per_call']
+    # each row's launches on the path whose shapes it measures: one
+    # default-rung dispatch (K1-K4 at ViT-L), one train step (K5, K6), one
+    # small-RAFT call (the lookup at r = 3), one cold IMU-conditioned
+    # motion map (phase 5d (a): K1 at the ViT-B and IMU shapes, K2 at the
+    # conjoined suffix); beside them, the kernel's launches on every path
+    paths = dict(dispatch=full[0]['launches'],
+                 movability_call=movability['launches_per_call'],
+                 imu_motion_map=imu['a']['launches'],
+                 imu_movability_call=imu['d']['launches'],
+                 train_step=train['launches_per_step'][-1],
+                 small_raft_call=small_launches)
     table = []
-    for kid, kernel, dtype, case, launches, replaces in (
+    for kid, kernel, dtype, case, path, replaces in (
             ('K1', 'flash_attention', 'bfloat16', 'encoder prefix',
-             default_launches, REPLACES['flash_attention']),
+             'dispatch', REPLACES['flash_attention']),
+            ('K1', 'flash_attention', 'bfloat16', 'ViT-B 4x4 prefix',
+             'imu_motion_map', REPLACES['flash_attention']),
+            ('K1', 'flash_attention', 'bfloat16', 'IMU context decoder, D 32',
+             'imu_motion_map', REPLACES['flash_attention']),
             ('K2', 'flash_attention_prefix', 'bfloat16', 'pool4 rung',
-             default_launches, REPLACES['flash_attention_prefix']),
+             'dispatch', REPLACES['flash_attention_prefix']),
+            ('K2', 'flash_attention_prefix', 'bfloat16',
+             'conjoined decoder suffix', 'imu_motion_map',
+             REPLACES['flash_attention_prefix']),
             ('K3', 'window_lookup', 'float32', 'pyramid 28/14/7/3',
-             default_launches, REPLACES['window_lookup']),
+             'dispatch', REPLACES['window_lookup']),
             # K3 and K4 differ only in TPU layout: one kernel serves both
             ('K4', 'window_lookup', 'float32', 'pyramid 28/14/7/3',
-             default_launches, REPLACES_K4),
+             'dispatch', REPLACES_K4),
             ('K3', 'window_lookup', 'float32', 'pyramid 28/14/7/3, r 3',
-             small_launches, REPLACES['window_lookup']),
+             'small_raft_call', REPLACES['window_lookup']),
             ('K5', 'flash_attention_lse', 'bfloat16', 'encoder',
-             step_launches, REPLACES['flash_attention_lse']),
+             'train_step', REPLACES['flash_attention_lse']),
             ('K6', 'flash_attention_bwd', 'bfloat16', 'encoder',
-             step_launches, REPLACES['flash_attention_bwd'])):
+             'train_step', REPLACES['flash_attention_bwd'])):
         r = pick(kernel, dtype, case)
         table.append(dict(name=kernel, tpu_kernel=kid, case=case,
                           route='cuda', source=SOURCES[kernel],
-                          replaces=replaces, launches=launches[kernel],
-                          launches_per_movability_call=(
-                              per_movability[kernel]
-                              if launches is default_launches else 0),
+                          replaces=replaces, path=path,
+                          launches=paths[path][kernel],
+                          launches_per_path={k: v[kernel]
+                                             for k, v in paths.items()},
                           max_abs_err=r['max_abs_err'], ms=r['ms'],
                           plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                           bound_by=r['bound_by'],

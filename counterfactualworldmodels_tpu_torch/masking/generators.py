@@ -1,27 +1,29 @@
-"""Mask generators: the training policy and the energy sampler. Port of
-counterfactualworldmodels_tpu/masking/generators.py (``uniform_frame_mask``,
-``uniform_mask``, ``rotated_table_uniform_mask``, the energy family and the
-class wrappers ``MaskingGenerator``, ``EnergySamplingMaskingGenerator`` and
-``RotatedTableEnergyMaskingGenerator`` so far).
+"""Mask generators. Port of counterfactualworldmodels_tpu/masking/
+generators.py: the uniform, tube, rotated-table and forward-backward
+policies, the energy sampler, the full-mask and IMU generators, the mixed
+generators and the three-frame policy, with their class wrappers.
 
 Popcounts are exact by construction (uniform scores + a stable argsort),
 as in the JAX package. Randomness is an input: each function takes its
-draws (``scores``, ``offsets``, categorical ``indices``) or draws them from
-a ``torch.Generator``. Given the JAX package's draws for a key, the masks
-are bitwise those of the JAX function for that key. A class wrapper owns a
-seeded ``torch.Generator`` where the JAX class owns a key.
+draws (``scores``, ``offsets``, categorical ``indices``, flip or
+full-mask uniforms) or draws them from a ``torch.Generator``. Given the
+JAX package's draws for a key, the masks are bitwise those of the JAX
+function for that key. A class wrapper owns a seeded ``torch.Generator``
+where the JAX class owns a key; its ``sample`` and ``__call__`` pass given
+draws through to the function.
 
 Mask convention: bool, True = masked, flattened frame-major then row-major.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .._device import resolve_device
 from ..ops.sampling import Indices, resolve_indices
-from .mask_ops import upsample_masks
+from .mask_ops import rectangularize, upsample_masks
 
 
 def _canonical_clump(clumping_factor) -> Tuple[int, int]:
@@ -132,6 +134,63 @@ def rotated_table_uniform_mask(input_size: Sequence[int], mask_ratio: float,
     vis = torch.zeros((batch_size, visible_frames * h * w), dtype=torch.bool,
                       device=rest.device)
     return torch.cat([vis, rest], dim=-1)
+
+
+def tube_mask(input_size: Sequence[int], mask_ratio: float,
+              clumping_factor=1, batch_size: int = 1, scores=None,
+              offsets=None, generator: Optional[torch.Generator] = None):
+    """One frame mask per row repeated across all T frames. scores
+    [B, gh*gw] and offsets [B, 2] are the per-row draws of
+    ``uniform_frame_mask``."""
+    t, h, w = input_size
+    ch, cw = _canonical_clump(clumping_factor)
+    num_masked = int(mask_ratio * (h // ch) * (w // cw))
+    if scores is None:
+        scores, offsets = frame_draws((batch_size,), h, w, (ch, cw),
+                                      generator)
+    frame = uniform_frame_mask(h, w, num_masked, (ch, cw), scores, offsets)
+    return frame[:, None].expand(batch_size, t, h, w).reshape(batch_size, -1)
+
+
+def rotated_table_mask(input_size: Sequence[int], mask_ratio: float,
+                       tube_length: Optional[int] = None, clumping_factor=1,
+                       batch_size: int = 1, scores=None, offsets=None,
+                       generator: Optional[torch.Generator] = None):
+    """The first T - tube_length frames fully visible, the rest one tube
+    mask (``tube_mask``'s draws)."""
+    t, h, w = input_size
+    tube_length = tube_length or (t - 1)
+    tubes = tube_mask((tube_length, h, w), mask_ratio, clumping_factor,
+                      batch_size, scores, offsets, generator)
+    top = torch.zeros((batch_size, (t - tube_length) * h * w),
+                      dtype=torch.bool, device=tubes.device)
+    return torch.cat([top, tubes], dim=-1)
+
+
+def forward_backward_rotated_table_mask(
+        input_size: Sequence[int], mask_ratio: float,
+        context_mask_ratio: Optional[float] = None, clumping_factor=1,
+        flip_prob: float = 0.5, batch_size: int = 1, scores=None,
+        offsets=None, context_scores=None, context_offsets=None, flips=None,
+        generator: Optional[torch.Generator] = None):
+    """Rotated-table masks, time-flipped per row where the uniform
+    ``flips`` [B, 1] fall below flip_prob. scores / offsets are the draws
+    of the T - 1 masked frames, context_scores / context_offsets those of
+    the one context frame (``uniform_mask``'s)."""
+    t, h, w = input_size
+    masked = uniform_mask((t - 1, h, w), mask_ratio, clumping_factor,
+                          batch_size, scores, offsets, generator)
+    ctx_ratio = (context_mask_ratio if context_mask_ratio is not None
+                 else (1 - mask_ratio))
+    vis = uniform_mask((1, h, w), ctx_ratio, clumping_factor, batch_size,
+                       context_scores, context_offsets, generator)
+    fwd = torch.cat([vis, masked], dim=-1)
+    bwd = torch.cat([masked, vis], dim=-1)
+    if flips is None:
+        flips = torch.rand((batch_size, 1), generator=generator,
+                           device=masked.device)
+    return torch.where(torch.as_tensor(flips, device=masked.device)
+                       < flip_prob, bwd, fwd)
 
 
 def _pool_energy(energy: torch.Tensor, out_hw: Tuple[int, int],
@@ -291,10 +350,10 @@ class MaskingGenerator(_KeyedGenerator):
     def input_size(self):
         return (self.frames, self.height, self.width)
 
-    def sample(self, generator, batch_size=1):
+    def sample(self, generator, batch_size=1, **draws):
         m = uniform_mask(self.input_size, self.mask_ratio,
                          self.clumping_factor, batch_size,
-                         generator=generator)
+                         generator=generator, **draws)
         if self.visible_frames > 0:
             vis = torch.zeros((batch_size, self.visible_frames * self.height
                                * self.width), dtype=torch.bool,
@@ -302,9 +361,9 @@ class MaskingGenerator(_KeyedGenerator):
             m = torch.cat([vis, m], dim=-1)
         return m
 
-    def __call__(self, x=None, generator=None):
+    def __call__(self, x=None, generator=None, **draws):
         b = 1 if x is None else int(x.shape[0])
-        masks = self.sample(generator or self.generator, b)
+        masks = self.sample(generator or self.generator, b, **draws)
         if b == 1 and not self.always_batch:
             masks = masks[0]
         return masks
@@ -313,6 +372,83 @@ class MaskingGenerator(_KeyedGenerator):
         return ('%s: patches/frame %d, masked/frame %d, ratio %.3f' %
                 (type(self).__name__, self.num_patches_per_frame,
                  self.num_masks_per_frame, self.mask_ratio))
+
+
+class UniformMaskingGenerator(MaskingGenerator):
+    pass
+
+
+class TubeMaskingGenerator(MaskingGenerator):
+    def sample(self, generator, batch_size=1, **draws):
+        return tube_mask(self.input_size, self.mask_ratio,
+                         self.clumping_factor, batch_size,
+                         generator=generator, **draws)
+
+
+class RotatedTableMaskingGenerator(MaskingGenerator):
+    def __init__(self, *args, tube_length=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.tube_length = tube_length
+
+    def sample(self, generator, batch_size=1, **draws):
+        return rotated_table_mask(self.input_size, self.mask_ratio,
+                                  self.tube_length, self.clumping_factor,
+                                  batch_size, generator=generator, **draws)
+
+
+class RotatedTableUniformMaskingGenerator(MaskingGenerator):
+    """Leading frames visible (default T - 1), the rest uniformly masked;
+    with full_mask_prob a row's masked frames are all masked where its
+    uniform ``full_draws`` [B, 1] falls below it."""
+
+    def __init__(self, input_size, mask_ratio, visible_frames=None, seed=0,
+                 clumping_factor=1, always_batch=True,
+                 randomize_num_visible=False, full_mask_prob=0,
+                 device='cuda', **unused):
+        if len(input_size) != 3:
+            raise ValueError(f'input_size must be (T, H, W): {input_size}')
+        if visible_frames is None:
+            visible_frames = input_size[0] - 1
+        super().__init__(
+            input_size=(input_size[0] - visible_frames, *input_size[1:]),
+            mask_ratio=mask_ratio, seed=seed, visible_frames=visible_frames,
+            clumping_factor=clumping_factor, always_batch=always_batch,
+            randomize_num_visible=randomize_num_visible, device=device)
+        self.full_mask_prob = full_mask_prob
+
+    def sample(self, generator, batch_size=1, full_draws=None, **draws):
+        t_total = self.frames + self.visible_frames
+        m = rotated_table_uniform_mask(
+            (t_total, self.height, self.width), self.mask_ratio,
+            self.visible_frames, self.clumping_factor, batch_size,
+            generator=generator, **draws)
+        if self.full_mask_prob > 0:
+            n_vis = self.visible_frames * self.height * self.width
+            if full_draws is None:
+                full_draws = torch.rand((batch_size, 1), generator=generator,
+                                        device=m.device)
+            fully = torch.as_tensor(full_draws,
+                                    device=m.device) < self.full_mask_prob
+            tail = torch.where(fully, torch.ones_like(m[:, n_vis:]),
+                               m[:, n_vis:])
+            m = torch.cat([m[:, :n_vis], tail], dim=-1)
+        return m
+
+
+class ForwardBackwardRotatedTableMaskingGenerator(
+        RotatedTableUniformMaskingGenerator):
+    def __init__(self, *args, context_mask_ratio=None, flip_prob=0.5,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.context_mask_ratio = context_mask_ratio
+        self.flip_prob = flip_prob
+
+    def sample(self, generator, batch_size=1, **draws):
+        t_total = self.frames + self.visible_frames
+        return forward_backward_rotated_table_mask(
+            (t_total, self.height, self.width), self.mask_ratio,
+            self.context_mask_ratio, self.clumping_factor, self.flip_prob,
+            batch_size, generator=generator, **draws)
 
 
 class EnergySamplingMaskingGenerator(MaskingGenerator):
@@ -360,3 +496,185 @@ class RotatedTableEnergyMaskingGenerator(EnergySamplingMaskingGenerator):
             input_size=(input_size[0] - visible_frames, *input_size[1:]),
             mask_ratio=mask_ratio, seed=seed, visible_frames=visible_frames,
             **kwargs)
+
+
+class FullMaskGenerator(MaskingGenerator):
+    """Fully masked or fully visible with some probability. ``full_draws``:
+    the two uniforms (partial?, masked?) of the batch, or with
+    full_mask_per_example one uniform per row [B, 1]."""
+
+    def __init__(self, full_mask_prob=0.2, full_vis_prob=0.0,
+                 full_mask_per_example=False, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.full_mask_prob = min(max(full_mask_prob, 0), 1)
+        self.full_vis_prob = min(max(full_vis_prob, 0), 1)
+        self.partial_prob = max(1 - self.full_mask_prob - self.full_vis_prob,
+                                0)
+        self._final_full_mask_prob = self.full_mask_prob / max(
+            self.full_mask_prob + self.full_vis_prob, 1e-6)
+        self._per_sample = full_mask_per_example
+
+    def sample(self, generator, batch_size=1, full_draws=None, **draws):
+        masks = super().sample(generator, batch_size, **draws)
+        dev = masks.device
+        if not self._per_sample:
+            if full_draws is None:
+                full_draws = torch.rand(2, generator=generator, device=dev)
+            u1, u2 = torch.as_tensor(full_draws, device=dev)
+            full = torch.where(u2 < self._final_full_mask_prob,
+                               torch.ones_like(masks), torch.zeros_like(masks))
+            return torch.where(u1 < self.partial_prob, masks, full)
+        if full_draws is None:
+            full_draws = torch.rand((batch_size, 1), generator=generator,
+                                    device=dev)
+        return masks | (torch.as_tensor(full_draws, device=dev)
+                        < self.full_mask_prob)
+
+
+class ImuFullMaskGenerator(FullMaskGenerator):
+    """The 1-D token stream variant: input_size tokens as a 1 x 1 x L
+    grid."""
+
+    def __init__(self, input_size=10, clumping_factor=1, *args, **kwargs):
+        if not isinstance(input_size, int):
+            input_size = int(math.prod(input_size))
+        super().__init__(input_size=(1, 1, input_size),
+                         clumping_factor=(1, clumping_factor), *args, **kwargs)
+
+
+class MissingDataImuMaskGenerator(ImuFullMaskGenerator):
+    """Masks united with a missing-data indicator [B, L], then
+    rectangularized by ``truncation_mode`` (its draws ``rect_noise`` [B, L],
+    else from the generator's own)."""
+
+    def __init__(self, truncation_mode='max', *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.mode = truncation_mode
+
+    def set_mode(self, mode):
+        self.mode = mode
+
+    def __call__(self, missing=None, generator=None, rect_noise=None,
+                 **draws):
+        gen = generator or self.generator
+        b = 1 if missing is None else int(missing.shape[0])
+        masks = self.sample(gen, b, **draws)
+        if missing is None:
+            return masks
+        combined = masks | torch.as_tensor(missing,
+                                           device=masks.device).bool()
+        if self.mode in ('none', None):
+            return combined
+        return rectangularize(combined, mode=self.mode, noise=rect_noise,
+                              generator=gen)
+
+
+class MixedMaskGenerator:
+    """Min-combine several generators (a patch is masked only where every
+    generator masks it)."""
+
+    def __init__(self, mask_generator_list, mask_ratio_list=None):
+        self.mask_generator_list = mask_generator_list
+        if mask_ratio_list is not None:
+            for g, r in zip(mask_generator_list, mask_ratio_list):
+                g.mask_ratio = r
+
+    def __call__(self, *args, **kwargs):
+        masks = torch.stack([g(*args, **kwargs)
+                             for g in self.mask_generator_list], dim=-1)
+        return masks.all(-1)
+
+
+class MixedClumpingMaskingGenerator(_KeyedGenerator):
+    """A random clumping factor per row: ``choices`` [B] (or one for
+    x=None) index the sub-generators, else drawn from the generator."""
+
+    def __init__(self, input_size, mask_ratio, clumping_factor=(1, 2, 4, 8),
+                 seed=0, mask_generator_func=MaskingGenerator, device='cuda',
+                 **kwargs):
+        super().__init__(seed, device)
+        if isinstance(clumping_factor, int):
+            clumping_factor = (clumping_factor,)
+        self.generators = [
+            mask_generator_func(input_size=input_size, mask_ratio=mask_ratio,
+                                seed=seed, clumping_factor=c,
+                                always_batch=True, device=device, **kwargs)
+            for c in clumping_factor]
+
+    def _choice(self, choices, i):
+        if choices is not None:
+            return int(choices[i])
+        return int(torch.randint(len(self.generators), (),
+                                 generator=self.generator,
+                                 device=self.device))
+
+    def __call__(self, x=None, choices=None, **kwargs):
+        if x is None:
+            return self.generators[self._choice(choices, 0)](x, **kwargs)
+        rows = [self.generators[self._choice(choices, i)](x[i:i + 1],
+                                                          **kwargs)
+                for i in range(int(x.shape[0]))]
+        return torch.cat(rows, 0)
+
+
+class RotatedTableMixedClumpingMaskingGenerator(MixedClumpingMaskingGenerator):
+    def __init__(self, *args, **kwargs):
+        super().__init__(
+            *args, mask_generator_func=RotatedTableUniformMaskingGenerator,
+            **kwargs)
+
+
+def three_frame_forward_backward_mask(input_size, mask_ratio,
+                                      independent_samples=True,
+                                      fully_visible=False,
+                                      batch_size: int = 1, q=None,
+                                      scores=None,
+                                      generator: Optional[torch.Generator]
+                                      = None):
+    """3-frame masking: frame 0 masked at a random ratio q [B] (one shared
+    q without independent_samples), frame 1 at mask_ratio, frame 2 at
+    1 - q. Each frame masks the cells of its num_masked smallest
+    ``scores`` [B, 3, H*W]. Returns bool [B, 3*H*W]."""
+    t, h, w = input_size
+    if t != 3:
+        raise ValueError(f'three-frame masking needs T = 3: {input_size}')
+    n = h * w
+    dev = generator.device if generator is not None else 'cpu'
+    if q is None:
+        q = torch.rand((batch_size if independent_samples else 1,),
+                       generator=generator, device=dev)
+    q = torch.as_tensor(q, device=dev).expand(batch_size)
+    n1 = (q * n).to(torch.int64)
+    n2 = torch.full((batch_size,), int(mask_ratio * n), dtype=torch.int64,
+                    device=dev)
+    n3 = n - n1
+    if fully_visible:
+        n1 = torch.zeros_like(n1)
+        n3 = torch.zeros_like(n3)
+    if scores is None:
+        scores = torch.rand((batch_size, t, n), generator=generator,
+                            device=dev)
+    scores = torch.as_tensor(scores, device=dev)
+    rank = torch.argsort(torch.argsort(scores, dim=-1, stable=True), dim=-1,
+                         stable=True)
+    counts = torch.stack([n1, n2, n3], 1)
+    return (rank < counts[..., None]).reshape(batch_size, -1)
+
+
+class ThreeFrameForwardBackwardMasking(_KeyedGenerator):
+    def __init__(self, input_size, mask_ratio, independent_samples=True,
+                 fully_visible=False, seed=0, device='cuda', **unused):
+        super().__init__(seed, device)
+        if len(input_size) == 2:
+            input_size = (3, *input_size)
+        self.input_size = tuple(input_size)
+        self.mask_ratio = mask_ratio
+        self.independent_samples = independent_samples
+        self.fully_visible = fully_visible
+
+    def __call__(self, x=None, generator=None, **draws):
+        b = 1 if x is None else int(x.shape[0])
+        return three_frame_forward_backward_mask(
+            self.input_size, self.mask_ratio, self.independent_samples,
+            self.fully_visible, b, generator=generator or self.generator,
+            **draws)

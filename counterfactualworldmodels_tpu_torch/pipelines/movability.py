@@ -6,7 +6,8 @@ iteration (a few steps) stays in Python; each step is one motion map of
 shared-prefix dispatch: K1 for the scene's prefix on an LRU miss, K2 in the
 suffix decoder, the RAFT lookup in every refinement iteration). Every draw
 goes through the generator's ``_draw_*`` methods, so tests can put the JAX
-draws in their place. The IMU-conditioned variant is not ported.
+draws in their place. ``ImuConditionedMovabilityPredictor`` runs the same
+loop over the IMU-conditioned pipeline (pipelines/imu.py).
 """
 from __future__ import annotations
 
@@ -299,3 +300,20 @@ class MovabilityPredictor(FlowGenerator):
         return self.movability_maps[-1]
 
     forward = __call__
+
+
+def make_imu_conditioned_movability_predictor():
+    """The class combining MovabilityPredictor with the IMU-conditioned
+    pipeline (ImuConditionedFlowGenerator), as the demo composes them;
+    built on call to keep the imports one-way."""
+    from .imu import ImuConditionedFlowGenerator
+
+    class ImuConditionedMovabilityPredictor(MovabilityPredictor,
+                                            ImuConditionedFlowGenerator):
+        pass
+
+    return ImuConditionedMovabilityPredictor
+
+
+def ImuConditionedMovabilityPredictor(*args, **kwargs):  # noqa: N802
+    return make_imu_conditioned_movability_predictor()(*args, **kwargs)

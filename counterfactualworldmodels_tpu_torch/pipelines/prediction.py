@@ -11,8 +11,8 @@ builds the exact model from them on its device, with
 ``attn_impl='flash'`` (K1 on the card, its plain version on the CPU).
 Where the JAX wrapper holds a PRNG key, the port holds a seeded
 ``torch.Generator`` on its device; each draw is one method of the wrapper
-(``_draw_mask_noise``, ``_draw_shifts``, ``_draw_prompt_noise``), so tests
-can put the JAX draws in their place.
+(``_draw_mask_noise``, ``_draw_shifts``, ``_draw_prompt_noise``,
+``_draw_stream_mask``), so tests can put the JAX draws in their place.
 
 Modules carry their weights, so a keypoint predictor is a callable
 ``x [B, T, C, H, W] -> [B, 1, 1, H, W]`` (the JAX package's also takes its
@@ -262,6 +262,12 @@ class PredictorBasedGenerator:
         prompts of n patches (one key per prompt in the JAX package)."""
         return torch.rand(rows, n, generator=self.generator,
                           device=self.device) * 0.999
+
+    def _draw_stream_mask(self, mask_generator, x):
+        """A mask generator's mask for x from this generator's draws (one
+        key of the generator's chain in the JAX package): the IMU
+        generators' stream masks."""
+        return mask_generator(x, generator=self.generator)
 
     def set_predictor(self, net, predictor_load_path=None, params=None):
         """Swap the predictor and load its weights (a checkpoint path or a

@@ -152,7 +152,9 @@ def test_new_modules_import_in_a_fresh_process_without_jax():
             'pipelines.perturbation', 'pipelines.filters',
             'pipelines.prediction', 'pipelines.segmentation',
             'models.fast_vmae', 'ops.coords', 'ops.flow_viz', 'vis_utils',
-            'pipelines.movability')
+            'pipelines.movability', 'models.transformer',
+            'models.preprocessor', 'models.conjoined',
+            'models.fast_conjoined', 'pipelines.imu')
     code = ('import importlib, sys; '
             'pkg = "counterfactualworldmodels_tpu_torch."; '
             f'[importlib.import_module(pkg + m) for m in {mods!r}]; '
@@ -166,6 +168,55 @@ def test_new_modules_import_in_a_fresh_process_without_jax():
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_imu_entry_points_raise_without_cuda_unless_cpu_is_asked():
+    """The conjoined factories and modules, the flow preprocessor's default
+    RAFT, the engine's weights and the IMU generators default to the card
+    and raise without one; each runs with device='cpu'."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    from counterfactualworldmodels_tpu_torch.models import (
+        conjoined, fast_conjoined, preprocessor)
+    from counterfactualworldmodels_tpu_torch.pipelines import imu, movability
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    for factory in (conjoined.imu400_base_4x4patch_2frames_1tube,
+                    conjoined.imu400_8x8patch_2frames_1tube_flowbackrgb01):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            factory()
+        assert factory(device='meta').main.num_patches > 0
+    main = conjoined.StreamSpec(img_size=(32, 32), patch_size=(8, 8),
+                                encoder_embed_dim=32, encoder_depth=2,
+                                encoder_num_heads=2, decoder_embed_dim=16,
+                                decoder_depth=1, decoder_num_heads=2,
+                                padded=True, max_padding_tokens=4)
+    ctx = conjoined.StreamSpec(is_imu=True, in_chans=6, sequence_length=32,
+                               imu_tubelet=8, encoder_embed_dim=16,
+                               encoder_depth=2, encoder_num_heads=2,
+                               decoder_embed_dim=16, decoder_depth=1,
+                               decoder_num_heads=2, concat_dummy_token=False,
+                               padded=True, max_padding_tokens=4)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        conjoined.ConjoinedVMAE(main=main, context=ctx)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        preprocessor.get_preprocessor('flowback_rgb01')
+    model = conjoined.ConjoinedVMAE(main=main, context=ctx, device='cpu')
+    sd = weights.init_conjoined_state_dict(model,
+                                           torch.Generator().manual_seed(0))
+    wrapper = conjoined.ConjoinedPredictorWrapper(model, params=sd)
+    assert fast_conjoined.cast_params(model, sd)['main_mask_token'].is_cpu
+    raft = traft.RAFT(iters=1, device='cpu')
+    for cls in (imu.ImuConditionedFlowGenerator,
+                movability.ImuConditionedMovabilityPredictor):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            cls(predictor=wrapper, head_motion_predictor=wrapper,
+                flow_model=raft)
+        assert cls(predictor=wrapper, head_motion_predictor=wrapper,
+                   flow_model=raft, device='cpu').device.type == 'cpu'
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        imu.ImuGenerator(predictor=wrapper, flow_model=raft)
+    assert imu.ImuGenerator(predictor=wrapper, flow_model=raft,
+                            device='cpu').num_head_tokens == 4
 
 
 def test_kernel_sources_and_counters():

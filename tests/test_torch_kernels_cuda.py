@@ -427,3 +427,119 @@ def test_keypoint_raft_on_the_card_matches_the_cpu(dev, monkeypatch):
     assert kernels.LAUNCHES['window_lookup'] == 2 and radii == [4] * 4
     assert out.shape == ref.shape == (2, 1, 1, 64, 64)
     assert _err(out.cpu(), ref) <= 1e-4
+
+
+@pytest.mark.parametrize('dtype,atol', [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_attention_kernels_at_the_imu_path_shapes(dev, dtype, atol):
+    """K1 at the ViT-B 4x4 prefix [1,12,3136,3136,64] and at the IMU
+    stream's head dim 32 (the context encoder and decoder of the exact
+    engine: [4,12,25,25,32], [4,6,50,50,32]; flow2imu's one visible dummy
+    token [1,12,1,1,32]), and K2 at the conjoined decoder suffix
+    [16,6,3200; 3136+3200,64], against their plain versions. bf16 within
+    atol of the plain output's largest magnitude, as chip_smoke.py."""
+    rng = np.random.RandomState(3)
+    for (b, h, nq, nk, d) in [(1, 12, 3136, 3136, 64), (4, 12, 25, 25, 32),
+                              (4, 6, 50, 50, 32), (1, 12, 1, 1, 32)]:
+        q = _rand(rng, b, h, nq, d, scale=d ** -0.5).to(dev, dtype)
+        k, v = (_rand(rng, b, h, nk, d).to(dev, dtype) for _ in range(2))
+        ref = fa._chunked_dense_attention(q, k, v)
+        tol = atol if dtype == torch.float32 else atol * float(
+            ref.float().abs().max())
+        assert _err(fa.flash_attention(q, k, v), ref) <= tol, (b, h, nq, d)
+    s, h, nq, n0, n1 = 16, 6, 3200, 3136, 3200
+    q = _rand(rng, s, h, nq, 64, scale=0.125).to(dev, dtype)
+    k0, v0 = (_rand(rng, 1, h, n0, 64).to(dev, dtype) for _ in range(2))
+    k1, v1 = (_rand(rng, s, h, n1, 64).to(dev, dtype) for _ in range(2))
+    before = kernels.LAUNCHES['flash_attention_prefix']
+    out = fa.flash_attention_prefix(q, k0, v0, k1, v1)
+    ref = fa._dense_two_source(q, k0, v0, k1, v1, 1.0, 1.0)
+    tol = (3e-5 if dtype == torch.float32
+           else atol * float(ref.float().abs().max()))
+    assert _err(out, ref) <= tol
+    assert kernels.LAUNCHES['flash_attention_prefix'] == before + 1
+
+
+def _small_imu(d):
+    """The small IMU-conditioned predictor and flow2imu (every head dim 16)
+    with seeded weights made on the CPU, and a RAFT-2, on device d."""
+    from counterfactualworldmodels_tpu_torch.models import conjoined as C
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    ctx = dict(is_imu=True, in_chans=6, sequence_length=48, imu_tubelet=8,
+               encoder_embed_dim=32, encoder_depth=2, encoder_num_heads=2,
+               decoder_embed_dim=32, decoder_depth=2, decoder_num_heads=2,
+               decoder_num_classes=48, mlp_ratio=2.0)
+    main = dict(img_size=(64, 64), patch_size=(8, 8), encoder_embed_dim=64,
+                encoder_depth=2, encoder_num_heads=4, decoder_embed_dim=32,
+                decoder_depth=2, decoder_num_heads=2, mlp_ratio=2.0)
+    wrappers = []
+    for i, (m, c, kw) in enumerate((
+            (dict(in_chans=3, num_frames=2, padded=True,
+                  max_padding_tokens=8),
+             dict(concat_dummy_token=False, padded=True,
+                  max_padding_tokens=6), dict(main_input='rgb01')),
+            (dict(in_chans=7, num_frames=1, decoder_num_classes=448),
+             dict(concat_dummy_token=True), dict(
+                 main_input='flowback_rgb01',
+                 main_input_kwargs={'iters': 2}))), 1):
+        spec = (C.StreamSpec(**m, **main), C.StreamSpec(**c, **ctx))
+        cpu = C.ConjoinedVMAE(*spec, device='cpu')
+        sd = weights.init_conjoined_state_dict(
+            cpu, torch.Generator().manual_seed(i))
+        model = C.ConjoinedVMAE(*spec, device=d)
+        wrappers.append((model, sd, kw))
+    raft = weights.init_raft(RAFT(iters=2, device='cpu'),
+                             torch.Generator().manual_seed(3))
+    if d != 'cpu':
+        gpu = RAFT(iters=2, device=d)
+        gpu.load_state_dict(raft.state_dict(), strict=True)
+        raft = gpu
+    out = []
+    for model, sd, kw in wrappers:
+        if 'main_input_kwargs' in kw:
+            kw['main_input_kwargs']['flow_model'] = raft
+        out.append(C.ConjoinedPredictorWrapper(
+            model, params={k: v.to(d) for k, v in sd.items()},
+            context_input='imu', **kw))
+    return out, raft
+
+
+@pytest.mark.parametrize('engine', ['fast', 'exact'])
+def test_imu_generator_on_the_card_matches_the_cpu(dev, engine):
+    """ImuConditionedFlowGenerator at the small configuration in f32 (TF32
+    off), the static-scene IMU from flow2imu, from the same weights and
+    draws on the card and on the CPU: videos and flows within 1e-3; on the
+    card the path's kernels ran the counts the code gives, on the CPU
+    none."""
+    from counterfactualworldmodels_tpu_torch.pipelines.imu import (
+        ImuConditionedFlowGenerator)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(4)
+    x = rng.rand(1, 3, 64, 64).astype(np.float32)
+    active = np.ones((1, 128, 4), dtype=bool)
+    active[:, :64] = False
+    for i in range(4):
+        active[0, 64 + rng.choice(64, 2, replace=False), i] = False
+    outs = {}
+    for d in ('cpu', 'cuda'):
+        (imu, f2i), raft = _small_imu(d)
+        gen = _fixed_draws(ImuConditionedFlowGenerator(
+            predictor=imu, head_motion_predictor=f2i, flow_model=raft,
+            raft_iters=2, imagenet_normalize_inputs=True, engine=engine,
+            device=d), 5)
+        kernels.reset_launches()
+        y, f = gen.predict_counterfactual_videos_and_flows(
+            x, active, num_samples=4, sample_batch_size=2)
+        outs[d] = (y.cpu(), f.cpu(), dict(kernels.LAUNCHES))
+    (yc, fc, lc), (yg, fg, lg) = outs['cpu'], outs['cuda']
+    assert max(_err(yc, yg), _err(fc, fg)) <= 1e-3
+    assert not any(lc.values())
+    # flow2imu once (K1 in its 8 blocks, RAFT-2 forward and backward), two
+    # chunks: fast, the prefix once (4 main blocks) and K2 in both decoder
+    # blocks per chunk; exact, the predictor's 8 blocks per chunk
+    want = (dict(flash_attention=8 + 4, flash_attention_prefix=4,
+                 window_lookup=4 + 4) if engine == 'fast' else
+            dict(flash_attention=8 + 16, window_lookup=4 + 4))
+    assert lg == dict({k: 0 for k in lg}, **want), lg

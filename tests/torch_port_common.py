@@ -4,13 +4,17 @@ Inputs are made with numpy from a seed and handed to both packages; weights
 are initialised in JAX and carried to the port through the port's weight
 bridge (utils/weights.py), so both sides run the same numbers on the CPU.
 """
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import torch
 
+from counterfactualworldmodels_tpu.models import conjoined as jconj
 from counterfactualworldmodels_tpu.models import vmae as jvmae
 from counterfactualworldmodels_tpu.pipelines import perturbation as jperturb
+from counterfactualworldmodels_tpu_torch.models import conjoined as tconj
 from counterfactualworldmodels_tpu_torch.models import fast_vmae as tfv
 from counterfactualworldmodels_tpu_torch.models import vmae as tvmae
 from counterfactualworldmodels_tpu_torch.utils import weights
@@ -110,3 +114,52 @@ class JaxDraws:
         idx = jax.random.categorical(self.next_key(), logits, axis=-1,
                                      shape=(num_points, p.shape[0])).T
         return t(idx).long()
+
+
+# the tiny conjoined model of tests/test_fast_conjoined.py:_tiny
+IMG, GRID = 64, 8
+N = 2 * GRID * GRID
+N0 = N // 2
+IMU_LEN, IMU_TOK = 48, 6
+
+_init_conj = jax.jit(jconj.init_conjoined_params, static_argnums=0)
+
+
+def conj_specs(mod, flavour, enc_cross=((0, 0), (-1, -1)),
+               dec_cross=((0, 0), (1, 1))):
+    """(main, context, layer pairs) of the tiny conjoined model, with the
+    StreamSpec of module ``mod`` (the JAX or the port's conjoined module).
+    flavour 'padded': both streams padded, no dummy token; 'dummy': no
+    padding, a dummy IMU token."""
+    dummy = flavour == 'dummy'
+    ctx = mod.StreamSpec(is_imu=True, in_chans=6, sequence_length=IMU_LEN,
+                         imu_tubelet=8, encoder_embed_dim=32, encoder_depth=2,
+                         encoder_num_heads=4, decoder_embed_dim=24,
+                         decoder_depth=2, decoder_num_heads=4,
+                         decoder_num_classes=48, mlp_ratio=2.0,
+                         concat_dummy_token=dummy, padded=not dummy,
+                         max_padding_tokens=0 if dummy else IMU_TOK)
+    main = mod.StreamSpec(img_size=(IMG, IMG), patch_size=(8, 8), in_chans=3,
+                          num_frames=2, encoder_embed_dim=48, encoder_depth=2,
+                          encoder_num_heads=4, decoder_embed_dim=32,
+                          decoder_depth=2, decoder_num_heads=4, mlp_ratio=2.0,
+                          padded=not dummy,
+                          max_padding_tokens=0 if dummy else 8)
+    return main, ctx, dict(conjoin_encoder_layers=enc_cross,
+                           conjoin_decoder_layers=dec_cross)
+
+
+@functools.lru_cache(maxsize=None)
+def conj_pair(flavour, seed=0, **kw):
+    """(JAX model, its params, the port's model on the CPU with them
+    loaded, the bridged state dict). Cached: callers do not change them."""
+    jm_main, jm_ctx, pairs = conj_specs(jconj, flavour, **kw)
+    jm = jconj.ConjoinedVMAE(main=jm_main, context=jm_ctx, **pairs)
+    params = _init_conj(jm, jax.random.PRNGKey(seed))
+    tm_main, tm_ctx, pairs = conj_specs(tconj, flavour, **kw)
+    tm = tconj.ConjoinedVMAE(main=tm_main, context=tm_ctx, device='cpu',
+                             **pairs)
+    sd = weights.conjoined_state_dict_from_jax(
+        tm, jax.tree_util.tree_map(np.asarray, params))
+    tm.load_state_dict(sd, strict=True)
+    return jm, params, tm, sd
