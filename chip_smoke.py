@@ -75,8 +75,21 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    library defaults with a RAFT-24 keypoint predictor (K1 112, K2 48,
    lookup 456 per call) and one unfiltered call, each the median of 3
    after a warm-up, with peak memory and the split of one more cold map
-   (flow2imu, sampler, chunk, filter, the rest); the default dispatch's
-   profile comes after these;
+   (flow2imu, sampler, chunk, filter, the rest); then (5e) the HTTP
+   server ``serve.CwmService`` on phase 5's weights behind a
+   ThreadingHTTPServer after its warmup: /health, /predict (K1 36, K2
+   12), a cold /counterfactual of 16 samples (K1 36, K2 12, lookup 24, one
+   service-LRU miss), the same again (K2 12, lookup 24), 4 concurrent
+   same-scene requests in one dispatch (K2 12, lookup 24) and 4
+   concurrent requests on new scenes in one mixed-scene dispatch (K1 144,
+   K2 12 with s0 = 4, lookup 24), /stats; each route timed over HTTP
+   (median of 3 after a warm-up) and one warm request split (JSON, image
+   parse, dispatch, PNGs, the rest); ``serve.ImuCwmService`` on phase
+   5d's models (/counterfactual cold and warm, /movability at the
+   server's defaults with the static IMU cached); the interactive
+   interface's click, 'f', 'b' and 'x' on a ViT-L FlowGenerator through a
+   stub axes object; the server's PNG writer against a decoder written
+   here; the default dispatch's profile comes after these;
 6. full-width training: one warm-up and three timed steps with finite
    losses, sec/step, clips/s, MFU and peak memory, and the launch counts
    of every step (K5 72, K6 36, K1 0); then the exact forward
@@ -1686,6 +1699,8 @@ def imu_phase(torch, port, rec, smi, ctx):
         flow_model=raft, raft_iters=24, imagenet_normalize_inputs=True,
         seed=0, device=dev)
     gen = ImuConditionedFlowGenerator(engine='fast', **common)
+    # the models, for phase 5e's IMU service
+    ctx['imu'] = dict(common, models=(imu, f2i))
     torch.cuda.synchronize()
     log('5d imu', f'weights ready in {time.perf_counter() - t0:.1f}s')
     zero = {k: 0 for k in port.kernels.LAUNCHES}
@@ -1865,6 +1880,503 @@ def imu_phase(torch, port, rec, smi, ctx):
     out['seconds'] = time.perf_counter() - t0
     rec['phase5d'] = out
     log('5d imu', json.dumps(out))
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the HTTP server and the interactive interface at full width
+# ---------------------------------------------------------------------------
+
+def png_decode(data):
+    """A PNG written by the port's server (8-bit grey or RGB, no interlace,
+    every row filter 0) as a uint8 array, decoded here with zlib alone:
+    the chunks' CRCs checked, the IDAT stream inflated, the filter byte of
+    each row checked and dropped."""
+    import struct
+    import zlib
+    if data[:8] != b'\x89PNG\r\n\x1a\n':
+        raise ValueError('not a PNG')
+    pos, idat, header = 8, b'', None
+    while pos < len(data):
+        n, kind = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack('>I', data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xffffffff != crc:
+            raise ValueError(f'bad CRC in {kind}')
+        if kind == b'IHDR':
+            header = struct.unpack('>IIBBBBB', body)
+        elif kind == b'IDAT':
+            idat += body
+        pos += 12 + n
+    w, h, depth, colour, _, _, interlace = header
+    if depth != 8 or colour not in (0, 2) or interlace:
+        raise ValueError(f'unexpected PNG header {header}')
+    ch = 3 if colour == 2 else 1
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + w * ch)
+    if raw[:, 0].any():
+        raise ValueError('a row uses a filter other than 0')
+    img = raw[:, 1:].reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img
+
+
+class _StubAxes:
+    """What the interface draws through (no matplotlib on this machine):
+    images, titles and texts recorded."""
+
+    def __init__(self):
+        import types
+        self.images, self.titles, self.texts = [], [], []
+        self.figure = types.SimpleNamespace(canvas=types.SimpleNamespace(
+            mpl_connect=lambda name, fn: len(name)))
+
+    def imshow(self, img, **kwargs):
+        self.images.append(np.asarray(img).shape)
+
+    def text(self, *args, **kwargs):
+        texts = self.texts
+
+        class Text:
+            def set_text(self, s):
+                texts.append(s)
+        return Text()
+
+    def set_title(self, title, **kwargs):
+        self.titles.append(title)
+
+    def set_xticks(self, ticks):
+        pass
+
+    def set_yticks(self, ticks):
+        pass
+
+
+def serving_phase(torch, port, rec, smi, ctx):
+    """The port's HTTP server and interactive interface at full width, on
+    phase 5's ViT-L 4x4 + RAFT-24 bf16 weights and phase 5d's IMU models:
+    CwmService (engine fast, 5 ms window, 64 samples per dispatch, 8 per
+    mixed-scene dispatch) behind a ThreadingHTTPServer after warmup;
+    /health, /predict, a cold and a warm /counterfactual of 16 samples, 4
+    concurrent same-scene requests in one dispatch, 4 concurrent requests
+    on new scenes in one mixed-scene dispatch (K2 with s0 = 4), /stats;
+    each route timed over HTTP (median of 3 after a warm-up) and one
+    request split into host and device parts; ImuCwmService's
+    /counterfactual (cold, warm) and /movability; the interface's click,
+    'f', 'b' and 'x' through a stub axes object; the PNG writer against
+    the decoder above. Every launch count asserted."""
+    import argparse
+    import base64
+    import dataclasses
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from counterfactualworldmodels_tpu_torch import serve
+    from counterfactualworldmodels_tpu_torch.interface import (
+        CounterfactualPredictionInterface)
+    from counterfactualworldmodels_tpu_torch.pipelines import segmentation
+    dev = torch.device('cuda')
+    cfg = dataclasses.replace(ctx['model'], dtype=torch.bfloat16)
+    raft, sd = ctx['raft'], ctx['sd']
+    depth = cfg.encoder_depth + cfg.decoder_depth
+    dec = cfg.decoder_depth
+    zero = {k: 0 for k in port.kernels.LAUNCHES}
+    failures = []
+    out = {'config': 'large_4x4patch_2frames_1tube bf16 + RAFT-24 bf16; '
+                     'IMU: imu400_base_4x4patch_2frames_1tube + '
+                     'imu400_8x8patch_2frames_1tube_flowbackrgb01 bf16',
+           'card': smi}
+    rng = np.random.RandomState(51)
+
+    def image():
+        return rng.rand(224, 224, 3).round(3).tolist()
+
+    def expect(name, got, **want):
+        if got != dict(zero, **want):
+            failures.append(f'{name}: launches {got}, want {want}')
+
+    # the PNG writer against this decoder, bitwise
+    for shape in ((224, 224, 3), (224, 224), (7, 13, 3)):
+        a = rng.randint(0, 256, shape).astype(np.uint8)
+        if not np.array_equal(png_decode(serve.encode_png(a)), a):
+            failures.append(f'PNG round trip {shape}')
+    out['png_roundtrip_bitwise'] = not failures
+
+    t0 = time.perf_counter()
+    gen = segmentation.FlowGenerator(
+        predictor=cfg, params=sd, flow_model=raft, raft_iters=24,
+        imagenet_normalize_inputs=True, seed=0, engine='fast', device=dev)
+    svc = serve.CwmService(gen, 224, engine='fast', batch_window_ms=5.0,
+                           max_batch_samples=64, max_scene_batch=8)
+    warmed = svc.warmup(buckets=(1, 4, 16), log=None)
+    out['warmup'] = dict(seconds=time.perf_counter() - t0,
+                         dispatches=[list(w) for w in warmed])
+    log('5e serving', f'warmup: {len(warmed)} dispatches in '
+                      f'{out["warmup"]["seconds"]:.1f}s (with the weights)')
+    servers = []
+
+    def start(service):
+        httpd = ThreadingHTTPServer(('127.0.0.1', 0), serve.make_handler(
+            service, service.device.type))
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        servers.append((httpd, th))
+        return f'http://127.0.0.1:{httpd.server_address[1]}'
+
+    def call(base, path, body=None):
+        """(status, JSON, client ms) of one request; body: encoded JSON."""
+        req = urllib.request.Request(
+            base + path, body,
+            {'Content-Type': 'application/json'} if body else {})
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, payload = r.status, json.loads(r.read())
+        return status, payload, (time.perf_counter() - t1) * 1e3
+
+    def counted(fn):
+        """fn() from launch counts of 0; (its result, the counts)."""
+        port.kernels.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(port.kernels.LAUNCHES)
+
+    def concurrent(base, service, bodies):
+        """POST the bodies from threads, each sent once the previous one
+        has joined the batcher's open batch (so all share one batch)."""
+        res = [None] * len(bodies)
+        threads = []
+        batcher = service._batcher
+        for i, body in enumerate(bodies):
+            th = threading.Thread(target=lambda i=i, body=body: res.__setitem__(
+                i, call(base, '/counterfactual', body)))
+            th.start()
+            threads.append(th)
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                with batcher._lock:
+                    n = sum(len(b['entries'])
+                            for b in batcher._pending.values())
+                if n == i + 1:
+                    break
+                time.sleep(0.001)
+            else:
+                raise AssertionError('a request did not reach the batcher')
+        for th in threads:
+            th.join(timeout=600)
+            if th.is_alive():
+                raise AssertionError('a request did not return')
+        return res
+
+    def check_cf(name, resp, **flags):
+        status, payload, _ = resp
+        keys = {'simulation', 'flow_rgb', 'segment', 'segment_raw',
+                'engine', 'batched_samples'}
+        ok = status == 200 and keys <= set(payload)
+        if ok:
+            seg = np.asarray(payload['segment_raw'])
+            ok = (seg.shape == (224, 224) and bool(np.isfinite(seg).all())
+                  and all(png_decode(base64.b64decode(payload[k])).shape
+                          == (224, 224, 3)
+                          for k in ('simulation', 'flow_rgb', 'segment'))
+                  and all(payload.get(k) == v for k, v in flags.items()))
+        if not ok:
+            failures.append(f'{name}: {status} '
+                            f'{ {k: payload.get(k) for k in flags} }')
+
+    def stats(base):
+        return call(base, '/stats')[1]
+
+    def enc(payload):
+        return json.dumps(payload).encode()
+
+    launches = {}
+    try:
+        base = start(svc)
+        status, health, _ = call(base, '/health')
+        if (status, health) != (200, {'status': 'ok', 'backend': 'cuda'}):
+            failures.append(f'/health: {status} {health}')
+        scene = image()
+        active = [[20, 30]]
+        (resp, l_) = counted(lambda: call(base, '/predict', enc(
+            {'image': scene, 'active': active})))
+        launches['predict'] = l_
+        expect('/predict (cold)', l_, flash_attention=depth,
+               flash_attention_prefix=dec)
+        if not (resp[0] == 200 and png_decode(base64.b64decode(
+                resp[1]['prediction'])).shape == (224, 224, 3)):
+            failures.append('/predict response')
+        cf = {'image': scene, 'active': active, 'passive': [[40, 12]],
+              'shift': [0, 2], 'num_samples': S_FULL}
+        before = stats(base)
+        (resp, l_) = counted(lambda: call(base, '/counterfactual', enc(cf)))
+        launches['counterfactual_cold'] = l_
+        expect('/counterfactual (cold)', l_, flash_attention=depth,
+               flash_attention_prefix=dec, window_lookup=24)
+        check_cf('/counterfactual (cold)', resp, prefix_cache_hit=False,
+                 engine='fast', batched_samples=S_FULL)
+        (resp, l_) = counted(lambda: call(base, '/counterfactual', enc(cf)))
+        launches['counterfactual_warm'] = l_
+        expect('/counterfactual (warm)', l_, flash_attention_prefix=dec,
+               window_lookup=24)
+        check_cf('/counterfactual (warm)', resp, prefix_cache_hit=True)
+        after = stats(base)
+        if (after['prefix_cache']['misses'] - before['prefix_cache']['misses'],
+                after['prefix_cache']['hits'] - before['prefix_cache']['hits']
+                ) != (1, 1):
+            failures.append(f'service LRU: {before} -> {after}')
+
+        # concurrent requests: the window is widened so that four 1.5 MB
+        # JSON bodies, parsed one after another under the GIL, join one
+        # batch (the ordered sends make the batch deterministic)
+        svc._batcher.window_s = 0.5
+        same = [enc(dict(cf, num_samples=4, shift=[i - 2, 1]))
+                for i in range(4)]
+        before = stats(base)
+        (res, l_) = counted(lambda: concurrent(base, svc, same))
+        launches['same_scene_batch'] = l_
+        after = stats(base)
+        mb0, mb1 = before['micro_batching'], after['micro_batching']
+        expect('4 same-scene requests', l_, flash_attention_prefix=dec,
+               window_lookup=24)
+        for r in res:
+            check_cf('same-scene batch', r, prefix_cache_hit=True,
+                     batched_samples=S_FULL)
+        if (mb1['dispatches'] - mb0['dispatches'],
+                mb1['requests_batched'] - mb0['requests_batched']) != (1, 4):
+            failures.append(f'same-scene batching: {mb0} -> {mb1}')
+        new_scenes = [image() for _ in range(4)]
+        mixed = [enc({'image': im, 'active': active, 'shift': [1, 1],
+                      'num_samples': 1}) for im in new_scenes]
+        before = stats(base)
+        (res, l_) = counted(lambda: concurrent(base, svc, mixed))
+        launches['mixed_scene_batch'] = l_
+        after = stats(base)
+        mb0, mb1 = before['micro_batching'], after['micro_batching']
+        expect('4 mixed-scene requests', l_, flash_attention=4 * depth,
+               flash_attention_prefix=dec, window_lookup=24)
+        for r in res:
+            check_cf('mixed-scene batch', r, prefix_cache_hit=False,
+                     batched_samples=4, scene_batched=4)
+        if (mb1['scene_batches'] - mb0['scene_batches'],
+                mb1['dispatches'] - mb0['dispatches'],
+                after['prefix_cache']['misses']
+                - before['prefix_cache']['misses']) != (1, 1, 4):
+            failures.append(f'mixed-scene batching: {before} -> {after}')
+        out['stats'] = after
+
+        # each route over HTTP, median of 3 after a warm-up (single
+        # requests at the 5 ms window, the batches of 4 with the 0.5 s
+        # window above; the dispatch is timed inside the server too)
+        dispatch_ms = []
+        real_dispatch = svc._dispatch_cf_batch
+
+        def timed_dispatch(key, items):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = real_dispatch(key, items)
+            torch.cuda.synchronize()
+            dispatch_ms.append((time.perf_counter() - t1) * 1e3)
+            return r
+        svc._batcher.dispatch = timed_dispatch
+
+        def route(fn):
+            ms = []
+            for i in range(4):
+                dispatch_ms.clear()
+                t1 = time.perf_counter()
+                fn()
+                ms.append(((time.perf_counter() - t1) * 1e3,
+                           sum(dispatch_ms)))
+            runs = ms[1:]
+            return dict(ms=float(np.median([r[0] for r in runs])),
+                        ms_runs=[r[0] for r in runs],
+                        dispatch_ms_runs=[r[1] for r in runs])
+
+        timing = {}
+        svc._batcher.window_s = 0.005
+        timing['predict'] = route(lambda: call(base, '/predict', enc(
+            {'image': image(), 'active': active})))
+        timing['counterfactual_cold'] = route(lambda: call(
+            base, '/counterfactual', enc(dict(cf, image=image()))))
+        warm_body = enc(cf)
+        timing['counterfactual_warm'] = route(lambda: call(
+            base, '/counterfactual', warm_body))
+        svc._batcher.window_s = 0.5
+        timing['same_scene_batch_of_4'] = route(
+            lambda: concurrent(base, svc, same))
+        timing['mixed_scene_batch_of_4'] = route(lambda: concurrent(
+            base, svc, [enc({'image': image(), 'active': active,
+                             'shift': [1, 1], 'num_samples': 1})
+                        for _ in range(4)]))
+        svc._batcher.window_s = 0.005
+        out['route_ms'] = timing
+
+        # one warm request of 16 samples split: the JSON body's encode and
+        # parse (the same body, in this process), the image parse and
+        # upload, the dispatch between synchronizations (of it, the engine:
+        # prompts, VMAE, RAFT-24), the response's PNGs and the rest (HTTP,
+        # the response JSON)
+        split = {}
+        t1 = time.perf_counter()
+        body = enc(cf)
+        split['client_json_encode'] = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        json.loads(body)
+        split['json_parse'] = (time.perf_counter() - t1) * 1e3
+
+        def timed(name, fn, sync=False):
+            def wrapper(*a, **k):
+                if sync:
+                    torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                r = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                split[name] = split.get(name, 0.0) + (
+                    time.perf_counter() - t2) * 1e3
+                return r
+            return wrapper
+
+        svc._parse_cf_request = timed('parse_image', svc._parse_cf_request,
+                                      sync=True)
+        svc._cf_response = timed('response_pngs', svc._cf_response)
+        engine = serve.counterfactual_videos_and_flows_fast
+        serve.counterfactual_videos_and_flows_fast = timed('engine', engine,
+                                                           sync=True)
+        try:
+            dispatch_ms.clear()
+            status, payload, total = call(base, '/counterfactual', body)
+        finally:
+            serve.counterfactual_videos_and_flows_fast = engine
+            del svc._parse_cf_request, svc._cf_response
+        split['dispatch'] = sum(dispatch_ms) - split['response_pngs']
+        # the dispatch's own host work around the engine: the noise, the
+        # LRU key, the motion map, the copies to the host
+        split['dispatch_rest'] = split['dispatch'] - split['engine']
+        split['total_http'] = total
+        split['body_mb'] = len(body) / 2 ** 20
+        split['rest'] = total - sum(split[k] for k in (
+            'json_parse', 'parse_image', 'dispatch', 'response_pngs'))
+        split['host_share'] = 1 - split['dispatch'] / total
+        out['split_warm_counterfactual_ms'] = split
+        svc._batcher.dispatch = real_dispatch
+        if status != 200:
+            failures.append(f'split request: {status}')
+
+        # the IMU-conditioned service on phase 5d's models
+        imu_ctx = ctx['imu']
+        args = argparse.Namespace(raft_iters=24, seed=0, engine='fast',
+                                  prefix_cache_size=4, movability_samples=16,
+                                  movability_iters=2)
+        ig = serve.imu_movability_generator(
+            imu_ctx['predictor'], imu_ctx['head_motion_predictor'], raft,
+            args, dev)
+        isvc = serve.ImuCwmService(ig, 224, engine='fast',
+                                   batch_window_ms=5.0)
+        ibase = start(isvc)
+        imu, f2i = imu_ctx['models']
+        f2i_blocks = (f2i.main.encoder_depth + f2i.main.decoder_depth
+                      + f2i.context.encoder_depth + f2i.context.decoder_depth)
+        prefix = imu.main.encoder_depth + imu.main.decoder_depth
+        idec = imu.main.decoder_depth
+        imu_out = {}
+        maps = 1 + args.movability_iters
+        icf = dict(cf, image=image())
+        # each route: a warm-up request (the first one also builds the
+        # conjoined engine's weights), then 3 timed, launches asserted on
+        # every one; cold requests and /movability on new images
+        for name, path, body, want in (
+                ('counterfactual_cold', '/counterfactual',
+                 lambda: enc(dict(cf, image=image())),
+                 dict(flash_attention=f2i_blocks + prefix,
+                      flash_attention_prefix=idec, window_lookup=3 * 24)),
+                ('counterfactual_warm', '/counterfactual',
+                 lambda: enc(icf),
+                 dict(flash_attention_prefix=idec, window_lookup=24)),
+                # flow2imu once (the service's static IMU, cached: the
+                # loop's maps take it as head_motion), the prefix once,
+                # one chunk of 16 per map
+                ('movability', '/movability',
+                 lambda: enc({'image': image()}),
+                 dict(flash_attention=f2i_blocks + prefix,
+                      flash_attention_prefix=maps * idec,
+                      window_lookup=2 * 24 + maps * 24))):
+            runs = []
+            for i in range(4):
+                payload = body()
+                (resp, l_) = counted(lambda: call(ibase, path, payload))
+                if i:
+                    runs.append(resp[2])
+                    expect(f'IMU {path} ({name})', l_, **want)
+                    launches[f'imu_{name}'] = l_
+                if path == '/counterfactual':
+                    check_cf(f'IMU {path} ({name})', resp,
+                             imu_conditioned=True, engine='fast',
+                             batched_samples=S_FULL)
+                    continue
+                status, payload_out, _ = resp
+                m = np.asarray(payload_out.get('movability_raw', []))
+                if not (status == 200 and m.shape == (224, 224)
+                        and bool(np.isfinite(m).all())
+                        and png_decode(base64.b64decode(
+                            payload_out['movability'])).shape
+                        == (224, 224, 3)):
+                    failures.append(f'IMU /movability: {status}')
+            imu_out[name] = dict(ms=float(np.median(runs)), ms_runs=runs,
+                                 launches=launches[f'imu_{name}'])
+        imu_out['stats'] = stats(ibase)
+        out['imu'] = imu_out
+    finally:
+        for httpd, th in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=60)
+
+    # the interactive interface on a fresh ViT-L generator, stub axes
+    ui_gen = segmentation.FlowGenerator(
+        predictor=cfg, params=sd, flow_model=raft, raft_iters=24,
+        imagenet_normalize_inputs=True, seed=0, engine='fast', device=dev)
+    axes = [_StubAxes() for _ in range(4)]
+    x = np.asarray(image(), np.float32).transpose(2, 0, 1)[None]
+    ui = CounterfactualPredictionInterface(axes, ui_gen, x=x,
+                                           size=(224, 224))
+
+    class Event:
+        def __init__(self, key=None):
+            self.xdata, self.ydata = 101.0, 77.0
+            self.key, self.button, self.dblclick = key, 1, False
+
+    ui_out = {}
+    for key, want, n_flows in (
+            (None, {}, 0),
+            ('f', dict(flash_attention=depth, flash_attention_prefix=dec,
+                       window_lookup=24), 1),
+            ('b', dict(flash_attention_prefix=dec, window_lookup=24),
+             1 + ui.sample_batch_size),
+            ('x', {}, 1 + ui.sample_batch_size)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (_, l_) = counted(lambda: ui(Event(key)))
+        ms = (time.perf_counter() - t1) * 1e3
+        name = key or 'click'
+        launches[f'interface_{name}'] = l_
+        expect(f"interface '{name}'", l_, **want)
+        if len(ui.flow_samples_list) != n_flows:
+            failures.append(f"interface '{name}': "
+                            f'{len(ui.flow_samples_list)} flow samples')
+        ui_out[name] = dict(ms=ms, launches=l_,
+                            flow_samples=len(ui.flow_samples_list))
+    if not (ui._flow_corrs is not None
+            and bool(torch.isfinite(ui._flow_corrs).all())
+            and int((~ui.active_patches).sum()) == ui_gen.predictor
+            .num_patches_per_frame + 1):
+        failures.append('interface state after the events')
+    ui_out['drawn'] = [len(a.images) for a in axes]
+    out['interface'] = ui_out
+    out['launches'] = launches
+    rec['phase5e'] = out
+    log('5e serving', json.dumps(out))
     if failures:
         raise AssertionError('; '.join(failures))
     return out
@@ -2193,13 +2705,16 @@ def main():
         phase('4 small imu', small_imu, torch, port, rec)
         torch.backends.cudnn.allow_tf32 = True
         full = phase('5 full width', full_width, torch, port, rec, smi)
-        movability = imu = None
+        movability = imu = serving = None
         if full is not None:
             phase('5b generator', generator_phase, torch, port, rec, smi,
                   full[1])
             movability = phase('5c movability', movability_phase, torch,
                                port, rec, smi, full[1])
             imu = phase('5d imu', imu_phase, torch, port, rec, smi, full[1])
+            if imu is not None:
+                serving = phase('5e serving', serving_phase, torch, port,
+                                rec, smi, full[1])
             phase('5 profile', profile_default, torch, rec, full[1])
             full = full[0]
             torch.cuda.empty_cache()
@@ -2223,13 +2738,20 @@ def main():
     # default-rung dispatch (K1-K4 at ViT-L), one train step (K5, K6), one
     # small-RAFT call (the lookup at r = 3), one cold IMU-conditioned
     # motion map (phase 5d (a): K1 at the ViT-B and IMU shapes, K2 at the
-    # conjoined suffix); beside them, the kernel's launches on every path
+    # conjoined suffix), the server's mixed-scene batch of 4 requests
+    # (phase 5e: K2 with s0 = 4); beside them, the kernel's launches on
+    # every path
     paths = dict(dispatch=full[0]['launches'],
                  movability_call=movability['launches_per_call'],
                  imu_motion_map=imu['a']['launches'],
                  imu_movability_call=imu['d']['launches'],
                  train_step=train['launches_per_step'][-1],
-                 small_raft_call=small_launches)
+                 small_raft_call=small_launches,
+                 serve_cold_counterfactual=serving['launches'][
+                     'counterfactual_cold'],
+                 serve_mixed_scene_batch=serving['launches'][
+                     'mixed_scene_batch'],
+                 serve_imu_movability=serving['launches']['imu_movability'])
     table = []
     for kid, kernel, dtype, case, path, replaces in (
             ('K1', 'flash_attention', 'bfloat16', 'encoder prefix',
@@ -2242,6 +2764,10 @@ def main():
              'dispatch', REPLACES['flash_attention_prefix']),
             ('K2', 'flash_attention_prefix', 'bfloat16',
              'conjoined decoder suffix', 'imu_motion_map',
+             REPLACES['flash_attention_prefix']),
+            # the server's mixed-scene micro-batch: 4 scenes' prefixes
+            ('K2', 'flash_attention_prefix', 'bfloat16',
+             'stacked prefixes s0=S', 'serve_mixed_scene_batch',
              REPLACES['flash_attention_prefix']),
             ('K3', 'window_lookup', 'float32', 'pyramid 28/14/7/3',
              'dispatch', REPLACES['window_lookup']),

@@ -1,1 +1,1 @@
-from . import shards  # noqa: F401
+from . import shards, utils  # noqa: F401

@@ -2,7 +2,8 @@
 
 The sources are ``csrc/*.cu`` with a plain C interface. ``build()`` compiles
 each one with ``nvcc`` for ``sm_90a`` into a shared library under
-``_build/`` of the package directory (ignored by git), one ``nvcc`` process
+``_build/`` of the package directory (ignored by git; ``set_build_dir``
+names another), one ``nvcc`` process
 per source, all started together. The library name carries a hash of its
 source, of every header in ``csrc/`` and of the flags, so an edited source
 or header is never served from a stale build.
@@ -38,6 +39,15 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+
+def set_build_dir(path: str) -> None:
+    """Build and load the libraries in ``path`` from now on (a library
+    loaded before stays loaded); the names still hash only the sources,
+    the headers and the flags."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = os.path.abspath(path)
 
 
 def reset_launches() -> None:

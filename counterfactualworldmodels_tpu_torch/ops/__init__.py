@@ -1,2 +1,2 @@
-from . import (coords, flash_attention, flow_viz, normalization,  # noqa: F401
-               patches, pos_embed)
+from . import (coords, flash_attention, flow_viz, misc,  # noqa: F401
+               normalization, patches, pos_embed, resize)

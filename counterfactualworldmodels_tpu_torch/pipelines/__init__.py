@@ -1,2 +1,4 @@
-from . import movability, perturbation, segmentation  # noqa: F401
+from . import (movability, patch_selector, perturbation,  # noqa: F401
+               segmentation)
 from .movability import MovabilityPredictor  # noqa: F401
+from .patch_selector import IterativePatchSelector  # noqa: F401

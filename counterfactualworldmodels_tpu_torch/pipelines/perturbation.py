@@ -229,3 +229,158 @@ def random_shift(max_shift_fraction: float, image_size, patch_size,
     zero = (d == 0).all(-1, keepdim=True)
     bump = torch.tensor([0, 1], dtype=d.dtype, device=d.device)
     return torch.where(zero, d + bump, d)
+
+
+def shift_patches(x: torch.Tensor, mask: torch.Tensor, shift_patches_vec,
+                  patch_size, frame: int = 1):
+    """Shift only the visible patches' content, keep the mask unchanged
+    (reference ShiftPatches). x: [B, T, C, H, W]; mask bool [B, N];
+    shift_patches_vec: [dy, dx] in patch units. Returns (x_out, mask)."""
+    _, ph, pw = canonical_patch_size(patch_size)
+    b, t, c, h, w = x.shape
+    gh, gw = h // ph, w // pw
+    f = frame % t
+    m_f = mask.reshape(b, -1, gh, gw)[:, f]
+    shift = torch.as_tensor(shift_patches_vec, device=x.device).long()
+    scale = torch.tensor([ph, pw], device=x.device)
+    x_f = x[:, f]
+    x_shifted = translate2d(x_f, (shift * scale).expand(b, 2), fill=0.0)
+    m_pix = upsample_masks(m_f, (h, w)).to(x.dtype)[:, None]
+    out = x.clone()
+    out[:, f] = x_shifted * (1.0 - m_pix) + x_f * m_pix
+    return out, mask
+
+
+def _frame_patches(x, mask, patch_size, frame):
+    """(patches [B, T*n, D], the frame's index f, its n, its mask rows
+    [B, n]) of video x [B, T, C, H, W] and mask bool [B, N]."""
+    from ..ops.patches import patchify
+    b, t = x.shape[:2]
+    _, ph, pw = canonical_patch_size(patch_size)
+    n = (x.shape[-2] // ph) * (x.shape[-1] // pw)
+    f = frame % t
+    return (patchify(x, patch_size, temporal_dim=1), f, n,
+            mask.reshape(b, -1, n)[:, f])
+
+
+def _with_frame(x, patches, frame_out, f, n, patch_size):
+    from ..ops.patches import unpatchify
+    patches = patches.clone()
+    patches[:, f * n:(f + 1) * n] = frame_out
+    return unpatchify(patches, patch_size, x.shape, temporal_dim=1)
+
+
+def _uniform(noise, b, n, generator, device):
+    """The per-row uniform [0, 1) draws [B, n]: given (the JAX package's
+    jax.random.uniform(k, (n,)) per row key), or from ``generator``."""
+    if noise is None:
+        return torch.rand(b, n, generator=generator, device=device)
+    return torch.as_tensor(noise, device=device).reshape(b, n)
+
+
+def shuffle_visible(x: torch.Tensor, mask: torch.Tensor, patch_size,
+                    frame: int = -1, noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+    """Shuffle the visible patches among themselves in the target frame
+    (reference ShuffleVisible); masked patches stay in place. noise: the
+    per-row uniform draws [B, n] that rank the visible patches (or drawn
+    from ``generator``). Returns (x_out, mask)."""
+    patches, f, n, m_f = _frame_patches(x, mask, patch_size, frame)
+    b = x.shape[0]
+    frame_patches = patches[:, f * n:(f + 1) * n]
+    noise = _uniform(noise, b, n, generator, x.device)
+    # visible entries first, in random order; masked entries after
+    order = torch.argsort(torch.where(m_f, 2.0 + noise, noise), dim=1,
+                          stable=True)
+    # the visible positions in index order, then the masked ones
+    stable_vis = torch.argsort(m_f.to(torch.uint8), dim=1, stable=True)
+    nv = (~m_f).sum(1, keepdim=True)
+    take = torch.where(torch.arange(n, device=x.device)[None] < nv, order,
+                       stable_vis)
+    values = torch.gather(frame_patches, 1,
+                          take[..., None].expand(-1, -1,
+                                                 frame_patches.shape[-1]))
+    out = frame_patches.clone()
+    out.scatter_(1, stable_vis[..., None].expand_as(values), values)
+    return _with_frame(x, patches, out, f, n, patch_size), mask
+
+
+def shuffle_all(x: torch.Tensor, mask: torch.Tensor, patch_size,
+                frame: int = -1, perm: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+    """Replace the visible patches with patches drawn from a full-frame
+    shuffle (reference ShuffleAll): masked patches keep their content.
+    perm: one permutation of the frame's n patches per row [B, n] (the JAX
+    package's jax.random.permutation per row key), or drawn from
+    ``generator``. Returns (x_out, mask)."""
+    patches, f, n, m_f = _frame_patches(x, mask, patch_size, frame)
+    b = x.shape[0]
+    frame_patches = patches[:, f * n:(f + 1) * n]
+    if perm is None:
+        perm = torch.stack([torch.randperm(n, generator=generator,
+                                           device=x.device)
+                            for _ in range(b)])
+    perm = torch.as_tensor(perm, device=x.device).long().reshape(b, n)
+    shuffled = torch.gather(frame_patches, 1, perm[..., None].expand_as(
+        frame_patches))
+    out = torch.where(m_f[..., None], frame_patches, shuffled)
+    return _with_frame(x, patches, out, f, n, patch_size), mask
+
+
+def shuffle_invisible(x: torch.Tensor, mask: torch.Tensor, patch_size,
+                      frame: int = -1, noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None):
+    """Swap visible patches with randomly chosen invisible ones (reference
+    ShuffleInvisible): visible slot i takes the (i mod n_inv)-th of the
+    shuffled invisible patches. noise: the per-row uniform draws [B, n]
+    that rank the invisible patches (or drawn from ``generator``).
+    Returns (x_out, mask)."""
+    patches, f, n, m_f = _frame_patches(x, mask, patch_size, frame)
+    b = x.shape[0]
+    frame_patches = patches[:, f * n:(f + 1) * n]
+    noise = _uniform(noise, b, n, generator, x.device)
+    inv_order = torch.argsort(torch.where(m_f, noise, 2.0 + noise), dim=1,
+                              stable=True)       # invisible first, shuffled
+    n_inv = m_f.sum(1, keepdim=True)
+    idx = torch.cumsum((~m_f).long(), 1) - 1
+    idx = torch.where(n_inv > 0, torch.remainder(idx, n_inv.clamp(min=1)),
+                      torch.zeros_like(idx))
+    src = torch.gather(inv_order, 1, idx)
+    repl = torch.gather(frame_patches, 1,
+                        src[..., None].expand_as(frame_patches))
+    keep = (m_f | (n_inv == 0))[..., None]
+    out = torch.where(keep, frame_patches, repl)
+    return _with_frame(x, patches, out, f, n, patch_size), mask
+
+
+def add_markers(x: torch.Tensor, patch_idx_list, patch_size,
+                marker_color=(1.0, 0.0, 0.0), shape: str = 'full',
+                frame: int = 0):
+    """Paint markers onto the given patches and reveal them (reference
+    AddMarkers). patch_idx_list: (b, t, i, j) or (i, j) patch indices (the
+    latter in ``frame`` of example 0). Returns (x_marked, mask) where mask
+    is visible exactly at the marked patches."""
+    _, ph, pw = canonical_patch_size(patch_size)
+    b, t, c, h, w = x.shape
+    gh, gw = h // ph, w // pw
+    out = x.clone()
+    mask = torch.ones((b, t * gh * gw), dtype=torch.bool, device=x.device)
+    col = torch.as_tensor(marker_color, dtype=x.dtype, device=x.device)
+
+    if shape == 'full':
+        stamp = torch.ones((ph, pw), dtype=x.dtype, device=x.device)
+    elif shape == 'cross':
+        stamp = torch.zeros((ph, pw), dtype=x.dtype, device=x.device)
+        stamp[ph // 2 - (1 - ph % 2):ph // 2 + 1] = 1
+        stamp[:, pw // 2 - (1 - pw % 2):pw // 2 + 1] = 1
+    else:
+        raise ValueError(shape)
+
+    for p in patch_idx_list:
+        bi, ti, i, j = (p if len(p) == 4 else (0, frame, *p))
+        ys, xs = slice(i * ph, (i + 1) * ph), slice(j * pw, (j + 1) * pw)
+        region = out[bi, ti, :, ys, xs]
+        out[bi, ti, :, ys, xs] = (stamp[None] * col[:, None, None] +
+                                  (1 - stamp[None]) * region)
+        mask[bi, (ti % t) * gh * gw + i * gw + j] = False
+    return out, mask

@@ -1,7 +1,7 @@
 """Tensor visualization helpers.
 
 Port of counterfactualworldmodels_tpu/vis_utils.py. matplotlib is imported
-only inside ``imshow``, so nothing else here needs it.
+only inside ``imshow``, and only when it has no axes to draw on.
 """
 from __future__ import annotations
 
@@ -31,8 +31,9 @@ def to_numpy_image(img, channels_first=True):
 
 def imshow(ims, ax=None, ex=0, t=0, vmin=None, vmax=None, cmap=None,
            title=None, fontsize=12, **kwargs):
-    """Show a [B,C,H,W] or [B,T,C,H,W] array or tensor."""
-    import matplotlib.pyplot as plt
+    """Show a [B,C,H,W] or [B,T,C,H,W] array or tensor on ``ax`` (a new
+    matplotlib figure's axes when None: only then is matplotlib imported,
+    so any object with matplotlib's Axes methods can stand in for it)."""
     ims = _numpy(ims)
     if ims.ndim == 5:
         ims = ims[:, t]
@@ -40,6 +41,7 @@ def imshow(ims, ax=None, ex=0, t=0, vmin=None, vmax=None, cmap=None,
         ims = ims[ex]
     img = to_numpy_image(ims)
     if ax is None:
+        import matplotlib.pyplot as plt
         _, ax = plt.subplots(1, 1)
     ax.imshow(np.clip(img, vmin if vmin is not None else img.min(),
                       vmax if vmax is not None else img.max()),

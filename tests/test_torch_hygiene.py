@@ -246,3 +246,115 @@ def test_library_path_covers_the_headers(tmp_path, monkeypatch):
     (tmp_path / 'k.cu').write_text('#include "h.cuh"\n// edited\n')
     assert kernels.library_path('k') not in (first, second)
     assert os.path.dirname(first) == kernels.BUILD_DIR
+
+
+SLICE8 = ('serve', 'interface', 'utils.batching', 'utils.profiling',
+          'utils.cache', 'utils.backend_guard', 'ops.misc', 'ops.resize',
+          'pipelines.patch_selector', 'data.utils')
+
+
+def test_serving_and_analysis_modules_import_without_jax_pil_or_matplotlib():
+    """The server, the interface and the analysis helpers import in a fresh
+    process with no JAX, no PIL and no matplotlib (the card machine has
+    neither of the latter: the server writes its PNGs itself, the
+    interface draws through the axes it is given)."""
+    code = ('import importlib, sys; '
+            'pkg = "counterfactualworldmodels_tpu_torch."; '
+            f'[importlib.import_module(pkg + m) for m in {SLICE8!r}]; '
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "flax", "counterfactualworldmodels_tpu", "PIL", '
+            '"matplotlib", "serve")]; '
+            'print(bad); sys.exit(1 if bad else 0)')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _broad_handlers(fn):
+    """`except Exception` / `except BaseException` / bare handlers directly
+    in fn's body (not in functions nested in it) that do not re-raise."""
+    stack, found = list(fn.body), []
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.ExceptHandler) and (
+                node.type is None or (isinstance(node.type, ast.Name)
+                                      and node.type.id in ('Exception',
+                                                           'BaseException'))):
+            if not any(isinstance(n, ast.Raise) and n.exc is None
+                       for n in node.body):
+                found.append(node)
+        stack.extend(ast.iter_child_nodes(node))
+    return found
+
+
+def test_no_blanket_exception_handler_in_the_serving_slice():
+    """No fallback hides the device or a kernel: no engine, warmup route,
+    kernel build or device probe sits in an `except Exception` that goes
+    on. The one blanket handler that does not re-raise is the HTTP request
+    boundary (do_POST), which answers 500 and keeps the server up (the
+    batcher's hands a dispatch error to every member and re-raises)."""
+    root = os.path.dirname(port.__file__)
+    broad = []
+    for mod in SLICE8:
+        path = os.path.join(root, *mod.split('.')) + '.py'
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                broad += [f'{mod}:{node.name}'
+                          for _ in _broad_handlers(node)]
+    assert broad == ['serve:do_POST']
+
+
+def test_serving_entry_points_raise_without_cuda_unless_cpu_is_asked():
+    """build_generator / build_imu_generator, both services, the patch
+    selector and the interface default to the card (or take their device
+    from their generator) and raise without one; each runs on the CPU
+    when asked."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    import argparse
+    from counterfactualworldmodels_tpu_torch import interface, serve
+    from counterfactualworldmodels_tpu_torch.pipelines import (
+        imu, patch_selector, segmentation)
+    args = argparse.Namespace(
+        model='tiny', img_size=32, params=None, raft_params=None,
+        flow2imu_params=None, raft_iters=1, seed=0, engine='fast',
+        prefix_cache_size=2, movability_samples=2, movability_iters=1)
+    for build in (serve.build_generator, serve.build_imu_generator):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            build(args)
+    g = serve.build_generator(args, device='cpu')
+    assert isinstance(g, segmentation.FlowGenerator)
+    assert g.device.type == 'cpu' and g.predictor.dtype == torch.float32
+    gi = serve.build_imu_generator(args, device='cpu')
+    assert isinstance(gi, imu.ImuConditionedFlowGenerator)
+    assert gi.num_iters == 1 and gi.sample_batch_size == 2
+    on_card = type('G', (), {'device': torch.device('cuda')})()
+    for make in (lambda G: serve.CwmService(G, 32),
+                 lambda G: serve.ImuCwmService(G, 32),
+                 lambda G: patch_selector.IterativePatchSelector(G)):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            make(on_card)
+    assert serve.CwmService(g, 32).device.type == 'cpu'
+    assert serve.ImuCwmService(gi, 32).device.type == 'cpu'
+    assert patch_selector.IterativePatchSelector(g).device.type == 'cpu'
+
+    class Axes:
+        figure = type('F', (), {'canvas': type('C', (), {
+            'mpl_connect': staticmethod(lambda *a: 0)})()})()
+
+        def text(self, *a, **k):
+            return None
+
+        def imshow(self, *a, **k):
+            pass
+
+    ui = interface.CounterfactualPredictionInterface(
+        Axes(), g, x=torch.rand(1, 3, 48, 48), size=(32, 32))
+    assert ui.device.type == 'cpu' and ui.x.shape[-2:] == (32, 32)
+    assert ui._x.device.type == 'cpu'

@@ -543,3 +543,114 @@ def test_imu_generator_on_the_card_matches_the_cpu(dev, engine):
                  window_lookup=4 + 4) if engine == 'fast' else
             dict(flash_attention=8 + 16, window_lookup=4 + 4))
     assert lg == dict({k: 0 for k in lg}, **want), lg
+
+
+def _service_pair(model, sd, raft_cpu, batch_window_ms=0.0):
+    """A CwmService on the CPU and one on the card over the same weights,
+    each drawing its rectangularizer noise from the same numpy seed."""
+    from counterfactualworldmodels_tpu_torch import serve
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.pipelines.segmentation import (
+        FlowGenerator)
+    out = {}
+    for d in ('cpu', 'cuda'):
+        raft = raft_cpu
+        if d == 'cuda':
+            raft = RAFT(iters=2, device=d)
+            raft.load_state_dict(raft_cpu.state_dict(), strict=True)
+        gen = FlowGenerator(predictor=model, params=sd, flow_model=raft,
+                            raft_iters=2, imagenet_normalize_inputs=True,
+                            device=d)
+        svc = serve.CwmService(gen, 32, batch_window_ms=batch_window_ms)
+
+        def draw(s_total, s_pad, n, svc=svc):
+            rng = np.random.RandomState(svc._req_counter)
+            a = (rng.rand(s_total, n) * 0.999).astype(np.float32)
+            a = np.concatenate([a, np.repeat(a[-1:], s_pad - s_total, 0)])
+            return torch.from_numpy(a).to(svc.device)
+        svc._draw_noise = draw
+        out[d] = svc
+    return out
+
+
+def test_service_fast_route_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """The server's shared-prefix dispatches (one scene, then two scenes
+    over stacked prefix caches: K2 with s0 = 2) at the small configuration
+    in f32 (TF32 off), card against CPU from the same draws: videos within
+    1e-4, flows and the raw segments within 1e-3; on the card the launches
+    the code gives, run from a request thread with grad mode on there,
+    with no autograd graph."""
+    import threading
+    from counterfactualworldmodels_tpu_torch import serve
+    from counterfactualworldmodels_tpu_torch.models import vmae
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = vmae.PretrainVisionTransformer(
+        img_size=(32, 32), patch_size=(4, 4), encoder_embed_dim=64,
+        encoder_depth=3, encoder_num_heads=4, decoder_embed_dim=32,
+        decoder_depth=2, decoder_num_heads=2, num_frames=2, qkv_bias=True)
+    sd = weights.init_vmae_state_dict(model, torch.Generator().manual_seed(0))
+    raft_cpu = weights.init_raft(RAFT(iters=2, device='cpu'),
+                                 torch.Generator().manual_seed(1))
+    services = _service_pair(model, sd, raft_cpu)
+    seen = []
+    fast, multi = (serve.counterfactual_videos_and_flows_fast,
+                   serve.counterfactual_videos_and_flows_fast_multi)
+
+    def spy(fn):
+        def wrapped(*args, **kwargs):
+            y, f, m = fn(*args, **kwargs)
+            seen.append((torch.is_grad_enabled(), y, f, m))
+            return y, f, m
+        return wrapped
+
+    monkeypatch.setattr(serve, 'counterfactual_videos_and_flows_fast',
+                        spy(fast))
+    monkeypatch.setattr(serve, 'counterfactual_videos_and_flows_fast_multi',
+                        spy(multi))
+    rng = np.random.RandomState(3)
+    imgs = [rng.rand(32, 32, 3).round(3).tolist() for _ in range(2)]
+    req = dict(active=[[2, 3], [5, 1]], passive=[[0, 0]], shift=[1, -1],
+               num_samples=3)
+    outs = {}
+    for d, svc in services.items():
+        seen.clear()
+        kernels.reset_launches()
+        res = {}
+
+        def request(svc=svc, res=res):
+            assert torch.is_grad_enabled()
+            res['one'] = svc.counterfactual(dict(req, image=imgs[0]))
+            items = [svc._parse_cf_request(dict(req, image=im,
+                                                num_samples=1))
+                     for im in imgs]
+            n_vis = int((~(items[0][1] & items[0][2])).sum())
+            res['two'] = svc._dispatch_cf_batch(('cf', n_vis), items)
+
+        th = threading.Thread(target=request)
+        th.start()
+        th.join(timeout=300)
+        assert not th.is_alive() and 'two' in res
+        outs[d] = ([(g, y.cpu(), f.cpu(), m.cpu(), y.requires_grad)
+                    for g, y, f, m in seen], res, dict(kernels.LAUNCHES))
+    (c, cres, lc), (g, gres, lg) = outs['cpu'], outs['cuda']
+    assert len(c) == len(g) == 2
+    for (cg, cy, cf, cm, _), (gg, gy, gf, gm, greq) in zip(c, g):
+        assert not cg and not gg and not greq
+        assert torch.equal(cm, gm)
+        assert _err(cy, gy) <= 1e-4 and _err(cf, gf) <= 1e-3
+    for a, b in zip([cres['one'], *cres['two']],
+                    [gres['one'], *gres['two']]):
+        assert np.abs(np.asarray(a['segment_raw'])
+                      - np.asarray(b['segment_raw'])).max() <= 1e-3
+        assert a['prefix_cache_hit'] == b['prefix_cache_hit']
+    assert gres['two'][0]['scene_batched'] == 2
+    assert not any(lc.values())
+    depth = model.encoder_depth + model.decoder_depth
+    # the first scene's prefix, the second scene's (the first is a hit),
+    # the suffix decoder in both dispatches, a RAFT-2 in each
+    assert lg == dict({k: 0 for k in lg}, flash_attention=2 * depth,
+                      flash_attention_prefix=2 * model.decoder_depth,
+                      window_lookup=2 * 2), lg

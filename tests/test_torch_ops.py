@@ -167,3 +167,38 @@ def test_to_numpy_image_matches_jax():
         x = rng.rand(*shape).astype(np.float32)
         np.testing.assert_array_equal(tvis.to_numpy_image(t(x)),
                                       jvis.to_numpy_image(x))
+
+
+@pytest.mark.parametrize('to_image,to_grid', [(True, False), (False, False),
+                                              (False, True)])
+def test_rgb_flow_inversion_matches_jax(to_image, to_grid):
+    """data/utils: rgb_to_hsv and the HSV flow wheel's inverse (grey and
+    saturated pixels, each hue sector), with the flow_to_rgb re-exports."""
+    from counterfactualworldmodels_tpu.data import utils as jdu
+    from counterfactualworldmodels_tpu_torch.data import utils as tdu
+    from counterfactualworldmodels_tpu_torch.ops import flow_viz
+    rng = np.random.RandomState(5)
+    rgb = rng.rand(2, 3, 6, 7).astype(np.float32)
+    rgb[0, :, 0, 0] = 0.4                          # grey: no hue
+    rgb[0, :, 0, 1] = 0.0                          # black
+    rgb[1, :, 0, :3] = [[1, 0, 0], [0, 1, 0], [0, 0, 1]]   # max per channel
+    np.testing.assert_allclose(tdu.rgb_to_hsv(t(rgb)).numpy(),
+                               np.asarray(jdu.rgb_to_hsv(jnp.asarray(rgb))),
+                               atol=1e-5)
+    kw = dict(to_image_coordinates=to_image, to_sampling_grid=to_grid,
+              max_speed=3.0)
+    np.testing.assert_allclose(
+        tdu.rgb_to_xy_flows(t(rgb), **kw).numpy(),
+        np.asarray(jdu.rgb_to_xy_flows(jnp.asarray(rgb), **kw)), atol=1e-5)
+    np.testing.assert_allclose(
+        tdu.RgbFlowToXY(**kw)(t(rgb)).numpy(),
+        np.asarray(jdu.RgbFlowToXY(**kw)(jnp.asarray(rgb))), atol=1e-5)
+    assert tdu.FlowToRgb is flow_viz.FlowToRgb
+    assert tdu.flow_to_rgb is flow_viz.flow_to_rgb
+    assert tdu.hsv_to_rgb is flow_viz.hsv_to_rgb
+    # the round trip on the sampling grid: flow -> rgb -> flow
+    flow = rng.uniform(-1, 1, (2, 2, 5, 5)).astype(np.float32) * 0.7
+    back = tdu.rgb_to_xy_flows(tdu.flow_to_rgb(t(flow), max_speed=1.0),
+                               to_image_coordinates=False,
+                               to_sampling_grid=True)
+    np.testing.assert_allclose(back.numpy(), flow, atol=1e-4)

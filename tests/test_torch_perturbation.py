@@ -149,3 +149,88 @@ def test_random_shift_rules_match_jax(fractional):
                              generator=torch.Generator().manual_seed(0))
     assert got.shape == (50, 2) and not (got == 0).all(-1).any()
     assert int(got[:, 0].abs().max()) <= int(frac * size[0]) // 4 + 1
+
+
+def _video_and_mask(seed, b=2, t_=2, hw=16, patch=4, n_vis=5):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(b, t_, 3, hw, hw).astype(np.float32)
+    n = (hw // patch) ** 2
+    mask = np.ones((b, t_ * n), dtype=bool)
+    for i in range(b):
+        mask[i, :n] = False
+        mask[i, n + rng.choice(n, n_vis, replace=False)] = False
+    return x, mask, n
+
+
+@pytest.mark.parametrize('shift,frame', [((1, -2), 1), ((0, 3), 0),
+                                         ((-5, 0), -1)])
+def test_shift_patches_matches_jax(shift, frame):
+    x, mask, _ = _video_and_mask(1)
+    jx, jm = jpert.shift_patches(jnp.asarray(x), jnp.asarray(mask), shift,
+                                 (1, 4, 4), frame=frame)
+    tx, tm = tpert.shift_patches(t(x), t(mask), shift, (1, 4, 4),
+                                 frame=frame)
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+
+
+@pytest.mark.parametrize('n_vis', [5, 0, 16], ids=['some', 'none', 'all'])
+@pytest.mark.parametrize('name', ['shuffle_visible', 'shuffle_invisible'])
+def test_shuffles_from_noise_match_jax(name, n_vis):
+    """The JAX per-row uniform draws injected as ``noise``: the shuffled
+    videos bitwise (the edits are selections)."""
+    x, mask, n = _video_and_mask(2, n_vis=n_vis)
+    key = jax.random.PRNGKey(7)
+    jx, jm = getattr(jpert, name)(key, jnp.asarray(x), jnp.asarray(mask),
+                                  (1, 4, 4), frame=-1)
+    noise = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (n,)))(
+        jax.random.split(key, 2)))
+    tx, tm = getattr(tpert, name)(t(x), t(mask), (1, 4, 4), frame=-1,
+                                  noise=t(noise))
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    if 0 < n_vis < n:
+        assert not np.array_equal(tx.numpy(), x)
+    # from a Generator: the masked (resp. visible) patches stay in place
+    gx, _ = getattr(tpert, name)(t(x), t(mask), (1, 4, 4),
+                                 generator=torch.Generator().manual_seed(0))
+    keep = mask[:, n:]
+    if name == 'shuffle_invisible':       # no invisible patch: no swap
+        keep = keep | (keep.sum(1, keepdims=True) == 0)
+    from counterfactualworldmodels_tpu_torch.ops.patches import patchify
+    gp = patchify(gx, (1, 4, 4))[:, n:].numpy()
+    xp = patchify(t(x), (1, 4, 4))[:, n:].numpy()
+    np.testing.assert_array_equal(gp[keep], xp[keep])
+
+
+def test_shuffle_all_from_permutations_matches_jax():
+    x, mask, n = _video_and_mask(3)
+    key = jax.random.PRNGKey(9)
+    jx, jm = jpert.shuffle_all(key, jnp.asarray(x), jnp.asarray(mask),
+                               (1, 4, 4), frame=1)
+    perm = np.asarray(jax.vmap(lambda k: jax.random.permutation(k, n))(
+        jax.random.split(key, 2)))
+    tx, tm = tpert.shuffle_all(t(x), t(mask), (1, 4, 4), frame=1,
+                               perm=t(perm))
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    gx, _ = tpert.shuffle_all(t(x), t(mask), (1, 4, 4),
+                              generator=torch.Generator().manual_seed(1))
+    assert tuple(gx.shape) == x.shape
+    np.testing.assert_array_equal(gx[:, 0].numpy(), x[:, 0])
+
+
+@pytest.mark.parametrize('shape', ['full', 'cross'])
+def test_add_markers_matches_jax(shape):
+    x, _, _ = _video_and_mask(4, hw=20, patch=5)
+    idx = [(0, 1, 2, 3), (1, 0, 0, 0), (3, 1)]
+    jx, jm = jpert.add_markers(jnp.asarray(x), idx, (5, 5),
+                               marker_color=(0.0, 1.0, 0.5), shape=shape,
+                               frame=1)
+    tx, tm = tpert.add_markers(t(x), idx, (5, 5),
+                               marker_color=(0.0, 1.0, 0.5), shape=shape,
+                               frame=1)
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    with pytest.raises(ValueError):
+        tpert.add_markers(t(x), idx, (5, 5), shape='ring')

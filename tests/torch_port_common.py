@@ -13,10 +13,12 @@ import torch
 
 from counterfactualworldmodels_tpu.models import conjoined as jconj
 from counterfactualworldmodels_tpu.models import vmae as jvmae
+from counterfactualworldmodels_tpu.models.raft import raft as jraft
 from counterfactualworldmodels_tpu.pipelines import perturbation as jperturb
 from counterfactualworldmodels_tpu_torch.models import conjoined as tconj
 from counterfactualworldmodels_tpu_torch.models import fast_vmae as tfv
 from counterfactualworldmodels_tpu_torch.models import vmae as tvmae
+from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
 from counterfactualworldmodels_tpu_torch.utils import weights
 
 # the tiny configuration of tests/test_fast_vmae.py:_model
@@ -163,3 +165,53 @@ def conj_pair(flavour, seed=0, **kw):
         tm, jax.tree_util.tree_map(np.asarray, params))
     tm.load_state_dict(sd, strict=True)
     return jm, params, tm, sd
+
+
+def flow2imu_model(mod):
+    """The tiny flow2imu of module ``mod`` (the JAX or the port's conjoined
+    module): a 7-channel one-frame main stream (forward + backward flow and
+    RGB) and the non-padded IMU context with a dummy token."""
+    main = mod.StreamSpec(img_size=(IMG, IMG), patch_size=(8, 8), in_chans=7,
+                          num_frames=1, encoder_embed_dim=48, encoder_depth=2,
+                          encoder_num_heads=4, decoder_embed_dim=32,
+                          decoder_depth=2, decoder_num_heads=4, mlp_ratio=2.0,
+                          decoder_num_classes=448)
+    _, ctx, pairs = conj_specs(mod, 'dummy')
+    kw = {} if mod is jconj else {'device': 'cpu'}
+    return mod.ConjoinedVMAE(main=main, context=ctx, **pairs, **kw)
+
+
+_init_raft = jax.jit(jraft.init_raft_params, static_argnums=(0, 2))
+
+
+@functools.lru_cache(maxsize=None)
+def imu_wrappers(raft_iters):
+    """The IMU-conditioned predictor and flow2imu wrappers with their RAFT,
+    JAX-initialised and bridged: ((JAX wrapper, JAX flow2imu wrapper, JAX
+    RAFT, its params), (the port's three, on the CPU)). Cached."""
+    jm, params, tm, sd = conj_pair('padded')
+    jf = flow2imu_model(jconj)
+    fparams = _init_conj(jf, jax.random.PRNGKey(2))
+    tf = flow2imu_model(tconj)
+    fsd = weights.conjoined_state_dict_from_jax(
+        tf, jax.tree_util.tree_map(np.asarray, fparams))
+    jr = jraft.RAFT(iters=raft_iters)
+    rp = _init_raft(jr, jax.random.PRNGKey(1), IMG)
+    tr = traft.RAFT(iters=raft_iters, device='cpu')
+    tr.load_state_dict(weights.raft_state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, rp)), strict=True)
+    f2i = dict(main_input='flowback_rgb01', context_input='imu')
+    jw = jconj.ConjoinedPredictorWrapper(jm, params=params,
+                                         main_input='rgb01',
+                                         context_input='imu')
+    jfw = jconj.ConjoinedPredictorWrapper(
+        jf, params=fparams, main_input_kwargs={
+            'unnormalize': True, 'iters': raft_iters, 'flow_model': jr,
+            'flow_params': rp}, **f2i)
+    tw = tconj.ConjoinedPredictorWrapper(tm, params=sd, main_input='rgb01',
+                                         context_input='imu')
+    tfw = tconj.ConjoinedPredictorWrapper(
+        tf, params=fsd, main_input_kwargs={
+            'unnormalize': True, 'iters': raft_iters, 'flow_model': tr},
+        **f2i)
+    return (jw, jfw, jr, rp), (tw, tfw, tr)
