@@ -33,7 +33,10 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    training pair (K5 forward with logsumexp, K6 backward) at the encoder
    and decoder training shapes, with K6's determinism check; the IMU
    path's shapes: K1 at the ViT-B 4x4 prefix and at the IMU stream's head
-   dim 32, K2 at the conjoined decoder suffix;
+   dim 32, K2 at the conjoined decoder suffix; K1, K5 and K6 at head dims
+   8, 24 and 48 (run padded to 16, 32 and 64) in f32 and bf16; K5 and K6
+   at the ChannelMAE trainer's shapes (with and without the flow group)
+   and at the imu400 main stream's;
 4. both paths at the tests' small configurations on the card and on the
    CPU (f32, TF32 off): masks equal, videos and flows within tolerance;
    three train steps with equal losses and gradient norms; FlowGenerator
@@ -44,7 +47,11 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    same draws (maps within 1e-3, every iteration's patches equal); the
    small IMU-conditioned pipeline (both engines, with the static-scene
    IMU from flow2imu) and a small IMU movability predictor, card against
-   CPU within 1e-3, with their launch counts;
+   CPU within 1e-3, with their launch counts; three steps of
+   ``make_cmae_train_step`` (a tiny ChannelMAE, encoder head dim 48) and
+   of ``make_conjoined_train_step`` (train_conjoined's ``small`` model,
+   head dims 24, 16 and 8), losses and gradient norms within 1e-4, and the
+   tiny ChannelMAE's ``channel_mae_predict_image`` within 1e-4 (K1);
 5. the full-width dispatch at the library-default rung and the exact rung:
    shapes, finite flows, visible frame-1 pixels pasted unchanged, and the
    launch counts that show every kernel of the path ran; then (5b)
@@ -94,7 +101,21 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    losses, sec/step, clips/s, MFU and peak memory, and the launch counts
    of every step (K5 72, K6 36, K1 0); then the exact forward
    ``models.vmae.apply_vmae`` (K1 36) against the plain dense path,
-   checked in f32 and reported in bf16;
+   checked in f32 and reported in bf16; (6b) the ChannelMAE and conjoined
+   trainers through their entry points' ``main(argv)``: ``train_cmae`` at
+   the script's defaults (ViT-B, 224 px, 32 px patches, batch 32), the
+   same with ``--with-flow`` (RAFT-12 on every batch), and
+   ``train_conjoined --model imu400`` (batch 8), each one warm-up, three
+   timed steps and one profiled step (device busy time, idle share, time
+   by kernel class), with every step's launches asserted (K5 32 / K6 16,
+   plus lookup 12 with the flow; imu400 K5 64 / K6 32), sec/step,
+   samples/s and peak memory; (6c) a seeded shard of 64 clips of
+   2x224x224x3 uint8 with an IMU sidecar, the native loader built afresh
+   from the port's ``data/native/clip_loader.cpp``, ``train_vmae --shard
+   --input-mode u8`` at its defaults for 4 steps with a checkpoint every
+   2, resumed from step 2 in a new state (steps 3-4 bitwise the
+   uninterrupted run's losses), and ``train_conjoined --shard`` on the sidecar for
+   2 steps, resumed from step 1;
 7. the kernels RAFT's ``convc1`` launches on the lookup's bf16 output
    (torch.profiler, last: it makes every later launch cost more).
 
@@ -200,10 +221,13 @@ def time_ms(torch, fn, target_ms=150.0):
 
 
 def _device_us(prof):
-    """{kernel name: device microseconds} of a torch.profiler run."""
+    """{kernel name: device microseconds} of a torch.profiler run. User
+    annotations (the optimizer's ``Optimizer.step#...`` range) are spans
+    over kernels already counted, not kernels, and are left out."""
     out = {}
     for e in prof.key_averages():
-        if not str(e.device_type).endswith('CUDA'):
+        if (not str(e.device_type).endswith('CUDA')
+                or getattr(e, 'is_user_annotation', False)):
             continue
         us = getattr(e, 'self_device_time_total', None)
         if us is None:
@@ -309,6 +333,12 @@ def attention_cases(torch, F, fa, rec):
         # the IMU context decoder of the exact engine (head dim 32)
         ('ViT-B 4x4 prefix', 1, 12, 3136, 3136, 64),
         ('IMU context decoder, D 32', 4, 6, 50, 50, 32),
+        # head dims the kernels run padded (to 16, 32, 64): the small
+        # conjoined model's IMU decoder (D 8) and main encoder (D 24), the
+        # tiny ChannelMAE's encoder (D 48) at the trainers' batches
+        ('padded D 8', 8, 4, 50, 50, 8),
+        ('padded D 24', 8, 4, 39, 39, 24),
+        ('padded D 48', 32, 2, 13, 13, 48),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split('.')[1]
@@ -578,29 +608,46 @@ def _close(torch, a, ref):
 
 def training_kernel_cases(torch, F, fa, rec):
     """K5 (forward with logsumexp) and K6 (fused backward) at the training
-    shapes: compared with their plain versions at batch 1 (the f32 case at
-    its own size), timed at the training batch."""
+    shapes: compared with their plain versions at batch 1 for the ViT-L
+    VMAE rows, at the training batch for the others, and timed at the
+    training batch."""
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(4)
-    d = 64
 
-    def inputs(b, h, nq, nk, dtype):
+    def inputs(b, h, nq, nk, d, dtype):
         def rnd(*shape, scale=1.0):
             return (torch.randn(*shape, generator=g, device=dev)
                     * scale).to(dtype)
         return (rnd(b, h, nq, d, scale=d ** -0.5), rnd(b, h, nk, d),
                 rnd(b, h, nk, d), rnd(b, h, nq, d))
 
-    cases = [  # (label, dtype, batch compared, batch timed, H, Nq, Nk,
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # (label, dtype, batch compared, batch timed, H, Nq, Nk, D,
                #  launches of (K5, K6) per remat train step)
-        ('encoder', torch.bfloat16, 1, B_TRAIN, 16, 3450, 3450, (48, 24)),
-        ('decoder', torch.bfloat16, 1, B_TRAIN, 8, 6272, 6272, (24, 12)),
-        ('ragged', torch.float32, 2, 2, 3, 1000, 777, (0, 0)),
+        ('encoder', bf, 1, B_TRAIN, 16, 3450, 3450, 64, (48, 24)),
+        ('decoder', bf, 1, B_TRAIN, 8, 6272, 6272, 64, (24, 12)),
+        ('ragged', f32, 2, 2, 3, 1000, 777, 64, (0, 0)),
+        # train_cmae's defaults (ViT-B, 224 px, 32 px patches, batch 32,
+        # ratio 0.75): 13 visible tokens, 49 in the decoder; with the flow
+        # group 26 and 98
+        ('ChannelMAE encoder', bf, 32, 32, 12, 13, 13, 64, (24, 12)),
+        ('ChannelMAE decoder', bf, 32, 32, 6, 49, 49, 64, (8, 4)),
+        ('ChannelMAE+flow encoder', bf, 32, 32, 12, 26, 26, 64, (24, 12)),
+        ('ChannelMAE+flow decoder', bf, 32, 32, 6, 98, 98, 64, (8, 4)),
+        # train_conjoined --model imu400, batch 8, ratio 0.9: the main
+        # stream's 627 visible tokens and its decoder over 6272 + 64 nulls
+        ('imu400 main encoder', bf, 8, 8, 12, 627, 627, 64, (24, 12)),
+        ('imu400 main decoder', bf, 8, 8, 6, 6336, 6336, 64, (8, 4)),
     ]
-    for label, dtype, bc, bt, h, nq, nk, per_step in cases:
+    for dt in (f32, bf):
+        cases += [  # padded head dims at the small trainers' shapes
+            ('padded D 8', dt, 8, 8, 4, 50, 50, 8, (4, 2)),
+            ('padded D 24', dt, 8, 8, 4, 39, 39, 24, (8, 4)),
+            ('padded D 48', dt, 32, 32, 2, 13, 13, 48, (4, 2))]
+    for label, dtype, bc, bt, h, nq, nk, d, per_step in cases:
         dn = str(dtype).split('.')[1]
-        q, k, v, do = inputs(bc, h, nq, nk, dtype)
+        q, k, v, do = inputs(bc, h, nq, nk, d, dtype)
         out, lse = fa._flash_forward_lse(q, k, v)
         ref, ref_lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
         delta = (do.float() * out.float()).sum(-1)
@@ -620,7 +667,7 @@ def training_kernel_cases(torch, F, fa, rec):
                                     for r in ref_grads)
         del q, k, v, do, out, lse, ref, ref_lse, grads, again, ref_grads
 
-        q, k, v, do = inputs(bt, h, nq, nk, dtype)
+        q, k, v, do = inputs(bt, h, nq, nk, d, dtype)
         out, lse = fa._flash_forward_lse(q, k, v)
         delta = (do.float() * out.float()).sum(-1)
         ms5 = time_ms(torch, lambda: fa._flash_forward_lse(q, k, v))
@@ -2527,6 +2574,359 @@ def full_train(torch, port, rec, smi):
     return r
 
 
+# ---------------------------------------------------------------------------
+# the ChannelMAE and conjoined trainers (phases 4, 6b and 6c)
+# ---------------------------------------------------------------------------
+
+def _card_vs_cpu_steps(torch, port, make, batches, step_of):
+    """Three train steps of the model ``make(dev)`` builds (f32, flash
+    attention) from the same weights on the CPU and the card: per device
+    the [loss, grad norm] of each step and the launches of the run."""
+    init = make('cpu').state_dict()
+    runs = {}
+    for dev in ('cpu', 'cuda'):
+        model = make(dev)
+        model.load_state_dict(init, strict=True)
+        state, step = step_of(model)
+        port.kernels.reset_launches()
+        metrics = []
+        for batch in batches:
+            state, m = step(state, *batch)
+            metrics.append([float(m['loss']), float(m['grad_norm'])])
+        runs[dev] = (metrics, dict(port.kernels.LAUNCHES), model)
+    return runs
+
+
+def _rel(mc, mg):
+    return max(abs(g / c - 1) for rc, rg in zip(mc, mg)
+               for c, g in zip(rc, rg))
+
+
+def small_cmae_train(torch, port, rec):
+    """Three remat train steps of train_cmae's tiny ChannelMAE (64 px,
+    16 px patches, partition (1, 2), encoder head dim 48: the padded
+    route), card against CPU from the same weights and masks; then
+    channel_mae_predict_image (K1) on both."""
+    from counterfactualworldmodels_tpu_torch.models import cmae
+    from counterfactualworldmodels_tpu_torch.training import train as T
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(image_size=(64, 64), patch_size=(16, 16), in_channels=3,
+              channel_partition=(1, 2), encoder_embed_dim=96,
+              encoder_depth=2, encoder_num_heads=2, decoder_embed_dim=64,
+              decoder_depth=1, decoder_num_heads=2, mlp_ratio=2.0,
+              attn_impl='flash')
+
+    def make(dev):
+        return cmae.ChannelMae(device=dev, **kw)
+
+    ref = make('cpu')
+    T.init_cmae_train_state(ref, T.make_optimizer(), seed=3)
+    gen = torch.Generator().manual_seed(6)
+    rng = np.random.RandomState(6)
+    batches = []
+    for _ in range(3):
+        mask, counts = cmae.group_uniform_mask(gen, ref.mask_size, 0.75, 4)
+        x = torch.from_numpy(rng.rand(4, 3, 64, 64).astype(np.float32))
+        batches.append((x, mask))
+    n_vis = ref.num_patches - sum(counts)
+    opt = T.make_optimizer(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    init = ref.state_dict()
+
+    def make_loaded(dev):
+        m = make(dev)
+        m.load_state_dict(init, strict=True)
+        return m
+
+    def step_of(model):
+        state = T.TrainState(0, model, opt.init(model.parameters()))
+        return state, T.make_cmae_train_step(model, opt, n_vis, counts,
+                                             remat=True)
+
+    runs = _card_vs_cpu_steps(torch, port, make_loaded, batches, step_of)
+    (mc, lc, cpu), (mg, lg, gpu) = runs['cpu'], runs['cuda']
+    blocks = 3
+    expect = dict(lc, flash_attention_lse=3 * 2 * blocks,
+                  flash_attention_bwd=3 * blocks)
+    x, mask = batches[0]
+    with torch.no_grad():
+        img_c = cmae.channel_mae_predict_image(cpu, x, mask, n_vis, counts)
+        port.kernels.reset_launches()
+        img_g = cmae.channel_mae_predict_image(gpu, x.cuda(), mask.cuda(),
+                                               n_vis, counts)
+        lp = dict(port.kernels.LAUNCHES)
+    r = dict(config='tiny ChannelMAE, 64 px, encoder D 48 (padded), f32, '
+             'remat', steps=3, cpu=mc, cuda=mg, max_rel_diff=_rel(mc, mg),
+             tol_rel=1e-4, launches_cpu=lc, launches_gpu=lg,
+             predict_image_err=max_err(img_c, img_g.cpu()),
+             predict_image_launches=lp, tol_image=1e-4)
+    rec['phase4'].append(r)
+    log('4 small cmae train', json.dumps(r))
+    if not (r['max_rel_diff'] <= 1e-4 and not any(lc.values())
+            and lg == expect and r['predict_image_err'] <= 1e-4
+            and lp == dict(lc, flash_attention=blocks)):
+        raise AssertionError(f'small ChannelMAE card vs CPU: {r}')
+    return lp
+
+
+def small_conjoined_train(torch, port, rec):
+    """Three remat train steps of train_conjoined's default 'small' model
+    (112 px; head dims 24, 16, 16 and 8: the main encoder and the IMU
+    decoder run padded), card against CPU from the same weights, masks and
+    IMU."""
+    import argparse
+    from counterfactualworldmodels_tpu_torch.models import conjoined as C
+    from counterfactualworldmodels_tpu_torch.training import train as T
+    from counterfactualworldmodels_tpu_torch.training import train_conjoined
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = train_conjoined.build_model(
+        argparse.Namespace(model='small', img_size=112), torch.device('cpu'))
+
+    def make(dev):                   # f32 flash attention on both
+        return C.ConjoinedVMAE(
+            main=spec.main, context=spec.context,
+            conjoin_encoder_layers=spec.conjoin_encoder_layers,
+            conjoin_decoder_layers=spec.conjoin_decoder_layers,
+            attn_impl='flash', device=dev)
+
+    ref = make('cpu')
+    ref.load_state_dict(weights.init_conjoined_state_dict(
+        ref, torch.Generator().manual_seed(4)), strict=True)
+    init = ref.state_dict()
+    n = ref.main.num_patches
+    n_vis = max(1, int(round(n * 0.1)))
+    n_vis_c = ref.context.num_patches
+    masks = train_conjoined.mask_sampler(ref, n_vis)
+    gen = torch.Generator().manual_seed(8)
+    rng = np.random.RandomState(8)
+    batches = []
+    for _ in range(3):
+        mask, mc = masks(gen, 2)
+        x = torch.from_numpy(rng.rand(2, 3, 2, 112, 112).astype(np.float32))
+        imu = torch.from_numpy((rng.randn(2, 6, 400, 1, 1) * 0.1)
+                               .astype(np.float32))
+        batches.append((x, mask, imu, mc))
+    opt = T.make_optimizer(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+
+    def make_loaded(dev):
+        m = make(dev)
+        m.load_state_dict(init, strict=True)
+        return m
+
+    def step_of(model):
+        state = T.TrainState(0, model, opt.init(model.parameters()))
+        return state, T.make_conjoined_train_step(model, opt, n_vis,
+                                                  n_vis_c, remat=True)
+
+    runs = _card_vs_cpu_steps(torch, port, make_loaded, batches, step_of)
+    (mc_, lc, _), (mg, lg, _) = runs['cpu'], runs['cuda']
+    blocks = (ref.main.encoder_depth + ref.main.decoder_depth
+              + ref.context.encoder_depth + ref.context.decoder_depth)
+    expect = dict(lc, flash_attention_lse=3 * 2 * blocks,
+                  flash_attention_bwd=3 * blocks)
+    heads = sorted({m.head_dim for m in ref.modules()
+                    if hasattr(m, 'head_dim') and hasattr(m, 'qkv')})
+    r = dict(config='train_conjoined small, 112 px, f32, remat',
+             head_dims=heads, steps=3, cpu=mc_, cuda=mg,
+             max_rel_diff=_rel(mc_, mg), tol_rel=1e-4, launches_cpu=lc,
+             launches_gpu=lg)
+    rec['phase4'].append(r)
+    log('4 small conjoined train', json.dumps(r))
+    if not (r['max_rel_diff'] <= 1e-4 and not any(lc.values())
+            and lg == expect):
+        raise AssertionError(f'small conjoined card vs CPU: {r}')
+    return lg
+
+
+class _LoopSpy:
+    """Wraps training.loop.run while a trainer's main runs: each step's
+    launches (counts set to 0 just before the step, read just after), its
+    seconds, the peak memory after the warm-up step, the loader the run
+    opened and, with ``profile_last``, the last step's device profile."""
+
+    def __init__(self, torch, port, profile_last=False):
+        from counterfactualworldmodels_tpu_torch.training import loop
+        self.torch, self.port, self.loop = torch, port, loop
+        self.profile_last = profile_last
+        self.steps, self.loaders, self.profile = [], [], None
+
+    def __enter__(self):
+        loop, torch, port = self.loop, self.torch, self.port
+        self._run, self._shard_loader = loop.run, loop.shard_loader
+
+        def run(args, state, ckpt, start, step_fn, rate_key):
+            def counted(state, step):
+                if step == start + 1:
+                    torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                port.kernels.reset_launches()
+                t0 = time.perf_counter()
+                if self.profile_last and step == args.steps - 1:
+                    box = []
+                    self.profile = profile_dispatch(
+                        torch, lambda: box.append(step_fn(state, step)))
+                    out = box[0]
+                else:
+                    out = step_fn(state, step)
+                torch.cuda.synchronize()
+                self.steps.append(dict(
+                    step=step + 1, seconds=time.perf_counter() - t0,
+                    launches=dict(port.kernels.LAUNCHES)))
+                return out
+            return self._run(args, state, ckpt, start, counted, rate_key)
+
+        def shard_loader(*a, **k):
+            ld = self._shard_loader(*a, **k)
+            self.loaders.append(ld)
+            return ld
+
+        loop.run, loop.shard_loader = run, shard_loader
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.run, self.loop.shard_loader = self._run, self._shard_loader
+
+
+def _train_main(torch, port, main, argv, profile_last=False):
+    """(records, spy) of one trainer's main(argv) on the card."""
+    with _LoopSpy(torch, port, profile_last) as spy:
+        records = main(argv)
+    return records, spy
+
+
+def full_trainers(torch, port, rec, smi):
+    """The ChannelMAE and conjoined trainers at full width through their
+    entry points: train_cmae at the script's defaults (ViT-B, 224 px, 32 px
+    patches, batch 32), the same with --with-flow (RAFT-12 on every batch),
+    and train_conjoined --model imu400 (batch 8); one warm-up, three
+    timed steps and one profiled step each (the device's busy time and
+    idle share), with every step's launches asserted."""
+    from counterfactualworldmodels_tpu_torch.training import (
+        train_cmae, train_conjoined)
+    zeros = {name: 0 for name in port.kernels.LAUNCHES}
+    runs = (
+        ('train_cmae', train_cmae.main, ['--synthetic', '--steps', '5'],
+         dict(zeros, flash_attention_lse=2 * 16, flash_attention_bwd=16), 32),
+        ('train_cmae --with-flow', train_cmae.main,
+         ['--synthetic', '--steps', '5', '--with-flow'],
+         dict(zeros, flash_attention_lse=2 * 16, flash_attention_bwd=16,
+              window_lookup=12), 32),
+        ('train_conjoined imu400', train_conjoined.main,
+         ['--synthetic', '--steps', '5', '--model', 'imu400',
+          '--img-size', '224', '--batch-size', '8'],
+         dict(zeros, flash_attention_lse=2 * 32, flash_attention_bwd=32), 8))
+    out, bad = {}, []
+    for name, main, argv, expect, batch in runs:
+        t0 = time.perf_counter()
+        records, spy = _train_main(torch, port, main, argv,
+                                   profile_last=True)
+        times = [s['seconds'] for s in spy.steps[1:4]]
+        sec = float(np.median(times))
+        r = dict(argv=argv, batch=batch,
+                 losses=[x['loss'] for x in records],
+                 grad_norms=[x['grad_norm'] for x in records],
+                 sec_per_step_runs=times, sec_per_step=sec,
+                 samples_per_s=batch / sec,
+                 logged_sec_per_step=[x['sec_per_step'] for x in records],
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches_per_step=[s['launches'] for s in spy.steps],
+                 expected_launches=expect, profile=spy.profile,
+                 wall_s=time.perf_counter() - t0, card=smi)
+        finite = all(math.isfinite(v) for v in r['losses'] + r['grad_norms'])
+        r['ok'] = (finite and len(records) == 5
+                   and all(s['launches'] == expect for s in spy.steps))
+        out[name] = r
+        log('6b trainers', f'{name}: ' + json.dumps(r))
+        if not r['ok']:
+            bad.append(name)
+        del spy
+        torch.cuda.empty_cache()
+    rec['phase6b'] = out
+    if bad:
+        raise AssertionError(f'full-width trainers failed: {bad}')
+    return out
+
+
+def shard_resume(torch, port, rec, smi):
+    """A seeded shard (64 clips of 2x224x224x3 uint8) with an IMU sidecar;
+    the native loader built from the port's copy of clip_loader.cpp;
+    train_vmae --shard --input-mode u8 at its defaults for 4 steps with a
+    checkpoint every 2, then resumed from step 2 in a new state: steps 3-4
+    bitwise the uninterrupted run's losses; the same for train_conjoined
+    --shard on the sidecar (2 steps, resumed from step 1)."""
+    import shutil as sh
+    import tempfile
+    from counterfactualworldmodels_tpu_torch.data import shards
+    from counterfactualworldmodels_tpu_torch.training import (
+        train_conjoined, train_vmae)
+    tmp = tempfile.mkdtemp(prefix='cwm_shard_')
+    build_dir = shards.BUILD_DIR
+    # build the loader afresh in this run, from the port's source
+    shards.BUILD_DIR = os.path.join(tmp, 'build')
+    try:
+        rng = np.random.RandomState(11)
+        path = os.path.join(tmp, 'clips.shard')
+        shards.write_shard(path, rng.randint(0, 256, (64, 2, 224, 224, 3),
+                                             dtype=np.uint8))
+        shards.write_imu_sidecar(path, (rng.randn(64, 6, 400) * 0.1)
+                                 .astype(np.float32))
+        t0 = time.perf_counter()
+        lib = shards.build_native()
+        build_s = time.perf_counter() - t0
+        src_ok = (os.path.dirname(shards.SRC) == os.path.join(
+            HERE, 'counterfactualworldmodels_tpu_torch', 'data', 'native')
+            and lib == shards.native_library_path())
+        out = dict(shard_mb=os.path.getsize(path) / 2 ** 20, library=lib,
+                   built_from=shards.SRC, build_s=build_s, card=smi)
+        log('6c shards', f'native loader built in {build_s:.1f}s: {lib}')
+
+        def run(main, argv, ckpt_dir, steps):
+            records, spy = _train_main(
+                torch, port, main, ['--shard', path, '--steps', str(steps),
+                                    '--checkpoint-dir', ckpt_dir] + argv)
+            loaders = [type(ld).__name__ + ':' + getattr(ld, 'library', '')
+                       for ld in spy.loaders]
+            return {x['step']: x['loss'] for x in records}, loaders
+
+        bad = []
+        for name, main, argv, steps, at in (
+                ('train_vmae', train_vmae.main,
+                 ['--input-mode', 'u8', '--checkpoint-every', '2'], 4, 2),
+                ('train_conjoined', train_conjoined.main,
+                 ['--checkpoint-every', '1'], 2, 1)):
+            full_dir = os.path.join(tmp, name + '_full')
+            full, loaders = run(main, argv, full_dir, steps)
+            resumed_dir = os.path.join(tmp, name + '_resumed')
+            os.makedirs(resumed_dir)
+            sh.copytree(os.path.join(full_dir, f'step_{at:09d}'),
+                        os.path.join(resumed_dir, f'step_{at:09d}'))
+            resumed, loaders2 = run(main, argv, resumed_dir, steps)
+            later = range(at + 1, steps + 1)
+            diff = max(abs(resumed[s] / full[s] - 1) for s in later)
+            r = dict(full=full, resumed=resumed, resumed_from=at,
+                     bitwise=all(resumed[s] == full[s] for s in later),
+                     max_rel_diff=diff, loaders=loaders + loaders2)
+            r['ok'] = (sorted(resumed) == list(later) and r['bitwise']
+                       and all(math.isfinite(v) for v in full.values())
+                       and all(ld == f'NativeClipLoader:{lib}'
+                               for ld in r['loaders']))
+            out[name] = r
+            log('6c shards', f'{name}: ' + json.dumps(r))
+            if not r['ok']:
+                bad.append(name)
+        out['native_from_the_port'] = src_ok
+        rec['phase6c'] = out
+        if bad or not src_ok:
+            raise AssertionError(f'shard and resume: {bad}, port loader '
+                                 f'{src_ok}')
+        return out
+    finally:
+        shards.BUILD_DIR = build_dir
+        sh.rmtree(tmp, ignore_errors=True)
+
+
 def _category(kernel_name):
     k = kernel_name.lower()
     for cat, keys in (('attention kernel (K1/K2/K5)', ('attention_kernel',
@@ -2703,6 +3103,10 @@ def main():
         small_launches = phase('4 small raft', small_raft, torch, port, rec)
         phase('4 small movability', small_movability, torch, port, rec)
         phase('4 small imu', small_imu, torch, port, rec)
+        cmae_predict = phase('4 small cmae train', small_cmae_train, torch,
+                             port, rec)
+        small_conj = phase('4 small conjoined train', small_conjoined_train,
+                           torch, port, rec)
         torch.backends.cudnn.allow_tf32 = True
         full = phase('5 full width', full_width, torch, port, rec, smi)
         movability = imu = serving = None
@@ -2719,6 +3123,9 @@ def main():
             full = full[0]
             torch.cuda.empty_cache()
         train = phase('6 train', full_train, torch, port, rec, smi)
+        torch.cuda.empty_cache()
+        trainers = phase('6b trainers', full_trainers, torch, port, rec, smi)
+        phase('6c shards', shard_resume, torch, port, rec, smi)
         phase('7 convc1', convc1_kernels, torch, rec)
     rec['failed'] = failed
     if args.record:
@@ -2739,8 +3146,11 @@ def main():
     # small-RAFT call (the lookup at r = 3), one cold IMU-conditioned
     # motion map (phase 5d (a): K1 at the ViT-B and IMU shapes, K2 at the
     # conjoined suffix), the server's mixed-scene batch of 4 requests
-    # (phase 5e: K2 with s0 = 4); beside them, the kernel's launches on
-    # every path
+    # (phase 5e: K2 with s0 = 4), one step of each full-width trainer of
+    # phase 6b (K5, K6 at the ChannelMAE and imu400 shapes), phase 4's
+    # three steps of the small conjoined trainer and the tiny ChannelMAE's
+    # predict_image (the padded head dims); beside them, the kernel's
+    # launches on every path
     paths = dict(dispatch=full[0]['launches'],
                  movability_call=movability['launches_per_call'],
                  imu_motion_map=imu['a']['launches'],
@@ -2751,7 +3161,15 @@ def main():
                      'counterfactual_cold'],
                  serve_mixed_scene_batch=serving['launches'][
                      'mixed_scene_batch'],
-                 serve_imu_movability=serving['launches']['imu_movability'])
+                 serve_imu_movability=serving['launches']['imu_movability'],
+                 cmae_train_step=trainers['train_cmae'][
+                     'launches_per_step'][-1],
+                 cmae_flow_train_step=trainers['train_cmae --with-flow'][
+                     'launches_per_step'][-1],
+                 imu400_train_step=trainers['train_conjoined imu400'][
+                     'launches_per_step'][-1],
+                 small_conjoined_3_steps=small_conj,
+                 tiny_cmae_predict_image=cmae_predict)
     table = []
     for kid, kernel, dtype, case, path, replaces in (
             ('K1', 'flash_attention', 'bfloat16', 'encoder prefix',
@@ -2779,7 +3197,40 @@ def main():
             ('K5', 'flash_attention_lse', 'bfloat16', 'encoder',
              'train_step', REPLACES['flash_attention_lse']),
             ('K6', 'flash_attention_bwd', 'bfloat16', 'encoder',
-             'train_step', REPLACES['flash_attention_bwd'])):
+             'train_step', REPLACES['flash_attention_bwd']),
+            # the ChannelMAE trainer (train_cmae's defaults, with and
+            # without the flow group) and the imu400 conjoined trainer
+            ('K5', 'flash_attention_lse', 'bfloat16', 'ChannelMAE encoder',
+             'cmae_train_step', REPLACES['flash_attention_lse']),
+            ('K5', 'flash_attention_lse', 'bfloat16', 'ChannelMAE decoder',
+             'cmae_train_step', REPLACES['flash_attention_lse']),
+            ('K5', 'flash_attention_lse', 'bfloat16',
+             'ChannelMAE+flow decoder', 'cmae_flow_train_step',
+             REPLACES['flash_attention_lse']),
+            ('K5', 'flash_attention_lse', 'bfloat16', 'imu400 main decoder',
+             'imu400_train_step', REPLACES['flash_attention_lse']),
+            ('K6', 'flash_attention_bwd', 'bfloat16', 'ChannelMAE encoder',
+             'cmae_train_step', REPLACES['flash_attention_bwd']),
+            ('K6', 'flash_attention_bwd', 'bfloat16', 'ChannelMAE decoder',
+             'cmae_train_step', REPLACES['flash_attention_bwd']),
+            ('K6', 'flash_attention_bwd', 'bfloat16',
+             'ChannelMAE+flow decoder', 'cmae_flow_train_step',
+             REPLACES['flash_attention_bwd']),
+            ('K6', 'flash_attention_bwd', 'bfloat16', 'imu400 main decoder',
+             'imu400_train_step', REPLACES['flash_attention_bwd']),
+            # head dims run padded: D 24 and 8 on the small conjoined
+            # trainer (three steps), D 48 on the tiny ChannelMAE's
+            # predict_image
+            ('K1', 'flash_attention', 'bfloat16', 'padded D 48',
+             'tiny_cmae_predict_image', REPLACES['flash_attention']),
+            ('K5', 'flash_attention_lse', 'bfloat16', 'padded D 24',
+             'small_conjoined_3_steps', REPLACES['flash_attention_lse']),
+            ('K5', 'flash_attention_lse', 'bfloat16', 'padded D 8',
+             'small_conjoined_3_steps', REPLACES['flash_attention_lse']),
+            ('K6', 'flash_attention_bwd', 'bfloat16', 'padded D 24',
+             'small_conjoined_3_steps', REPLACES['flash_attention_bwd']),
+            ('K6', 'flash_attention_bwd', 'bfloat16', 'padded D 8',
+             'small_conjoined_3_steps', REPLACES['flash_attention_bwd'])):
         r = pick(kernel, dtype, case)
         table.append(dict(name=kernel, tpu_kernel=kid, case=case,
                           route='cuda', source=SOURCES[kernel],

@@ -180,6 +180,28 @@ class PatchEmbed(nn.Module):
         return out + self.proj.bias.to(self.dtype)
 
 
+class ImagePatchEmbed(nn.Module):
+    """2-D patch embedding of images: patchify, then the ``proj`` Linear
+    [E, ph*pw*C] on (ph, pw, c)-ordered patch vectors. Input [B, C, H, W]
+    (or [B, C, 1, H, W])."""
+
+    def __init__(self, patch_size, in_chans: int, embed_dim: int,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        ph, pw = self.patch_size
+        self.proj = nn.Linear(ph * pw * in_chans, embed_dim, device=device)
+        self.dtype = dtype
+
+    def forward(self, x):
+        if x.dim() == 5:
+            if x.shape[2] != 1:
+                raise ValueError(f'expected one frame, got {tuple(x.shape)}')
+            x = x[:, :, 0]
+        return dense(patchify(x, (1,) + self.patch_size), self.proj,
+                     self.dtype)
+
+
 def interpolate_with_mask_token(x, mask, mask_token, invert: bool = True):
     """Soft lerp between tokens and a mask token."""
     b, n, c = x.shape

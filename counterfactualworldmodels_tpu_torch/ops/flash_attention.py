@@ -10,6 +10,13 @@ Inside each kernel entry the dtype picks the route: bf16 runs on the
 tensor cores (wgmma), f32 on the CUDA cores in full f32.
 Layout: q, k, v [B, H, N, D]; q pre-scaled (softmax scale 1).
 
+The kernels are built for head dims 16, 32, 64 and 128. Any other D up to
+128 runs on the next of them: the wrappers zero-pad q, k, v (and the
+cotangent) along D, launch, and slice the outputs and gradients back
+(``pad_head_dim``). That is exact: q is pre-scaled, so zero columns change
+no logit, and the padded output and gradient columns are zero. D > 128
+raises.
+
 ``flash_attention`` is differentiable: when a gradient is asked for it runs
 ``_FlashAttention`` (the JAX package's ``_flash_attention_vjp``), whose
 forward is K5 and whose backward is K6. ``flash_attention_prefix`` has no
@@ -22,6 +29,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import kernels
 
@@ -124,6 +132,25 @@ def _dense_two_source(q, k0, v0, k1, v1, w0: float, w1: float):
     return _chunked_dense_attention(q, k, v, bias)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The kernel head dim that carries head dim d: the least of
+    _HEAD_DIMS not below it."""
+    for kd in _HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f'head dim {d} exceeds {_HEAD_DIMS[-1]}')
+
+
+def pad_head_dim(*tensors):
+    """The tensors [..., D] zero-padded along D to ``kernel_head_dim(D)``
+    (each returned as it is when D is a kernel head dim)."""
+    out = []
+    for t in tensors:
+        pad = kernel_head_dim(t.shape[-1]) - t.shape[-1]
+        out.append(F.pad(t, (0, pad)) if pad else t)
+    return out
+
+
 def _check_cuda(what, q, *kv):
     """Raise on what the kernel does not take."""
     dev = q.device
@@ -141,8 +168,9 @@ def _check_cuda(what, q, *kv):
     if q.dtype not in _DTYPES:
         raise ValueError(f'{what}: dtype {q.dtype} not supported '
                          '(float32, bfloat16)')
-    if q.shape[3] not in _HEAD_DIMS:
-        raise ValueError(f'{what}: head dim {q.shape[3]} not in {_HEAD_DIMS}')
+    if not 0 < q.shape[3] <= _HEAD_DIMS[-1]:
+        raise ValueError(f'{what}: head dim {q.shape[3]} not in '
+                         f'1..{_HEAD_DIMS[-1]}')
     if q.shape[0] * q.shape[1] > _MAX_BH:
         raise ValueError(f'{what}: B*H = {q.shape[0] * q.shape[1]} exceeds '
                          f'{_MAX_BH}')
@@ -150,6 +178,12 @@ def _check_cuda(what, q, *kv):
 
 def _launch(q, k0, v0, shared0: bool, w0: float, k1, v1, w1: float,
             lse=None):
+    """One launch of csrc/attention.cu at the padded head dim; the output
+    sliced back to q's."""
+    d_in = q.shape[3]
+    q, k0, v0 = pad_head_dim(q, k0, v0)
+    if k1 is not None:
+        k1, v1 = pad_head_dim(k1, v1)
     b, h, nq, d = q.shape
     out = torch.empty_like(q)
     lib = _lib('attention')
@@ -164,7 +198,7 @@ def _launch(q, k0, v0, shared0: bool, w0: float, k1, v1, w1: float,
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             b * h, h, nq, d, _DTYPES[q.dtype], stream)
     kernels.check(err, 'attention kernel')
-    return out
+    return out if d == d_in else out[..., :d_in]
 
 
 def _check_single_source(q, k, v):
@@ -192,12 +226,14 @@ def _flash_backward(q, k, v, do, lse, delta):
         return _chunked_attention_bwd(q, k, v, do, lse, delta)
     _check_single_source(q, k, v)
     _check_cuda('flash_attention backward', q, do)
-    b, h, nq, d = q.shape
+    b, h, nq, d_in = q.shape
     for t in (lse, delta):
         if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, nq)
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError('flash_attention backward: lse/delta must be '
                              'contiguous float32 [B, H, Nq] on q\'s device')
+    q, k, v, do = pad_head_dim(q, k, v, do)
+    d = q.shape[3]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     lib = _lib('attention_bwd')
     with torch.cuda.device(q.device):
@@ -209,7 +245,9 @@ def _flash_backward(q, k, v, do, lse, delta):
             stream)
     kernels.check(err, 'attention backward kernel')
     kernels.LAUNCHES['flash_attention_bwd'] += 1
-    return dq, dk, dv
+    if d == d_in:
+        return dq, dk, dv
+    return dq[..., :d_in], dk[..., :d_in], dv[..., :d_in]
 
 
 class _FlashAttention(torch.autograd.Function):

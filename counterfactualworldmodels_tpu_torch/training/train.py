@@ -1,16 +1,22 @@
-"""VMAE masked-prediction pretraining on one card. Port of the VMAE part of
-counterfactualworldmodels_tpu/training/train.py.
+"""Masked-prediction training on one card: the VMAE, ChannelMAE and
+conjoined (IMU-conditioned) families. Port of
+counterfactualworldmodels_tpu/training/train.py without its sharded forms.
 
-The objective is the JAX package's: the rotated-table masking policy, MSE on
-the masked patch pixels against the per-patch-normalised target, and
+The objectives are the JAX package's: for the VMAE the rotated-table
+masking policy and MSE on the masked patch pixels against the
+per-patch-normalised target; for the ChannelMAE the masked patches' MSE
+summed over channel groups (models/cmae.channel_mae_train_loss); for the
+conjoined model the main stream's masked-prediction MSE with the context
+stream (IMU) as input (``conjoined_prediction_loss``). The optimizer is
 ``optax.chain(clip_by_global_norm, adamw(warmup_cosine_decay_schedule))``,
-reproduced here on ``torch.optim.AdamW`` (``Optimizer``). Unlike the JAX
-step, which returns a new state, the port's step updates the parameters,
-the optimizer moments and the step count in place.
+reproduced on ``torch.optim.AdamW``, or on ``AdamWMixed`` when Adam's first
+moment is kept in a narrower dtype (``mu_dtype``). Unlike the JAX steps,
+which return a new state, the port's steps update the parameters, the
+optimizer moments and the step count in place.
 
 Attention with ``attn_impl='flash'`` trains through the hand-written K5
-forward and K6 backward (ops/flash_attention). The sharded, ChannelMAE and
-conjoined train steps come with their models and the parallel package.
+forward and K6 backward (ops/flash_attention). The sharded train steps
+come with the parallel package.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ from typing import Callable, Optional
 import torch
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import resolve_device
 from ..data.shards import u8_to_chw_01
@@ -52,6 +60,7 @@ class Optimizer:
     b1: float = 0.9
     b2: float = 0.95
     clip_norm: float = 1.0
+    mu_dtype: Optional[torch.dtype] = None
 
     def schedule(self, count: int) -> float:
         """Learning rate of the update made at step ``count`` (the count
@@ -63,12 +72,16 @@ class Optimizer:
         t = min(count - warm, decay)
         return self.learning_rate * 0.5 * (1 + math.cos(math.pi * t / decay))
 
-    def init(self, params) -> torch.optim.AdamW:
+    def init(self, params) -> torch.optim.Optimizer:
+        if self.mu_dtype is not None:
+            return AdamWMixed(list(params), betas=(self.b1, self.b2),
+                              eps=1e-8, weight_decay=self.weight_decay,
+                              mu_dtype=self.mu_dtype)
         return torch.optim.AdamW(list(params), lr=0.0,
                                  betas=(self.b1, self.b2), eps=1e-8,
                                  weight_decay=self.weight_decay)
 
-    def update(self, opt: torch.optim.AdamW, params, step: int):
+    def update(self, opt: torch.optim.Optimizer, params, step: int):
         """Clip the parameters' gradients in place by optax's rule
         g * clip / max(|g|, clip), then take the AdamW step at
         ``schedule(step)``. Returns the unclipped global norm."""
@@ -84,17 +97,71 @@ class Optimizer:
         return gnorm
 
 
+class AdamWMixed(torch.optim.Optimizer):
+    """AdamW with its first moment stored in ``mu_dtype`` (e.g. bf16, half
+    that buffer's memory) and the update computed in f32, in optax's order
+    (``optax.adamw(..., mu_dtype=...)``): mu = (1 - b1) g + b1 mu in f32
+    with b1 rounded to ``mu_dtype`` as the jitted optax step rounds it, nu =
+    (1 - b2) g^2 + b2 nu, u = mu_hat / (sqrt(nu_hat) + eps) + wd p,
+    p -= lr u; mu is rounded to ``mu_dtype`` only when it is stored.
+    ``torch.optim.AdamW`` keeps its moments in the parameters' dtype, so
+    this optimizer keeps its own."""
+
+    def __init__(self, params, betas=(0.9, 0.95), eps: float = 1e-8,
+                 weight_decay: float = 0.05, mu_dtype=torch.bfloat16):
+        if not (isinstance(mu_dtype, torch.dtype)
+                and mu_dtype.is_floating_point):
+            raise ValueError(f'mu_dtype must be a floating torch dtype: '
+                             f'{mu_dtype!r}')
+        super().__init__(params, dict(lr=0.0, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group['betas']
+            lr, eps, wd = group['lr'], group['eps'], group['weight_decay']
+            # optax's b1 * mu takes b1 as a weakly typed scalar, which XLA
+            # rounds to mu's dtype before the f32 product
+            b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st['step'] = 0
+                    st['exp_avg'] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    st['exp_avg_sq'] = torch.zeros_like(p)
+                g = p.grad.float()
+                mu = (1 - b1) * g + b1_mu * st['exp_avg'].float()
+                nu = (1 - b2) * (g * g) + b2 * st['exp_avg_sq']
+                st['step'] += 1
+                t = st['step']
+                u = (mu / (1 - b1 ** t)) / (torch.sqrt(nu / (1 - b2 ** t))
+                                            + eps)
+                p.add_((u + wd * p) * -lr)
+                st['exp_avg'] = mu.to(self.mu_dtype)
+                st['exp_avg_sq'] = nu
+
+    def load_state_dict(self, state_dict):
+        """As torch's, which casts the moments to the parameters' dtype;
+        the first moment goes back to ``mu_dtype`` (exactly: it was stored
+        in it)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if 'exp_avg' in st:
+                st['exp_avg'] = st['exp_avg'].to(self.mu_dtype)
+
+
 def make_optimizer(learning_rate=1.5e-4, weight_decay=0.05,
                    warmup_steps=1000, total_steps=100_000,
                    b1=0.9, b2=0.95, clip_norm=1.0, mu_dtype=None) -> Optimizer:
-    """The optimizer recipe. ``mu_dtype`` (a narrower first moment) is not
-    ported yet (ROADMAP.md, queue 1 item 10)."""
-    if mu_dtype is not None:
-        raise NotImplementedError(
-            'mu_dtype (Adam first moment in a narrower dtype) is not ported '
-            'yet: ROADMAP.md, queue 1 item 10')
+    """The optimizer recipe. ``mu_dtype``: the dtype of Adam's first moment
+    (e.g. torch.bfloat16; the second moment and the parameters stay
+    f32), None for the parameters' dtype."""
     return Optimizer(learning_rate, weight_decay, warmup_steps, total_steps,
-                     b1, b2, clip_norm)
+                     b1, b2, clip_norm, mu_dtype)
 
 
 @dataclasses.dataclass
@@ -106,11 +173,23 @@ class TrainState:
     opt_state: torch.optim.Optimizer
 
 
+# the un-batched products (every Linear): jax's
+# dots_with_no_batch_dims_saveable keeps exactly these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def apply_remat(loss_fn: Callable, remat):
     """Rematerialization of a loss function. False: save every activation.
     True/'full': ``torch.utils.checkpoint`` over the whole loss, which
     keeps only its inputs and recomputes the forward in the backward.
-    'dots' (save the matmul outputs) is not ported yet."""
+    'dots': a selective checkpoint that saves the outputs of the
+    un-batched products (``aten.mm``/``addmm``: the Linears) and recomputes
+    the rest, the attention kernels included."""
     if not remat:
         return loss_fn
     if remat in (True, 'full'):
@@ -119,9 +198,12 @@ def apply_remat(loss_fn: Callable, remat):
                                                      use_reentrant=False)
         return remat_loss
     if remat == 'dots':
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) is "
-            'not ported yet: ROADMAP.md, queue 1 item 10')
+        def dots_loss(*args):
+            return torch.utils.checkpoint.checkpoint(
+                loss_fn, *args, use_reentrant=False,
+                context_fn=functools.partial(
+                    create_selective_checkpoint_contexts, _save_dots))
+        return dots_loss
     raise ValueError(f'remat must be False, True/"full", or "dots": {remat}')
 
 
@@ -188,6 +270,35 @@ def accumulated_grads(loss_fn: Callable, model: nn.Module, accum_steps: int,
     return loss_sum / accum_steps
 
 
+def _check_model(state: TrainState, model: nn.Module):
+    if state.model is not model:
+        raise ValueError('the state holds another model than the step was '
+                         'made for')
+
+
+def _on(device, *arrays):
+    return [torch.as_tensor(a).to(device) for a in arrays]
+
+
+def _update(state: TrainState, optimizer: Optimizer, loss_fn: Callable,
+            accum_steps: int, batch):
+    """One optimizer step of loss_fn(model, *batch) on ``state``, in place:
+    the gradients (over ``accum_steps`` microbatches), the clipped AdamW
+    update and the step count. Returns (state, {'loss', 'grad_norm'})."""
+    params = list(state.model.parameters())
+    if accum_steps > 1:
+        loss = accumulated_grads(loss_fn, state.model, accum_steps, *batch)
+    else:
+        _zero_grads(params)
+        loss = loss_fn(state.model, *batch)
+        loss.backward()
+        loss = loss.detach()
+        _fill_grads(params)
+    gnorm = optimizer.update(state.opt_state, params, state.step)
+    state.step += 1
+    return state, {'loss': loss, 'grad_norm': gnorm}
+
+
 def make_train_step(model: PretrainVisionTransformer, optimizer: Optimizer,
                     n_vis: int, normalize_inputs: bool = True,
                     normalize_targets: bool = True, remat=True,
@@ -214,21 +325,8 @@ def make_train_step(model: PretrainVisionTransformer, optimizer: Optimizer,
     def train_step(state: TrainState, x, mask):
         if state.model.cfg != model:
             raise ValueError('the state holds a model of another configuration')
-        x = torch.as_tensor(x).to(device)
-        mask = torch.as_tensor(mask).to(device)
-        params = list(state.model.parameters())
-        if accum_steps > 1:
-            loss = accumulated_grads(loss_fn, state.model, accum_steps, x,
-                                     mask)
-        else:
-            _zero_grads(params)
-            loss = loss_fn(state.model, x, mask)
-            loss.backward()
-            loss = loss.detach()
-            _fill_grads(params)
-        gnorm = optimizer.update(state.opt_state, params, state.step)
-        state.step += 1
-        return state, {'loss': loss, 'grad_norm': gnorm}
+        return _update(state, optimizer, loss_fn, accum_steps,
+                       _on(device, x, mask))
 
     if mask_fn is None:
         return train_step
@@ -260,3 +358,103 @@ def make_batch_masks(generator: Optional[torch.Generator],
     n_vis = (t - 1) * n_per_frame + (n_per_frame -
                                      int(mask_ratio * n_per_frame))
     return mask, n_vis
+
+
+# ---------------------------------------------------------------------------
+# ChannelMAE
+# ---------------------------------------------------------------------------
+
+def make_cmae_train_step(model: nn.Module, optimizer: Optimizer, n_vis: int,
+                         group_masked_counts, remat=True,
+                         mask_fn: Optional[Callable] = None,
+                         accum_steps: int = 1):
+    """Train step of a ChannelMae (models/cmae.py): masked channel-group
+    reconstruction. Returns train_step(state, x, mask) -> (state, metrics),
+    which updates ``state`` (whose model must be ``model``) in place; x
+    [B, C, H, W] and mask move to the model's device. With mask_fn (``(generator, batch_size) -> mask``, e.g. a
+    ``group_uniform_mask`` partial) the step takes a ``torch.Generator``
+    in place of a mask."""
+    from ..models.cmae import channel_mae_train_loss
+
+    def loss(m, x, mask):
+        return channel_mae_train_loss(m, x, mask, n_vis, group_masked_counts)
+    loss_fn = apply_remat(loss, remat)
+
+    def train_step(state: TrainState, x, mask):
+        _check_model(state, model)
+        return _update(state, optimizer, loss_fn, accum_steps,
+                       _on(model.device, x, mask))
+
+    if mask_fn is None:
+        return train_step
+
+    def train_step_keyed(state: TrainState, x, generator: torch.Generator):
+        return train_step(state, x, mask_fn(generator, x.shape[0]))
+
+    return train_step_keyed
+
+
+def init_cmae_train_state(model: nn.Module, optimizer: Optimizer,
+                          seed: int = 0) -> TrainState:
+    """Step 0 with ``model`` (a ChannelMae or Soft variant, on its device)
+    given seeded random weights, and the optimizer bound to them."""
+    from ..utils.weights import init_channel_mae_state_dict
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    model.load_state_dict(init_channel_mae_state_dict(model, g), strict=True)
+    return TrainState(0, model, optimizer.init(model.parameters()))
+
+
+# ---------------------------------------------------------------------------
+# Conjoined (IMU-conditioned) VMAE
+# ---------------------------------------------------------------------------
+
+def conjoined_prediction_loss(model: nn.Module, x, mask, x_context,
+                              mask_context, n_vis: int, n_vis_context: int,
+                              normalize_inputs: bool = True,
+                              normalize_targets: bool = True,
+                              eps: float = 1e-6):
+    """Masked-prediction MSE on the main (RGB) stream of a ConjoinedVMAE
+    (models/conjoined.py) with context (e.g. IMU) conditioning. x
+    [B, C, T, H, W] in [0, 1], imagenet-normalised here by default as on
+    every inference path; the padded model's null outputs beyond the real
+    masked tokens are not scored."""
+    xm = imagenet_normalize(x, temporal_dim=2) if normalize_inputs else x
+    pred = model(xm, mask, x_context, mask_context, n_vis, n_vis_context)
+    ps = (model.main.tubelet_size,) + tuple(model.main.patch_size)
+    target = patchify(xm.transpose(1, 2), ps, temporal_dim=1)
+    if normalize_targets:
+        mean = target.mean(-1, keepdim=True)
+        var = target.var(-1, keepdim=True, unbiased=False)
+        target = (target - mean) / torch.sqrt(var + eps)
+    target_masked = take_tokens(target, mask_order(mask)[:, n_vis:])
+    n_real = target_masked.shape[1]
+    return ((pred[:, :n_real] - target_masked) ** 2).mean()
+
+
+def make_conjoined_train_step(model: nn.Module, optimizer: Optimizer,
+                              n_vis: int, n_vis_context: int, remat=True,
+                              mask_fn: Optional[Callable] = None,
+                              accum_steps: int = 1, **loss_kwargs):
+    """Train step of a ConjoinedVMAE: step(state, x, mask, x_context,
+    mask_context) -> (state, metrics), in place on a state whose model is
+    ``model``; the inputs move to the model's device. With mask_fn (``(generator, batch_size) -> (mask,
+    mask_context)``) the step takes (state, x, x_context, generator)."""
+    def loss(m, x, mask, xc, mc):
+        return conjoined_prediction_loss(m, x, mask, xc, mc, n_vis,
+                                         n_vis_context, **loss_kwargs)
+    loss_fn = apply_remat(loss, remat)
+
+    def train_step(state: TrainState, x, mask, xc, mc):
+        _check_model(state, model)
+        return _update(state, optimizer, loss_fn, accum_steps,
+                       _on(model.device, x, mask, xc, mc))
+
+    if mask_fn is None:
+        return train_step
+
+    def train_step_keyed(state: TrainState, x, xc,
+                         generator: torch.Generator):
+        mask, mc = mask_fn(generator, x.shape[0])
+        return train_step(state, x, mask, xc, mc)
+
+    return train_step_keyed

@@ -13,9 +13,14 @@
   ``export_conjoined`` rules; the IMU patch embedding becomes a Conv3d
   weight [E, C, pt, 1, 1], cross blocks are keyed '{i}-{j}' by their
   resolved layer pair).
-* ``init_vmae_state_dict`` / ``init_conjoined_state_dict`` / ``init_raft``:
-  seeded random weights drawn from the JAX initialisers' distributions,
-  for runs without a checkpoint.
+* ``channel_mae_state_dict_from_jax``: the JAX package's ChannelMae (and
+  Soft variants') parameters -> the reference ChannelMae state dict (the
+  port's own copy of ``export_channel_mae``'s rules; each group's patch
+  embedding becomes a Conv2d weight [E, c, ph, pw]).
+* ``init_vmae_state_dict`` / ``init_conjoined_state_dict`` /
+  ``init_channel_mae_state_dict`` / ``init_raft``: seeded random weights
+  drawn from the JAX initialisers' distributions, for runs without a
+  checkpoint.
 
 fast_vmae.stack_vmae_params, fast_conjoined.cast_params and the modules'
 load_state_dict(strict=True) consume these state dicts; a released
@@ -99,6 +104,35 @@ def vmae_state_dict_from_jax(params: Dict, in_chans: int = 3,
         _linear(out, 'encoder_to_decoder', params['encoder_to_decoder'])
     if 'mask_token' in params:
         out['mask_token'] = _t(params['mask_token'])
+    return out
+
+
+def channel_mae_state_dict_from_jax(params: Dict, partition, patch_size
+                                    ) -> Dict[str, torch.Tensor]:
+    """Flax ChannelMae / SoftChannelMae / SoftInputChannelMae params ->
+    reference ChannelMae state dict. ``partition``: the channel-group
+    sizes; ``patch_size``: (ph, pw). A group's patch-embedding width comes
+    from its kernel, so concatenated base channels carry over too."""
+    out: Dict[str, torch.Tensor] = {}
+    enc = params['encoder']
+    ph, pw = patch_size
+    for g in range(len(partition)):
+        node = enc[f'patch_embeds_{g}']
+        k = np.asarray(node['kernel'])                    # [(ph pw c), E]
+        c = k.shape[0] // (ph * pw)
+        out[f'encoder.patch_embed.{g}.proj.weight'] = _t(
+            k.reshape(ph, pw, c, k.shape[-1]).transpose(3, 2, 0, 1))
+        out[f'encoder.patch_embed.{g}.proj.bias'] = _t(node['bias'])
+    _blocks(out, 'encoder', enc)
+    _layernorm(out, 'encoder.norm', enc['norm'])
+    _blocks(out, 'decoder', params['decoder'])
+    _layernorm(out, 'decoder.norm', params['decoder']['norm'])
+    _linear(out, 'encoder_to_decoder', params['encoder_to_decoder'])
+    out['mask_token'] = _t(params['mask_token'])
+    if 'decoder_mask_token' in params:
+        out['decoder_mask_token'] = _t(params['decoder_mask_token'])
+    for g in range(len(partition)):
+        _linear(out, f'channel_heads.{g}', params[f'channel_heads_{g}'])
     return out
 
 
@@ -436,6 +470,41 @@ def init_conjoined_state_dict(model, generator: torch.Generator
                 norm(p + ('.norm2' if side == 'trg' else '.norm2_src'), d)
                 lin(f'{p}.mlp.{side}.layers.0', hidden, d)
                 lin(f'{p}.mlp.{side}.layers.2', d, hidden)
+    return sd
+
+
+def init_channel_mae_state_dict(model, generator: torch.Generator
+                                ) -> Dict[str, torch.Tensor]:
+    """Random ChannelMae (or Soft variant) weights in the reference layout,
+    on generator.device: patch embeddings, projection and heads
+    lecun_normal, the attention qkv kernels xavier_uniform, the mask tokens
+    normal(0.02), biases zeros and norms ones/zeros (the JAX initialisers'
+    distributions)."""
+    dev = generator.device
+    sd: Dict[str, torch.Tensor] = {}
+    e, cd = model.encoder_embed_dim, model.decoder_embed_dim
+    ph, pw = model.patch_size
+    n_base = len(model.concat_base_channels)
+    for g, c in enumerate(model.partition):
+        sd[f'encoder.patch_embed.{g}.proj.weight'] = _lecun(
+            (e, c + n_base, ph, pw), ph * pw * (c + n_base), generator)
+        sd[f'encoder.patch_embed.{g}.proj.bias'] = torch.zeros(e, device=dev)
+    for what, dim in (('encoder', e), ('decoder', cd)):
+        for i in range(len(getattr(model, what).blocks)):
+            _init_block(sd, f'{what}.blocks.{i}', dim, model.mlp_ratio,
+                        model.qkv_bias, None, generator)
+        sd[f'{what}.norm.weight'] = torch.ones(dim, device=dev)
+        sd[f'{what}.norm.bias'] = torch.zeros(dim, device=dev)
+    sd['encoder_to_decoder.weight'] = _lecun((cd, e), e, generator)
+    sd['mask_token'] = torch.randn(model.mask_token.shape, generator=generator,
+                                   device=dev) * 0.02
+    if hasattr(model, 'decoder_mask_token'):
+        sd['decoder_mask_token'] = torch.randn(
+            (1, 1, cd), generator=generator, device=dev) * 0.02
+    for g, c in enumerate(model.partition):
+        n = model.patch_dim * c
+        sd[f'channel_heads.{g}.weight'] = _lecun((n, cd), cd, generator)
+        sd[f'channel_heads.{g}.bias'] = torch.zeros(n, device=dev)
     return sd
 
 

@@ -358,3 +358,78 @@ def test_serving_entry_points_raise_without_cuda_unless_cpu_is_asked():
         Axes(), g, x=torch.rand(1, 3, 48, 48), size=(32, 32))
     assert ui.device.type == 'cpu' and ui.x.shape[-2:] == (32, 32)
     assert ui._x.device.type == 'cpu'
+
+
+SLICE9 = ('models.cmae', 'data.shards', 'utils.checkpoint', 'training.loop',
+          'training.train', 'training.train_vmae', 'training.train_cmae',
+          'training.train_conjoined')
+
+
+def test_training_modules_import_without_jax():
+    """The trainers, the shard loader and checkpointing import in a fresh
+    process with no JAX and no matplotlib."""
+    code = ('import importlib, sys; '
+            'pkg = "counterfactualworldmodels_tpu_torch."; '
+            f'[importlib.import_module(pkg + m) for m in {SLICE9!r}]; '
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "flax", "optax", "counterfactualworldmodels_tpu", '
+            '"matplotlib")]; '
+            'print(bad); sys.exit(1 if bad else 0)')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_blanket_exception_handler_in_the_training_slice():
+    """The loader choice has no fallback: no function of the trainers, the
+    shard loader or checkpointing holds an `except Exception` (or bare
+    `except`) that goes on."""
+    root = os.path.dirname(port.__file__)
+    broad = []
+    for mod in SLICE9:
+        path = os.path.join(root, *mod.split('.')) + '.py'
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                broad += [f'{mod}:{node.name}'
+                          for _ in _broad_handlers(node)]
+    assert broad == []
+
+
+def test_native_loader_builds_from_the_port_copy():
+    """The port compiles its own copy of the loader source into the
+    ignored _build/ beside the kernels, never into the source tree."""
+    from counterfactualworldmodels_tpu_torch.data import shards
+    root = os.path.dirname(port.__file__)
+    assert shards.SRC == os.path.join(root, 'data', 'native',
+                                      'clip_loader.cpp')
+    assert os.path.exists(shards.SRC)
+    assert os.path.dirname(shards.native_library_path()) == os.path.join(
+        root, '_build')
+    with open(os.path.join(REPO, '.gitignore')) as f:
+        assert 'counterfactualworldmodels_tpu_torch/_build/' in f.read()
+
+
+def test_cmae_and_conjoined_trainers_raise_without_cuda_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    from counterfactualworldmodels_tpu_torch.models import cmae
+    from counterfactualworldmodels_tpu_torch.training import (
+        train_cmae, train_conjoined)
+    kw = dict(image_size=(32, 32), patch_size=(8, 8), encoder_embed_dim=32,
+              encoder_depth=1, encoder_num_heads=2, decoder_embed_dim=16,
+              decoder_depth=1, decoder_num_heads=2)
+    for call in (lambda: cmae.ChannelMae(**kw),
+                 lambda: cmae.SoftChannelMae(**kw),
+                 lambda: cmae.SoftInputChannelMae(**kw),
+                 lambda: cmae.ChannelMaeEncoder(),
+                 lambda: cmae.ChannelMaeDecoder(),
+                 lambda: train_cmae.main(['--synthetic', '--model', 'tiny',
+                                          '--steps', '1']),
+                 lambda: train_conjoined.main(['--synthetic', '--steps',
+                                               '1'])):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            call()
+    assert cmae.ChannelMae(**kw, device='cpu').mask_token.is_cpu

@@ -95,9 +95,9 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
                            q)
     with pytest.raises(ValueError, match='mixed dtypes'):
         fa.flash_attention(q, q.bfloat16(), q)
-    q48 = torch.zeros(1, 2, 8, 48, device=dev)
+    q160 = torch.zeros(1, 2, 8, 160, device=dev)
     with pytest.raises(ValueError, match='head dim'):
-        fa.flash_attention(q48, q48, q48)
+        fa.flash_attention(q160, q160, q160)
 
 
 def test_window_lookup_kernel_matches_plain(dev):
@@ -654,3 +654,93 @@ def test_service_fast_route_on_the_card_matches_the_cpu(dev, monkeypatch):
     assert lg == dict({k: 0 for k in lg}, flash_attention=2 * depth,
                       flash_attention_prefix=2 * model.decoder_depth,
                       window_lookup=2 * 2), lg
+
+
+# head dims the kernels run padded (zero columns up to 16, 32 or 64): the
+# small conjoined trainer's 8 and 24, the tiny ChannelMAE's 48, the tests'
+# tiny conjoined model's 12; tile edges crossed as above
+_PADDED_SHAPES = [(2, 4, 50, 50, 8), (2, 4, 39, 70, 24), (3, 2, 13, 13, 48),
+                  (1, 2, 129, 65, 12), (1, 2, 100, 77, 100)]
+
+
+@pytest.mark.parametrize('dtype,atol', [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_padded_head_dims_match_plain(dev, dtype, atol):
+    """K1, K5 and K6 at head dims between the kernels' own, against the
+    plain versions at the unpadded dim; one launch each, outputs and
+    gradients of the caller's shape."""
+    rng = np.random.RandomState(9)
+    for (b, h, nq, nk, d) in _PADDED_SHAPES:
+        q, k, v, do = _grad_inputs(rng, dev, dtype, b, h, nq, nk, d)
+        kernels.reset_launches()
+        out = fa.flash_attention(q, k, v)
+        out5, lse = fa._flash_forward_lse(q, k, v)
+        ref, ref_lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+        assert out.shape == out5.shape == q.shape
+        assert _err(out, ref) <= atol and _err(out5, ref) <= atol, d
+        assert torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-5), d
+        delta = (do.float() * ref.float()).sum(-1)
+        got = fa._flash_backward(q, k, v, do, ref_lse, delta)
+        want = fa._chunked_attention_bwd(q, k, v, do, ref_lse, delta)
+        for name, a, r in zip('qkv', got, want):
+            assert a.shape == r.shape, (d, name)
+            if dtype == torch.float32:
+                assert torch.allclose(a, r, atol=2e-4, rtol=1e-4), (d, name)
+            else:
+                assert _err(a, r) <= 2e-2 * float(r.float().abs().max()), (
+                    d, name)
+        assert [kernels.LAUNCHES[n] for n in (
+            'flash_attention', 'flash_attention_lse', 'flash_attention_bwd',
+            'flash_attention_prefix')] == [1, 1, 1, 0]
+        # the autograd route slices the gradients before autograd sees them
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        grads = torch.autograd.grad(fa.flash_attention(*leaves), leaves, do)
+        assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+
+
+def test_channel_mae_step_on_the_card_matches_the_cpu(dev):
+    """Three train steps of a tiny ChannelMAE (encoder head dim 48, run
+    padded; f32, TF32 off) from the same weights and masks: losses and
+    gradient norms rtol 1e-4, parameters atol 1e-4."""
+    from counterfactualworldmodels_tpu_torch.models import cmae
+    from counterfactualworldmodels_tpu_torch.training import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(image_size=(32, 32), patch_size=(8, 8), in_channels=3,
+              channel_partition=(1, 2), encoder_embed_dim=96,
+              encoder_depth=2, encoder_num_heads=2, decoder_embed_dim=32,
+              decoder_depth=1, decoder_num_heads=2, mlp_ratio=2.0,
+              attn_impl='flash')
+    ref = cmae.ChannelMae(device='cpu', **kw)
+    opt = train.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                               total_steps=10)
+    train.init_cmae_train_state(ref, opt, seed=1)
+    init = ref.state_dict()
+    gen = torch.Generator().manual_seed(2)
+    rng = np.random.RandomState(2)
+    batches = []
+    for _ in range(3):
+        mask, counts = cmae.group_uniform_mask(gen, ref.mask_size, 0.75, 4)
+        batches.append((torch.from_numpy(rng.rand(4, 3, 32, 32).astype(
+            np.float32)), mask))
+    n_vis = ref.num_patches - sum(counts)
+    runs = {}
+    for d in ('cpu', dev):
+        model = cmae.ChannelMae(device=d, **kw)
+        model.load_state_dict(init, strict=True)
+        state = train.TrainState(0, model, opt.init(model.parameters()))
+        step = train.make_cmae_train_step(model, opt, n_vis, counts,
+                                          remat='dots')
+        kernels.reset_launches()
+        metrics = [step(state, x, m)[1] for x, m in batches]
+        runs[str(d)] = ([(float(m['loss']), float(m['grad_norm']))
+                         for m in metrics], dict(kernels.LAUNCHES),
+                        model.state_dict())
+    (mc, lc, pc), (mg, lg, pg) = runs['cpu'], runs['cuda']
+    for a, b in zip(mc, mg):
+        assert np.allclose(a, b, rtol=1e-4, atol=0), (a, b)
+    for name in pc:
+        assert torch.allclose(pc[name], pg[name].cpu(), atol=1e-4), name
+    assert not any(lc.values())
+    assert lg['flash_attention_lse'] == 3 * 2 * 3
+    assert lg['flash_attention_bwd'] == 3 * 3
