@@ -116,6 +116,25 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    2, resumed from step 2 in a new state (steps 3-4 bitwise the
    uninterrupted run's losses), and ``train_conjoined --shard`` on the sidecar for
    2 steps, resumed from step 1;
+8. RAFT training and data-parallel work (before phase 7): (a)
+   ``training.train_raft --mode flow`` through ``main(argv)`` at the
+   script's defaults (large RAFT, 224 px, batch 8, 12 iterations, remat,
+   bf16, synthetic warps): one warm-up, three timed steps (sec/step,
+   pairs/s, peak memory) and one profiled step (busy share, the gather
+   lookup's device ms forward and backward, beside the lookup timed alone),
+   finite losses and EPE, no lookup kernel in any step; (b) ``--mode
+   keypoint --teacher movability --teacher-model tiny`` for 2 steps, the
+   teacher's K1, K2 and lookup launches asserted; (c) the small RAFT's
+   flow and keypoint train steps card against CPU (f32, TF32 off, 64 px,
+   3 steps each, within 1e-4); (d) a process group of one rank over NCCL:
+   ``make_sharded_train_step`` at phase 6's configuration, three steps
+   bitwise ``make_train_step``'s (K5 72 / K6 36 a step), and
+   ``parallel.sharded_counterfactuals_fast`` on phase 5's dispatch (K1 36,
+   K2 12, lookup 24; masks bitwise, videos within phase 5b's bar); (e) two
+   gloo ranks sharing the card (spawned processes): three dp steps of the
+   tests' small VMAE against the single-process step on the global batch
+   and the tiny sample-sharded dispatch against the direct one, within the
+   CPU tests' tolerances, every rank's parameters bitwise equal;
 7. the kernels RAFT's ``convc1`` launches on the lookup's bf16 output
    (torch.profiler, last: it makes every later launch cost more).
 
@@ -929,7 +948,9 @@ def full_width(torch, port, rec, smi):
     # the seeded weights, for phase 5b, and the default dispatch, profiled
     # after phase 5b has timed the generator
     return results, dict(model=model, sd=sd, fp=fp, raft=raft,
-                         default=default,
+                         default=default, pad=pad,
+                         inputs=dict(x=x, p=p, a=a, shifts=shifts,
+                                     noise=noise, n_vis=n_vis),
                          default_ms=results[0]['ms_per_dispatch'],
                          dispatch=lambda: dispatch(default))
 
@@ -2741,22 +2762,28 @@ def small_conjoined_train(torch, port, rec):
 
 
 class _LoopSpy:
-    """Wraps training.loop.run while a trainer's main runs: each step's
-    launches (counts set to 0 just before the step, read just after), its
-    seconds, the peak memory after the warm-up step, the loader the run
-    opened and, with ``profile_last``, the last step's device profile."""
+    """Wraps training.loop.run while a trainer's main runs: the launches
+    made before the loop (a teacher's), each step's launches (counts set to
+    0 just before the step, read just after), its seconds, the peak memory
+    after the warm-up step, the loader the run opened and, with
+    ``profile_last``, the last step's device profile (``profile_fn``)."""
 
-    def __init__(self, torch, port, profile_last=False):
+    def __init__(self, torch, port, profile_last=False, profile_fn=None):
         from counterfactualworldmodels_tpu_torch.training import loop
         self.torch, self.port, self.loop = torch, port, loop
         self.profile_last = profile_last
+        self.profile_fn = profile_fn or profile_dispatch
         self.steps, self.loaders, self.profile = [], [], None
+        self.before_loop = None
 
     def __enter__(self):
         loop, torch, port = self.loop, self.torch, self.port
         self._run, self._shard_loader = loop.run, loop.shard_loader
 
         def run(args, state, ckpt, start, step_fn, rate_key):
+            torch.cuda.synchronize()
+            self.before_loop = dict(port.kernels.LAUNCHES)
+
             def counted(state, step):
                 if step == start + 1:
                     torch.cuda.reset_peak_memory_stats()
@@ -2765,7 +2792,7 @@ class _LoopSpy:
                 t0 = time.perf_counter()
                 if self.profile_last and step == args.steps - 1:
                     box = []
-                    self.profile = profile_dispatch(
+                    self.profile = self.profile_fn(
                         torch, lambda: box.append(step_fn(state, step)))
                     out = box[0]
                 else:
@@ -2789,9 +2816,10 @@ class _LoopSpy:
         self.loop.run, self.loop.shard_loader = self._run, self._shard_loader
 
 
-def _train_main(torch, port, main, argv, profile_last=False):
+def _train_main(torch, port, main, argv, profile_last=False,
+                profile_fn=None):
     """(records, spy) of one trainer's main(argv) on the card."""
-    with _LoopSpy(torch, port, profile_last) as spy:
+    with _LoopSpy(torch, port, profile_last, profile_fn) as spy:
         records = main(argv)
     return records, spy
 
@@ -2927,6 +2955,527 @@ def shard_resume(torch, port, rec, smi):
         sh.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: RAFT training and data-parallel work
+# ---------------------------------------------------------------------------
+
+LOOKUP_RANGE = 'cwm_gather_lookup'
+
+
+def _dev_us(e):
+    us = getattr(e, 'device_time_total', None)
+    return us if us is not None else getattr(e, 'cuda_time_total', 0)
+
+
+def profile_raft_step(torch, fn):
+    """profile_dispatch's record of one RAFT train step, plus the device time
+    of its gather lookups: the forward, the kernels launched inside each
+    lookup call (a record_function range marks the call; remat runs the
+    forward twice), and the backward, the autograd nodes of the first
+    forward's lookup ops (matched by sequence number and forward thread:
+    remat's recomputation rebuilds the saved tensors, and the backward runs
+    the first forward's nodes). A measurement: 'not measured' when the
+    trace cannot give it."""
+    from torch.profiler import record_function
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    real = traft.lookup_pyramid
+
+    def marked(*a):
+        with record_function(LOOKUP_RANGE):
+            return real(*a)
+
+    traft.lookup_pyramid = marked
+    try:
+        prof, wall_ms = _profiled(torch, fn)
+    except Exception as e:  # the trace is optional; report why it is absent
+        return f'not measured ({type(e).__name__}: {e})'
+    finally:
+        traft.lookup_pyramid = real
+    out = _summary(prof, wall_ms)
+    if not isinstance(out, dict):
+        return out
+    try:
+        events = prof.events()
+        # the host-side ranges (a device-side annotation of the same name
+        # spans the gaps between kernels too)
+        ranges = [e for e in events if e.name == LOOKUP_RANGE
+                  and str(e.device_type).endswith('CPU')]
+        first = min(e.thread for e in ranges)
+        fwd_ops, stack = set(), [e for e in ranges if e.thread == first]
+        while stack:
+            e = stack.pop()
+            if getattr(e, 'sequence_nr', -1) >= 0:
+                fwd_ops.add((e.sequence_nr, e.thread))
+            stack.extend(e.cpu_children)
+        bwd = [e for e in events if getattr(e, 'fwd_thread', None) is not None
+               and (getattr(e, 'sequence_nr', -1), e.fwd_thread) in fwd_ops
+               and not e.name.startswith(('aten::', 'autograd::'))]
+        fwd_ms = sum(_dev_us(e) for e in ranges) / 1e3
+        bwd_ms = sum(_dev_us(e) for e in bwd) / 1e3
+        out['gather_lookup'] = dict(
+            calls=len(ranges), forward_ms=fwd_ms, backward_ms=bwd_ms,
+            backward_nodes=sorted({e.name for e in bwd}),
+            share_of_busy=(fwd_ms + bwd_ms) / out['device_busy_ms'])
+    except Exception as e:  # the attribution is a measurement only
+        out['gather_lookup'] = f'not measured ({type(e).__name__}: {e})'
+    return out
+
+
+def gather_lookup_ms(torch, corr, b, h8, iters, remat):
+    """The gather lookup alone at a train step's shapes (bf16 output for
+    convc1, f32 sums, radius 4, four levels): one forward and one forward
+    + backward, each as CUDA-event ms around back-to-back calls (host
+    launches included) and as the device time of its kernels (profiled),
+    and the device ms over a step (``iters`` calls, each forward run twice
+    with remat)."""
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(4)
+    c = torch.randn(b, h8, h8, h8, h8, device=dev, generator=g)
+    pyr = [lv.detach().requires_grad_() for lv in corr.build_pyramid(c, 4)]
+    coords = (torch.rand(b, h8, h8, 2, device=dev, generator=g) * h8
+              ).requires_grad_()
+    cot = torch.randn(b, h8, h8, 4 * 81, device=dev, generator=g,
+                      dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            corr.lookup_pyramid(pyr, coords, 4, torch.bfloat16, 'gather')
+
+    def fwd_bwd():
+        out = corr.lookup_pyramid(pyr, coords, 4, torch.bfloat16, 'gather')
+        out.backward(cot)
+
+    f_dev = sum(kernel_device_us(torch, fwd).values()) / 1e3
+    fb_dev = sum(kernel_device_us(torch, fwd_bwd).values()) / 1e3
+    return dict(shapes=dict(batch=b, grid=h8, levels=4, radius=4),
+                forward_ms=time_ms(torch, fwd),
+                forward_backward_ms=time_ms(torch, fwd_bwd),
+                forward_device_ms=f_dev, forward_backward_device_ms=fb_dev,
+                per_step_device_ms=iters * ((2 if remat else 1) * f_dev
+                                            + (fb_dev - f_dev)))
+
+
+def raft_trainer(torch, port, rec, smi):
+    """(a) train_raft --mode flow at the script's defaults (large RAFT,
+    224 px, batch 8, 12 iterations, remat, bf16, --synthetic) through
+    main(argv): one warm-up, three timed steps and one profiled step (busy
+    share, the gather lookup's device ms forward and backward), no lookup
+    kernel launched in any step; (b) train_raft --mode keypoint --teacher
+    movability --teacher-model tiny for 2 steps: the teacher's K1, K2 and
+    lookup launches before the loop, none in a step."""
+    from counterfactualworldmodels_tpu_torch.models.raft import corr
+    from counterfactualworldmodels_tpu_torch.training import train_raft
+    zeros = {name: 0 for name in port.kernels.LAUNCHES}
+    out = {}
+    t0 = time.perf_counter()
+    records, spy = _train_main(torch, port, train_raft.main,
+                               ['--synthetic', '--steps', '5'],
+                               profile_last=True,
+                               profile_fn=profile_raft_step)
+    times = [s['seconds'] for s in spy.steps[1:4]]
+    sec = float(np.median(times))
+    a = dict(argv='--synthetic --steps 5 (defaults: large, 224 px, batch 8, '
+                  '12 iterations, remat, bf16)',
+             losses=[x['loss'] for x in records],
+             epes=[x['epe'] for x in records],
+             grad_norms=[x['grad_norm'] for x in records],
+             sec_per_step_runs=times, sec_per_step=sec, pairs_per_s=8 / sec,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             launches_per_step=[s['launches'] for s in spy.steps],
+             profile=spy.profile, wall_s=time.perf_counter() - t0, card=smi)
+    a['lookup_alone'] = gather_lookup_ms(torch, corr, 8, 28, 12, True)
+    a['ok'] = (len(records) == 5 and all(
+        math.isfinite(v) for v in a['losses'] + a['epes'] + a['grad_norms'])
+        and all(s['launches'] == zeros for s in spy.steps))
+    out['flow'] = a
+    log('8 raft', 'flow: ' + json.dumps(a))
+    del spy
+    torch.cuda.empty_cache()
+
+    port.kernels.reset_launches()
+    records, spy = _train_main(
+        torch, port, train_raft.main,
+        ['--mode', 'keypoint', '--synthetic', '--teacher', 'movability',
+         '--teacher-model', 'tiny', '--steps', '2'])
+    teacher = spy.before_loop
+    b = dict(losses=[x['loss'] for x in records],
+             teacher_launches=teacher,
+             launches_per_step=[s['launches'] for s in spy.steps],
+             sec_per_step_runs=[s['seconds'] for s in spy.steps], card=smi)
+    b['ok'] = (len(records) == 2
+               and all(math.isfinite(x) for x in b['losses'])
+               and teacher['flash_attention'] > 0
+               and teacher['flash_attention_prefix'] > 0
+               and teacher['window_lookup'] > 0
+               and teacher['window_lookup'] % 12 == 0
+               and all(s['launches'] == zeros for s in spy.steps))
+    out['keypoint'] = b
+    log('8 raft', 'keypoint: ' + json.dumps(b))
+    rec['phase8_trainer'] = out
+    if not (a['ok'] and b['ok']):
+        raise AssertionError('train_raft on the card failed')
+    return out
+
+
+def small_raft_train(torch, port, rec):
+    """(c) three steps of make_raft_train_step and of
+    make_keypoint_distill_step on the small RAFT (f32, TF32 off, 2
+    iterations, 64x64), card against CPU from the same weights and
+    batches: losses and gradient norms within 1e-4 (phase 4's bar), the
+    gather lookup on the card with no kernel launch."""
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.training import raft as TR
+    from counterfactualworldmodels_tpu_torch.training import train as T
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(13)
+    g = torch.Generator().manual_seed(13)
+    flow = [TR.synthetic_flow_batch(torch.from_numpy(
+        (rng.rand(2, 3, 64, 64) * 255).astype(np.float32)), max_mag=3.0,
+        generator=g) for _ in range(3)]
+    kp = [(torch.from_numpy((rng.rand(2, 3, 64, 64) * 255).astype(
+        np.float32)), torch.from_numpy(rng.rand(2, 1, 64, 64).astype(
+            np.float32))) for _ in range(3)]
+    opt = T.make_optimizer(learning_rate=1e-4, warmup_steps=1,
+                           total_steps=10)
+    out, bad = {}, []
+    for name, keypoint, batches in (('flow', False, flow),
+                                    ('keypoint', True, kp)):
+        runs = {}
+        for dev in ('cpu', 'cuda'):
+            model = RAFT(small=True, iters=2, device=dev,
+                         output_dim=1 if keypoint else None)
+            state = TR.init_raft_train_state(model, opt, seed=5)
+            step = (TR.make_keypoint_distill_step(model, opt, remat=True)
+                    if keypoint else
+                    TR.make_raft_train_step(model, opt, remat=True))
+            port.kernels.reset_launches()
+            metrics = []
+            for batch in batches:
+                state, m = step(state, *batch)
+                metrics.append([float(v) for _, v in sorted(m.items())])
+            runs[dev] = (metrics, dict(port.kernels.LAUNCHES))
+        (mc, _), (mg, lg) = runs['cpu'], runs['cuda']
+        r = dict(case=f'small RAFT {name}, 3 steps, 64x64, 2 iterations',
+                 cpu=mc, card=mg, max_rel_diff=_rel(mc, mg),
+                 launches_card=lg, tol=1e-4)
+        r['ok'] = (r['max_rel_diff'] <= 1e-4 and not any(lg.values())
+                   and all(math.isfinite(v) for row in mg for v in row))
+        out[name] = r
+        rec['phase4'].append(r)
+        log('8 small raft train', json.dumps(r))
+        if not r['ok']:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f'small RAFT train steps card vs CPU: {bad}')
+    return out
+
+
+def _vmae_steps(torch, T, cfg, opt, make_step, clips, port):
+    """Three keyed steps from seed-0 weights: losses, norms, launches."""
+    dev = torch.device('cuda')
+    state = T.init_train_state(cfg, opt, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step, state = make_step(state)
+    losses, norms, launches = [], [], []
+    for x in clips:
+        port.kernels.reset_launches()
+        state, m = step(state, x, gen)
+        losses.append(float(m['loss']))
+        norms.append(float(m['grad_norm']))
+        torch.cuda.synchronize()
+        launches.append(dict(port.kernels.LAUNCHES))
+    return losses, norms, launches
+
+
+def world_one(torch, port, rec, smi, ctx):
+    """(d) a process group of one rank over NCCL: make_sharded_train_step
+    at phase 6's configuration (ViT-L 4x4 @224, bf16, batch 4, remat),
+    three steps with losses bitwise make_train_step's on the same batches
+    and masks and K5 72 / K6 36 a step; sharded_counterfactuals_fast on
+    phase 5's weights, prompts and draws at the default rung (S = 16): the
+    direct dispatch's launches (K1 36, K2 12, lookup 24) and its outputs."""
+    import tempfile
+    import torch.distributed as dist
+    from counterfactualworldmodels_tpu_torch import parallel
+    from counterfactualworldmodels_tpu_torch.models import vmae
+    from counterfactualworldmodels_tpu_torch.pipelines.segmentation import (
+        counterfactual_videos_and_flows_fast)
+    from counterfactualworldmodels_tpu_torch.training import train as T
+    dev = torch.device('cuda')
+    tmp = tempfile.mkdtemp(prefix='cwm_pg_')
+    parallel.initialize_distributed(
+        init_method='file://' + os.path.join(tmp, 'store'), world_size=1,
+        rank=0, device=dev, timeout_s=300)
+    try:
+        out = {'backend': dist.get_backend()}
+        cfg = vmae.large_4x4patch_2frames_1tube(dtype=torch.bfloat16,
+                                                attn_impl='flash')
+        opt = T.make_optimizer(learning_rate=1.5e-4, warmup_steps=1,
+                               total_steps=100)
+        _, n_vis = T.make_batch_masks(None, cfg, B_TRAIN, MASK_RATIO)
+
+        def mask_fn(g, b):
+            return T.make_batch_masks(g, cfg, b, MASK_RATIO)[0]
+
+        rng = np.random.RandomState(0)
+        base = rng.rand(B_TRAIN, 1, 3, 224, 224).astype(np.float32)
+        clips = [torch.from_numpy(np.concatenate(
+            [base, np.roll(base, tuple(rng.randint(-8, 9, 2)),
+                           axis=(-2, -1))], 1)).to(dev) for _ in range(3)]
+        mesh = parallel.make_mesh({'dp': 1})
+
+        def plain(state):
+            return T.make_train_step(cfg, opt, n_vis, remat=True,
+                                     mask_fn=mask_fn, device=dev), state
+
+        def sharded(state):
+            step, shard_state, _ = T.make_sharded_train_step(
+                cfg, opt, mesh, n_vis, remat=True, mask_fn=mask_fn,
+                device=dev)
+            return step, shard_state(state)
+
+        runs = {name: _vmae_steps(torch, T, cfg, opt, make, clips, port)
+                for name, make in (('make_train_step', plain),
+                                   ('make_sharded_train_step', sharded))}
+        torch.cuda.empty_cache()
+        depth = cfg.encoder_depth + cfg.decoder_depth
+        want = dict({k: 0 for k in port.kernels.LAUNCHES},
+                    flash_attention_lse=2 * depth, flash_attention_bwd=depth)
+        (lp, np_, _), (ls, ns, launches) = (runs['make_train_step'],
+                                           runs['make_sharded_train_step'])
+        t_ok = (ls == lp and ns == np_ and all(x == want for x in launches))
+        out['train'] = dict(losses=ls, plain_losses=lp, grad_norms=ns,
+                            plain_grad_norms=np_, launches_per_step=launches,
+                            bitwise=ls == lp and ns == np_, ok=t_ok)
+        log('8 world 1', 'train: ' + json.dumps(out['train']))
+
+        model, fp, raft = ctx['model'], ctx['fp'], ctx['raft']
+        x, p, a, shifts, noise, n_vis_cf = (ctx['inputs'][k] for k in (
+            'x', 'p', 'a', 'shifts', 'noise', 'n_vis'))
+        rung = ctx['default']
+        smesh = parallel.sample_parallel_mesh()
+        ref = counterfactual_videos_and_flows_fast(
+            model, fp, raft, x, p, a, shifts, noise, ctx['pad'], True, 24,
+            True, True, True, None, *rung, n_vis=n_vis_cf)
+        torch.cuda.synchronize()
+        port.kernels.reset_launches()
+        t1 = time.perf_counter()
+        got = parallel.sharded_counterfactuals_fast(
+            smesh, model, fp, raft, x, p, a, shifts, noise, n_vis_cf, True,
+            24, True, True, None, *rung)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        launches = dict(port.kernels.LAUNCHES)
+        want = dict({k: 0 for k in port.kernels.LAUNCHES},
+                    flash_attention=model.encoder_depth + model.decoder_depth,
+                    flash_attention_prefix=model.decoder_depth,
+                    window_lookup=24)
+        # phase 5b's bar for another route to the same dispatch: masks
+        # bitwise, videos within REL_BF16 of their largest magnitude
+        errs = [max_err(g_, r_) for g_, r_ in zip(got[:2], ref[:2])]
+        tol = REL_BF16 * float(ref[0].float().abs().max())
+        d_ok = (launches == want and torch.equal(got[2], ref[2])
+                and errs[0] <= tol)
+        out['dispatch'] = dict(samples=S_FULL, rung=list(rung),
+                               launches=launches, ms=ms,
+                               video_max_err=errs[0], video_tol=tol,
+                               flow_max_err=errs[1],
+                               bitwise=errs == [0.0, 0.0], ok=d_ok, card=smi)
+        log('8 world 1', 'dispatch: ' + json.dumps(out['dispatch']))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec['phase8_world1'] = out
+    if not (t_ok and d_ok):
+        raise AssertionError('world size 1 over NCCL failed')
+    return out
+
+
+# the two ranks of phase 8 (e): spawned, so these run in fresh processes
+
+def _two_rank_checks(rank, tmp):
+    """One of two gloo ranks sharing the card: three dp steps of the small
+    VMAE (f32, flash, TF32 off) and sharded_counterfactuals_fast on a tiny
+    ViT and the small RAFT; results saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from counterfactualworldmodels_tpu_torch import parallel
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        parallel.initialize_distributed(
+            init_method='file://' + os.path.join(tmp, 'store'),
+            world_size=2, rank=rank, backend='gloo', device='cuda',
+            timeout_s=300)
+        inputs = torch.load(os.path.join(tmp, 'inputs.pt'),
+                            weights_only=False)
+        res = _small_parallel_work(torch, inputs,
+                                   parallel.make_mesh({'dp': 2}),
+                                   parallel.sample_parallel_mesh())
+        torch.save(res, os.path.join(tmp, f'rank{rank}.pt'))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f'rank{rank}.err'), 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _small_parallel_work(torch, inputs, mesh=None, smesh=None):
+    """The small VMAE's three steps (the dp step on this rank's rows with a
+    mesh, else the single-process step on the global batch) and the tiny
+    fast dispatch (sample-sharded with smesh, else direct), on the card."""
+    from counterfactualworldmodels_tpu_torch import parallel
+    from counterfactualworldmodels_tpu_torch.models import fast_vmae, vmae
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.pipelines.segmentation import (
+        counterfactual_videos_and_flows_fast)
+    from counterfactualworldmodels_tpu_torch.training import train as T
+    dev = torch.device('cuda')
+    cfg = vmae.PretrainVisionTransformer(**SMALL_VMAE, attn_impl='flash')
+    module = vmae.PretrainVisionTransformerModule(cfg, device=dev)
+    module.load_state_dict(inputs['vmae_sd'], strict=True)
+    opt = T.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                           total_steps=10)
+    state = T.TrainState(0, module, opt.init(module.parameters()))
+    _, n_vis = T.make_batch_masks(None, cfg, 4, MASK_RATIO)
+
+    def mask_fn(g, b):
+        return T.make_batch_masks(g, cfg, b, MASK_RATIO)[0]
+
+    kw = dict(remat=False, mask_fn=mask_fn, device=dev)
+    if mesh is None:
+        step = T.make_train_step(cfg, opt, n_vis, **kw)
+    else:
+        step, shard_state, dp = T.make_sharded_train_step(cfg, opt, mesh,
+                                                          n_vis, **kw)
+        state = shard_state(state)
+    metrics = []
+    for i, x in enumerate(inputs['clips']):
+        x = x.to(dev) if mesh is None else dp.local(x.to(dev))
+        state, m = step(state, x, torch.Generator(device=dev).manual_seed(i))
+        metrics.append([float(m['loss']), float(m['grad_norm'])])
+    params = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    tiny = vmae.PretrainVisionTransformer(**TINY_VMAE)
+    fp = fast_vmae.stack_vmae_params(tiny, inputs['tiny_sd'],
+                                     dtype=torch.float32, device=dev)
+    raft = RAFT(iters=2, small=True, device=dev)
+    raft.load_state_dict(inputs['raft_sd'], strict=True)
+    d = {k: v.to(dev) for k, v in inputs['dispatch'].items()}
+    n = tiny.num_patches
+    n0 = tiny.num_patches_per_frame
+    n_vis_cf = inputs['n_vis']
+    if smesh is None:
+        out = counterfactual_videos_and_flows_fast(
+            tiny, fp, raft, d['x'], d['p'], d['a'], d['shifts'], d['noise'],
+            fast_vmae.sfx_bucket(n_vis_cf - n0, n - n0), True, 2, True, True,
+            n_vis=n_vis_cf)
+    else:
+        out = parallel.sharded_counterfactuals_fast(
+            smesh, tiny, fp, raft, d['x'], d['p'], d['a'], d['shifts'],
+            d['noise'], n_vis_cf, True, 2, True)
+    return dict(metrics=metrics, params=params,
+                dispatch=[o.cpu() for o in out])
+
+
+# the tests' tiny ViT (tests/torch_port_common.TINY)
+TINY_VMAE = dict(img_size=(32, 32), patch_size=(4, 4), encoder_embed_dim=64,
+                 encoder_depth=2, encoder_num_heads=4, decoder_embed_dim=32,
+                 decoder_depth=1, decoder_num_heads=2, num_frames=2,
+                 qkv_bias=True)
+
+
+def two_ranks(torch, port, rec, smi):
+    """(e) two gloo ranks on the one card (NCCL refuses two ranks on one
+    device): three dp steps of the small VMAE against the single-process
+    step on the global batch (rtol 1e-4, parameters atol 1e-4, every
+    rank's bitwise equal), and sharded_counterfactuals_fast against the
+    direct dispatch (videos 1e-5, flows 1e-4, masks equal). gloo takes the
+    CUDA tensors of every collective the port uses (broadcast, all_reduce,
+    all_gather); a rank's traceback names the one that failed."""
+    import multiprocessing
+    import tempfile
+    from counterfactualworldmodels_tpu_torch.models import vmae
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix='cwm_ranks_')
+    try:
+        g = torch.Generator().manual_seed
+        rng = np.random.RandomState(17)
+        tiny = vmae.PretrainVisionTransformer(**TINY_VMAE)
+        n, n0 = tiny.num_patches, tiny.num_patches_per_frame
+        p, a, shifts, n_vis = prompts(rng, n, 4, 8)
+        frame = rng.rand(3, 32, 32).astype(np.float32)
+        inputs = dict(
+            vmae_sd=weights.init_vmae_state_dict(
+                vmae.PretrainVisionTransformer(**SMALL_VMAE), g(0)),
+            tiny_sd=weights.init_vmae_state_dict(tiny, g(1)),
+            raft_sd=weights.init_raft(RAFT(iters=2, small=True,
+                                           device='cpu'), g(2)).state_dict(),
+            clips=[torch.from_numpy(rng.rand(4, 2, 3, 32, 32).astype(
+                np.float32)) for _ in range(3)],
+            n_vis=n_vis, dispatch=dict(
+                x=torch.from_numpy(np.broadcast_to(
+                    frame, (1, 2, 3, 32, 32)).copy()),
+                p=torch.from_numpy(np.asarray(p)),
+                a=torch.from_numpy(np.asarray(a)),
+                shifts=torch.from_numpy(np.asarray(shifts)),
+                noise=torch.from_numpy(rng.rand(4, n - n0).astype(
+                    np.float32) * 0.999)))
+        torch.save(inputs, os.path.join(tmp, 'inputs.pt'))
+        ctx = multiprocessing.get_context('spawn')
+        procs = [ctx.Process(target=_two_rank_checks, args=(r, tmp))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        ref = _small_parallel_work(torch, inputs)
+        for pr in procs:
+            pr.join(300)
+        alive = [pr for pr in procs if pr.is_alive()]
+        for pr in alive:
+            pr.kill()
+            pr.join()
+        errs = []
+        for r in range(2):
+            path = os.path.join(tmp, f'rank{r}.err')
+            if os.path.exists(path):
+                with open(path) as f:
+                    errs.append(f.read())
+        if alive or errs or any(pr.exitcode for pr in procs):
+            raise AssertionError('the gloo ranks failed: alive '
+                                 f'{len(alive)}\n' + '\n'.join(errs))
+        ranks = [torch.load(os.path.join(tmp, f'rank{r}.pt'),
+                            weights_only=False) for r in range(2)]
+        out = dict(seconds=time.perf_counter() - t0, card=smi)
+        rel = max(_rel(ref['metrics'], rk['metrics']) for rk in ranks)
+        perr = max(max_err(rk['params'][k], ref['params'][k])
+                   for rk in ranks for k in ref['params'])
+        same = all(torch.equal(ranks[0]['params'][k], ranks[1]['params'][k])
+                   for k in ref['params'])
+        derr = [max(max_err(rk['dispatch'][i], ref['dispatch'][i])
+                    for rk in ranks) for i in range(2)]
+        masks = all(torch.equal(rk['dispatch'][2], ref['dispatch'][2])
+                    for rk in ranks)
+        out.update(dp_metrics=[rk['metrics'] for rk in ranks],
+                   single_metrics=ref['metrics'], max_rel_diff=rel,
+                   params_max_err=perr, ranks_bitwise=same,
+                   video_max_err=derr[0], flow_max_err=derr[1],
+                   masks_equal=masks)
+        out['ok'] = (rel <= 1e-4 and perr <= 1e-4 and same
+                     and derr[0] <= 1e-5 and derr[1] <= 1e-4 and masks)
+        rec['phase8_two_ranks'] = out
+        log('8 two ranks', json.dumps(out))
+        if not out['ok']:
+            raise AssertionError(f'two gloo ranks on one card: {out}')
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _category(kernel_name):
     k = kernel_name.lower()
     for cat, keys in (('attention kernel (K1/K2/K5)', ('attention_kernel',
@@ -2991,31 +3540,42 @@ def hgmma_counts(lib_path):
     return counts
 
 
+def _profiled(torch, fn):
+    """(profiler, wall ms) of one call of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
+
+
+def _summary(prof, wall_ms):
+    """Device busy time, idle share, time by kernel class and the top
+    kernels of a profiled call; 'not measured' without device time."""
+    kernels_us = _device_us(prof)
+    busy_ms = sum(kernels_us.values()) / 1e3
+    if busy_ms <= 0:
+        return 'not measured (no device time in the trace)'
+    cats = {}
+    for k, us in kernels_us.items():
+        cats[_category(k)] = cats.get(_category(k), 0) + us / 1e3
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=max(0.0, 1 - busy_ms / wall_ms),
+                by_category_ms=dict(sorted(cats.items(),
+                                           key=lambda kv: -kv[1])),
+                top_kernels_ms=[[k[:90], us / 1e3] for k, us in top])
+
+
 def profile_dispatch(torch, fn):
     """Device time by kernel of one dispatch (or train step) under
     torch.profiler, and the device's busy share of its wall time. A measurement, not a
     check: a profiler that records no device time gives 'not measured'."""
     try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels_us = _device_us(prof)
-        busy_ms = sum(kernels_us.values()) / 1e3
-        if busy_ms <= 0:
-            return 'not measured (no device time in the trace)'
-        cats = {}
-        for k, us in kernels_us.items():
-            cats[_category(k)] = cats.get(_category(k), 0) + us / 1e3
-        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]
-        return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                    idle_share=max(0.0, 1 - busy_ms / wall_ms),
-                    by_category_ms=dict(sorted(cats.items(),
-                                               key=lambda kv: -kv[1])),
-                    top_kernels_ms=[[k[:90], us / 1e3] for k, us in top])
+        return _summary(*_profiled(torch, fn))
     except Exception as e:  # the trace is optional; report why it is absent
         return f'not measured ({type(e).__name__}: {e})'
 
@@ -3109,8 +3669,9 @@ def main():
                            torch, port, rec)
         torch.backends.cudnn.allow_tf32 = True
         full = phase('5 full width', full_width, torch, port, rec, smi)
-        movability = imu = serving = None
+        movability = imu = serving = ctx5 = None
         if full is not None:
+            ctx5 = full[1]
             phase('5b generator', generator_phase, torch, port, rec, smi,
                   full[1])
             movability = phase('5c movability', movability_phase, torch,
@@ -3126,6 +3687,14 @@ def main():
         torch.cuda.empty_cache()
         trainers = phase('6b trainers', full_trainers, torch, port, rec, smi)
         phase('6c shards', shard_resume, torch, port, rec, smi)
+        torch.cuda.empty_cache()
+        raft_train = phase('8 raft', raft_trainer, torch, port, rec, smi)
+        phase('8 small raft train', small_raft_train, torch, port, rec)
+        world1 = None
+        if ctx5 is not None:
+            world1 = phase('8 world 1', world_one, torch, port, rec, smi,
+                           ctx5)
+        phase('8 two ranks', two_ranks, torch, port, rec, smi)
         phase('7 convc1', convc1_kernels, torch, rec)
     rec['failed'] = failed
     if args.record:
@@ -3150,7 +3719,9 @@ def main():
     # phase 6b (K5, K6 at the ChannelMAE and imu400 shapes), phase 4's
     # three steps of the small conjoined trainer and the tiny ChannelMAE's
     # predict_image (the padded head dims); beside them, the kernel's
-    # launches on every path
+    # launches on every path, the phase 8 paths included: a RAFT train step
+    # (none: the gather lookup), the keypoint teacher of train_raft, the dp
+    # step and the sample-sharded dispatch at world size 1
     paths = dict(dispatch=full[0]['launches'],
                  movability_call=movability['launches_per_call'],
                  imu_motion_map=imu['a']['launches'],
@@ -3169,7 +3740,14 @@ def main():
                  imu400_train_step=trainers['train_conjoined imu400'][
                      'launches_per_step'][-1],
                  small_conjoined_3_steps=small_conj,
-                 tiny_cmae_predict_image=cmae_predict)
+                 tiny_cmae_predict_image=cmae_predict,
+                 raft_train_step=raft_train['flow']['launches_per_step'][-1],
+                 raft_keypoint_teacher=raft_train['keypoint'][
+                     'teacher_launches'],
+                 dp_train_step_world1=world1['train']['launches_per_step'][
+                     -1],
+                 sample_sharded_dispatch_world1=world1['dispatch'][
+                     'launches'])
     table = []
     for kid, kernel, dtype, case, path, replaces in (
             ('K1', 'flash_attention', 'bfloat16', 'encoder prefix',

@@ -7,12 +7,15 @@ each level, in the reference's [x-offset, y-offset] order -- is the
 hand-written kernel of ``csrc/window_lookup.cu`` on CUDA tensors, one launch
 for all levels of a ``lookup_pyramid`` call (``window_lookup`` is its
 one-level call), and the plain versions ``_lookup_pyramid`` and
-``_window_lookup`` on the CPU.
+``_window_lookup`` on the CPU. The kernel has no backward: training runs
+the plain version by name (``impl='gather'``, differentiable through the
+levels and the coordinates), and the kernel refuses inputs that autograd
+records.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +28,8 @@ from ... import kernels
 MAX_LEVELS = 4
 RADII = (3, 4)
 OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+IMPLS = (None, 'kernel', 'gather')
 
 _lib = None
 
@@ -161,6 +166,16 @@ def _launch(levels: Sequence[torch.Tensor], x_ptr: int, y_ptr: int,
     return out
 
 
+def _refuse_autograd(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """The lookup kernel defines no backward: raise where autograd would
+    record its call, instead of returning a result without a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f'{name}: the lookup kernel has no backward, and its inputs '
+            "require grad. Differentiate through impl='gather' (a RAFT "
+            "with corr_lookup='gather'), or call it under torch.no_grad()")
+
+
 def window_lookup(level: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                   radius: int) -> torch.Tensor:
     """Bilinear (2r+1)^2 window of each query on its UNPADDED level row.
@@ -173,6 +188,7 @@ def window_lookup(level: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if level.device.type == 'cpu':
         return _window_lookup(pad_pyramid([level], radius)[0], x, y, radius,
                               h, w)
+    _refuse_autograd('window_lookup', [level, x, y])
     _check_kernel_inputs('window_lookup', [level], [x, y], n, radius,
                          torch.float32)
     if x.shape != (n,) or y.shape != (n,):
@@ -200,17 +216,29 @@ def _lookup_pyramid(pyramid: List[torch.Tensor], coords: torch.Tensor,
 
 
 def lookup_pyramid(pyramid: List[torch.Tensor], coords: torch.Tensor,
-                   radius: int, out_dtype: torch.dtype = torch.float32
-                   ) -> torch.Tensor:
+                   radius: int, out_dtype: torch.dtype = torch.float32,
+                   impl: Optional[str] = None) -> torch.Tensor:
     """Index the (unpadded) correlation pyramid around coords [B, H, W, 2]
     (x, y) at 1/8 resolution. Returns [B, H, W, levels * (2r+1)^2], levels
     outer; within a level, offset (i, j) row-major where i offsets x.
 
     The sums are f32; ``out_dtype`` is the dtype of the result (bf16 for a
     consumer that computes in bf16: the f32 result rounded to nearest even).
-    CUDA: one launch of the lookup kernel for all levels, which reads coords
-    in place; CPU: ``_lookup_pyramid``."""
-    if coords.device.type == 'cpu':
+
+    impl (the JAX package's): 'gather' is the plain ``_lookup_pyramid`` on
+    any device, differentiable through the levels and the coordinates;
+    'kernel' the CUDA kernel, one launch for all levels, which reads coords
+    in place; None routes by device (the kernel on CUDA). The kernel has no
+    backward, so where it would run (impl 'kernel', or None on CUDA) while
+    autograd records the pyramid or the coords this raises RuntimeError on
+    any device. On CPU tensors the plain version runs."""
+    if impl not in IMPLS:
+        raise ValueError(f'lookup_pyramid: impl must be one of {IMPLS}: '
+                         f'{impl!r}')
+    on_cpu = coords.device.type == 'cpu'
+    if impl == 'kernel' or (impl is None and not on_cpu):
+        _refuse_autograd('lookup_pyramid', [coords, *pyramid])
+    if impl == 'gather' or on_cpu:
         return _lookup_pyramid(pyramid, coords, radius).to(out_dtype)
     b, h, w, two = coords.shape
     n = b * h * w

@@ -28,7 +28,14 @@ class Conv2d(nn.Conv2d):
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm2d in eval mode; the buffers hold the running stats."""
+    """BatchNorm2d in eval mode; the buffers hold the running stats.
+
+    The JAX package declares all four as parameters, so its RAFT training
+    differentiates and updates them (AdamW, weight decay included).
+    ``train_stats`` turns them into parameters under the same names, which
+    keeps the state dict's keys: a RAFT train state calls it, inference
+    never does."""
+    STATS = ('weight', 'bias', 'running_mean', 'running_var')
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -39,6 +46,14 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(features))
         self.register_buffer('num_batches_tracked',
                              torch.zeros((), dtype=torch.long))
+
+    def train_stats(self) -> None:
+        """Make weight, bias, running_mean and running_var trainable
+        parameters (their values unchanged); a no-op the second time."""
+        for name in self.STATS:
+            if name in self._buffers:
+                value = self._buffers.pop(name)
+                self.register_parameter(name, nn.Parameter(value))
 
     def forward(self, x):
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight

@@ -11,7 +11,9 @@ correlation volume and the coordinates stay f32. Every
 refinement iteration looks the correlation pyramid up with one launch of
 the window-lookup kernel on CUDA (radius 4 for the large model, 3 for the
 small one), which sums in f32 and writes the compute dtype that ``convc1``
-reads.
+reads. Training runs the plain gather lookup instead
+(``corr_lookup='gather'``), the one the JAX package differentiates: the
+kernel has no backward.
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..._device import resolve_device
-from .corr import all_pairs_correlation, build_pyramid, lookup_pyramid
-from .layers import (BasicEncoder, BasicUpdateBlock, Conv2d, SmallEncoder,
-                     SmallUpdateBlock)
+from .corr import IMPLS, all_pairs_correlation, build_pyramid, lookup_pyramid
+from .layers import (BasicEncoder, BasicUpdateBlock, Conv2d, FrozenBatchNorm,
+                     SmallEncoder, SmallUpdateBlock)
 
 
 def coords_grid(b: int, h: int, w: int, device='cpu',
@@ -71,13 +73,26 @@ class RAFT(nn.Module):
     forward(image1, image2): NCHW [B, 3, H, W] images in [0, 255]; image1
     may have batch 1 against a batch-S image2 (a shared frame 0: encoded
     once and broadcast). Returns (flow_lr [B, 2, H/8, W/8], flow_up
-    [B, 2 or output_dim, H, W])."""
+    [B, 2 or output_dim, H, W]); with ``with_sequence`` also every
+    iteration's upsampled flow [iters, B, 2, H, W] (the sequence loss'
+    input; the last entry is the final flow).
+
+    corr_lookup (the JAX package's attribute): None routes the lookup by
+    device (the kernel on CUDA); 'kernel' forces the kernel, 'gather' the
+    plain differentiable lookup on every device (corr.lookup_pyramid's
+    ``impl``). The refinement keeps the graph through coords1 across
+    iterations, as the JAX package's does (no detach)."""
 
     def __init__(self, corr_levels: int = 4, corr_radius: Optional[int] = None,
                  iters: int = 24, dtype=torch.float32, device='cuda',
-                 small: bool = False, output_dim: Optional[int] = None):
+                 small: bool = False, output_dim: Optional[int] = None,
+                 corr_lookup: Optional[str] = None):
         super().__init__()
         device = resolve_device(device)
+        if corr_lookup not in IMPLS:
+            raise ValueError(f'corr_lookup must be one of {IMPLS}: '
+                             f'{corr_lookup!r}')
+        self.corr_lookup = corr_lookup
         self.small = small
         self.output_dim = output_dim
         self.corr_levels = corr_levels
@@ -107,7 +122,17 @@ class RAFT(nn.Module):
                 Conv2d(hid, output_dim, 1, compute_dtype=dtype))
         self.to(device)
 
-    def forward(self, image1, image2, iters: Optional[int] = None):
+    def train_norm_stats(self) -> 'RAFT':
+        """Make every frozen batch norm's statistics trainable parameters,
+        as the JAX package's are (its RAFT training updates them). The
+        state dict keeps its keys. Returns the module."""
+        for m in self.modules():
+            if isinstance(m, FrozenBatchNorm):
+                m.train_stats()
+        return self
+
+    def forward(self, image1, image2, iters: Optional[int] = None,
+                with_sequence: bool = False):
         iters = self.iters if iters is None else iters
         hdim = self.hidden_dim
         x1 = 2 * (image1 / 255.0) - 1.0
@@ -141,9 +166,11 @@ class RAFT(nn.Module):
         if not self.small:
             up_mask = torch.zeros(b, h8, w8, 9 * 64, dtype=self.dtype,
                                   device=net.device)
+        seq = []
         for _ in range(iters):
+            # positional arguments: spies that wrap lookup_pyramid take *a
             corr_feat = lookup_pyramid(pyramid, coords1, self.radius,
-                                       self.dtype)
+                                       self.dtype, self.corr_lookup)
             flow = coords1 - coords0
             net, mask, delta = self.update_block(
                 net, inp, corr_feat.permute(0, 3, 1, 2),
@@ -151,14 +178,23 @@ class RAFT(nn.Module):
             coords1 = coords1 + delta.permute(0, 2, 3, 1)
             if mask is not None:
                 up_mask = mask.permute(0, 2, 3, 1)
+            if with_sequence:
+                seq.append(self._upsample(coords1 - coords0, up_mask))
 
         flow_lr = coords1 - coords0
         out = flow_lr
         if self.output_dim is not None:
             out = self.output_block(net).permute(0, 2, 3, 1)
-        flow_up = upflow8(out) if self.small else convex_upsample(out,
-                                                                  up_mask)
-        return flow_lr.permute(0, 3, 1, 2), flow_up.permute(0, 3, 1, 2)
+        outputs = (flow_lr.permute(0, 3, 1, 2), self._upsample(out, up_mask))
+        if with_sequence:
+            outputs += (torch.stack(seq),)
+        return outputs
+
+    def _upsample(self, out, up_mask):
+        """[B, h, w, C] at 1/8 -> [B, C, H, W]: bilinear for the small
+        model, convex with the last iteration's mask for the large one."""
+        up = upflow8(out) if self.small else convex_upsample(out, up_mask)
+        return up.permute(0, 3, 1, 2)
 
 
 @torch.no_grad()

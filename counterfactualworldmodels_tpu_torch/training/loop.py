@@ -1,23 +1,39 @@
-"""What the three training entry points (train_vmae, train_cmae,
-train_conjoined) share: their common flags, the checkpoint resume, the
-per-step mask generator, the shard loader and the logged step loop (the
-loop of the JAX package's scripts/train_*.py on one card).
+"""What the training entry points (train_vmae, train_cmae, train_conjoined,
+train_raft) share: their common flags, data parallelism over processes,
+the checkpoint resume, the per-step mask generator, the shard loader and
+the logged step loop (the loop of the JAX package's scripts/train_*.py).
 
 Resume is exact: a trainer restarted from a checkpoint at step s draws the
 masks and reads the batches the uninterrupted run drew and read from step
 s on. Each step's masks come from a generator seeded from (seed, step), and
 the data stream starts at batch s.
+
+``--dp N`` runs one process per card, launched by torchrun:
+
+    torchrun --nproc_per_node=N -m \\
+        counterfactualworldmodels_tpu_torch.training.train_vmae --dp N ...
+
+Each rank feeds its share of the global ``--batch-size`` from its own data
+stream (seeded ``seed + 100003 * rank``); the masks are drawn for the
+global batch from the shared seed and sliced by rank; the sharded step
+averages the gradients over the ranks. Rank 0 alone prints, logs metrics
+and writes checkpoints; every rank restores them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..data.shards import NativeClipLoader, open_loader
+from ..parallel.mesh import TP_SLICE, make_mesh
+from ..parallel.multihost import (host_local_batch_to_global,
+                                  initialize_distributed)
 from ..utils.checkpoint import CheckpointManager
 from ..utils.profiling import MetricsLogger, StepTraceWindow
 
@@ -44,10 +60,16 @@ def add_common_args(ap: argparse.ArgumentParser, batch_size: int,
                          '3 warm-up steps (Chrome trace, view in Perfetto)')
     ap.add_argument('--accum-steps', type=int, default=1,
                     help='gradient-accumulation microbatches per step')
-    ap.add_argument('--dp', type=int, default=0,
-                    help='data-parallel size: only 0 or 1 (one card) so far')
+    add_device_args(ap)
     ap.add_argument('--tp', type=int, default=1,
-                    help='tensor-parallel size: only 1 (one card) so far')
+                    help='tensor-parallel size: only 1 so far')
+
+
+def add_device_args(ap: argparse.ArgumentParser) -> None:
+    """--dp and --device, which every trainer takes."""
+    ap.add_argument('--dp', type=int, default=0,
+                    help='data-parallel size, one process per card '
+                         '(torchrun --nproc_per_node=N); 0 = every process')
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (bf16, flash attention) or 'cpu' (f32, "
                          'the plain PyTorch path)')
@@ -55,12 +77,60 @@ def add_common_args(ap: argparse.ArgumentParser, batch_size: int,
 
 def check_args(args) -> None:
     """Refuse what the port does not run yet, and a run without data."""
-    if args.dp not in (0, 1) or args.tp != 1:
-        raise SystemExit('--dp/--tp beyond one card need the parallel '
-                         'package, not ported yet (ROADMAP.md, queue 1 '
-                         'item 11)')
+    if args.tp != 1:
+        raise SystemExit(f'--tp {args.tp}: {TP_SLICE}')
     if not args.synthetic and not args.shard:
         raise SystemExit('pass --shard PATH or --synthetic')
+
+
+def is_main() -> bool:
+    """Rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def say(*msg) -> None:
+    """print on rank 0 only."""
+    if is_main():
+        print(*msg, flush=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """A trainer's share of the work: ``mesh`` (a 'dp' mesh over the
+    ``size`` ranks, None on one process), this rank's ``batch_size`` of the
+    global one and the seed of its own data stream."""
+    mesh: Optional[object]
+    size: int
+    batch_size: int
+    data_seed: int
+
+    def put(self, x, device, global_size: int) -> torch.Tensor:
+        """This rank's batch on ``device``, its global size checked."""
+        if self.mesh is None:
+            return torch.as_tensor(x).to(device)
+        return host_local_batch_to_global(self.mesh, 'dp', x, device,
+                                          global_size)
+
+
+def data_parallel(args, device: torch.device) -> DataParallel:
+    """Bring up the process group when torchrun started this process
+    (parallel.initialize_distributed; the backend follows ``device``) and
+    size the data parallelism: ``--dp 0`` is every process, and --dp must
+    equal the world size (one process per card) and divide --batch-size."""
+    initialize_distributed(device=device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    dp = args.dp or world
+    if dp != world:
+        raise SystemExit(f'--dp {dp} needs {dp} processes, one per card, and '
+                         f'this run has {world}: launch with torchrun '
+                         f'--nproc_per_node={dp}')
+    if args.batch_size % dp:
+        raise SystemExit(f'--dp {dp} must divide --batch-size '
+                         f'{args.batch_size}')
+    mesh = make_mesh({'dp': dp}) if dp > 1 else None
+    return DataParallel(mesh, dp, args.batch_size // dp,
+                        args.seed + 100003 * rank)
 
 
 def dtype_and_attn(device: torch.device):
@@ -85,19 +155,19 @@ def resume(args, state):
         else None
     if ckpt is not None and ckpt.latest_step() is not None:
         state = ckpt.restore_latest(state)
-        print(f'resumed from step {state.step}', flush=True)
+        say(f'resumed from step {state.step}')
     return ckpt, state, state.step
 
 
-def shard_loader(args, crop, start_step: int, **kwargs):
-    """The shard's loader, starting at batch ``start_step``; prints which
-    loader runs."""
-    loader = open_loader(args.shard, batch_size=args.batch_size,
-                         crop_size=crop, seed=args.seed,
-                         start_batch=start_step, **kwargs)
+def shard_loader(args, crop, start_step: int, batch_size: int, seed: int,
+                 **kwargs):
+    """The shard's loader of ``batch_size`` clips a batch from the stream
+    ``seed``, starting at batch ``start_step``; prints which loader runs."""
+    loader = open_loader(args.shard, batch_size=batch_size, crop_size=crop,
+                         seed=seed, start_batch=start_step, **kwargs)
     where = (f' ({loader.library})' if isinstance(loader, NativeClipLoader)
              else '')
-    print(f'loader={type(loader).__name__}{where}', flush=True)
+    say(f'loader={type(loader).__name__}{where}')
     return loader
 
 
@@ -106,11 +176,16 @@ def run(args, state, ckpt: Optional[CheckpointManager], start_step: int,
     """The training loop: ``step_fn(state, step) -> (state, metrics)`` for
     each step from ``start_step`` to ``args.steps``; a JSON line (and a
     metrics record) every ``--log-every`` steps and at the last, with
-    sec/step and ``rate_key`` (samples per second); checkpoints every
-    ``--checkpoint-every`` steps and at the end; the profiler window.
-    Returns the logged records."""
-    metrics_log = MetricsLogger(args.metrics) if args.metrics else None
-    tracer = StepTraceWindow(args.profile_dir, start_step)
+    sec/step and ``rate_key`` (samples of the global batch per second);
+    checkpoints every ``--checkpoint-every`` steps and at the end; the
+    profiler window. Every rank runs the steps; rank 0 alone prints, logs
+    and saves. Returns the logged records."""
+    main = is_main()
+    if not main:
+        ckpt = None
+    metrics_log = MetricsLogger(args.metrics) if args.metrics and main \
+        else None
+    tracer = StepTraceWindow(args.profile_dir if main else None, start_step)
     records = []
     t0, last = time.time(), start_step
     for step in range(start_step, args.steps):
@@ -124,7 +199,9 @@ def run(args, state, ckpt: Optional[CheckpointManager], start_step: int,
                    'grad_norm': float(metrics['grad_norm']),
                    'sec_per_step': round(dt, 4),
                    rate_key: round(args.batch_size / dt, 2)}
-            print(json.dumps(rec), flush=True)
+            if 'epe' in metrics:
+                rec['epe'] = float(metrics['epe'])
+            say(json.dumps(rec))
             records.append(rec)
             if metrics_log:
                 metrics_log.log(**rec)
@@ -133,5 +210,9 @@ def run(args, state, ckpt: Optional[CheckpointManager], start_step: int,
     if ckpt is not None and state.step not in ckpt.all_steps():
         ckpt.save(state.step, state)
     tracer.close()
-    print('done', flush=True)
+    if dist.is_initialized():
+        # every rank returns with rank 0's last checkpoint on disk, so a
+        # run started next resumes from it on every rank
+        dist.barrier()
+    say('done')
     return records

@@ -15,8 +15,11 @@ which return a new state, the port's steps update the parameters, the
 optimizer moments and the step count in place.
 
 Attention with ``attn_impl='flash'`` trains through the hand-written K5
-forward and K6 backward (ops/flash_attention). The sharded train steps
-come with the parallel package.
+forward and K6 backward (ops/flash_attention). The data-parallel steps
+(``make_sharded_*``: a mesh axis 'dp' over the ranks of a process group,
+one process per card) run the same step on each rank's share of the
+batch and average the gradients over the axis before the clipping and the
+AdamW update, so every rank takes the global batch's step.
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ from ..models.vmae import (PretrainVisionTransformer, init_params, mask_order,
                            take_tokens)
 from ..ops.normalization import imagenet_normalize
 from ..ops.patches import patchify
+from ..parallel.mesh import (TP_SLICE, BatchSharding, axis_size, replicate,
+                             replicate_tensors_)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -241,15 +246,18 @@ def _fill_grads(params):
 
 
 def accumulated_grads(loss_fn: Callable, model: nn.Module, accum_steps: int,
-                      *batch_args):
+                      *batch_args, has_aux: bool = False):
     """Gradient accumulation over ``accum_steps`` equal microbatches.
 
-    loss_fn(model, *microbatch) -> scalar; every tensor in ``batch_args``
-    splits on its leading axis. Each microbatch's backward adds into the
-    parameters' ``.grad`` (peak activation memory of one microbatch); the
-    sum is then divided by ``accum_steps``, which for a mean loss over
-    equal microbatches is the full-batch gradient. Returns the loss
-    averaged over microbatches; the gradients are left in ``.grad``."""
+    loss_fn(model, *microbatch) -> scalar, or (scalar, aux scalar) with
+    ``has_aux``; every tensor in ``batch_args`` splits on its leading axis.
+    Each microbatch's backward adds into the parameters' ``.grad`` (peak
+    activation memory of one microbatch); the sum is then divided by
+    ``accum_steps``, which for a mean loss over equal microbatches is the
+    full-batch gradient. Returns the loss averaged over microbatches, or
+    with ``has_aux`` (loss, aux, grads) as the JAX package's does: the
+    loss and aux averaged, grads the parameters' ``.grad`` (which keep
+    them)."""
     if accum_steps < 1:
         raise ValueError(f'accum_steps must be >= 1: {accum_steps}')
     b = batch_args[0].shape[0]
@@ -259,15 +267,21 @@ def accumulated_grads(loss_fn: Callable, model: nn.Module, accum_steps: int,
     mb = b // accum_steps
     params = list(model.parameters())
     _zero_grads(params)
-    loss_sum = 0.0
+    loss_sum, aux_sum = 0.0, 0.0
     for i in range(accum_steps):
-        loss = loss_fn(model, *(a[i * mb:(i + 1) * mb] for a in batch_args))
+        out = loss_fn(model, *(a[i * mb:(i + 1) * mb] for a in batch_args))
+        loss, aux = out if has_aux else (out, None)
         loss.backward()
         loss_sum = loss_sum + loss.detach()
+        if has_aux:
+            aux_sum = aux_sum + aux.detach()
     _fill_grads(params)
     for p in params:
         p.grad.div_(accum_steps)
-    return loss_sum / accum_steps
+    if not has_aux:
+        return loss_sum / accum_steps
+    return (loss_sum / accum_steps, aux_sum / accum_steps,
+            [p.grad for p in params])
 
 
 def _check_model(state: TrainState, model: nn.Module):
@@ -281,22 +295,31 @@ def _on(device, *arrays):
 
 
 def _update(state: TrainState, optimizer: Optimizer, loss_fn: Callable,
-            accum_steps: int, batch):
+            accum_steps: int, batch, aux_name: Optional[str] = None):
     """One optimizer step of loss_fn(model, *batch) on ``state``, in place:
     the gradients (over ``accum_steps`` microbatches), the clipped AdamW
-    update and the step count. Returns (state, {'loss', 'grad_norm'})."""
+    update and the step count. With ``aux_name`` loss_fn returns (loss,
+    aux) and the metrics carry aux under that name. Returns (state,
+    {'loss', 'grad_norm'[, aux_name]})."""
     params = list(state.model.parameters())
+    has_aux = aux_name is not None
     if accum_steps > 1:
-        loss = accumulated_grads(loss_fn, state.model, accum_steps, *batch)
+        out = accumulated_grads(loss_fn, state.model, accum_steps, *batch,
+                                has_aux=has_aux)
+        loss, aux = out[:2] if has_aux else (out, None)
     else:
         _zero_grads(params)
-        loss = loss_fn(state.model, *batch)
+        out = loss_fn(state.model, *batch)
+        loss, aux = out if has_aux else (out, None)
         loss.backward()
         loss = loss.detach()
         _fill_grads(params)
     gnorm = optimizer.update(state.opt_state, params, state.step)
     state.step += 1
-    return state, {'loss': loss, 'grad_norm': gnorm}
+    metrics = {'loss': loss, 'grad_norm': gnorm}
+    if has_aux:
+        metrics[aux_name] = aux.detach()
+    return state, metrics
 
 
 def make_train_step(model: PretrainVisionTransformer, optimizer: Optimizer,
@@ -458,3 +481,125 @@ def make_conjoined_train_step(model: nn.Module, optimizer: Optimizer,
         return train_step(state, x, mask, xc, mc)
 
     return train_step_keyed
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: the sharded steps over a mesh axis 'dp' (tp = 1)
+# ---------------------------------------------------------------------------
+
+def data_parallel(mesh) -> BatchSharding:
+    """The batch split over the mesh's axis 'dp' (JAX's data_sharding);
+    raises ValueError for an axis 'tp' above 1 or a mesh without 'dp'."""
+    names = mesh.mesh_dim_names
+    if 'tp' in names and axis_size(mesh, 'tp') > 1:
+        raise ValueError(TP_SLICE)
+    if 'dp' not in names:
+        raise ValueError(f"the mesh {names} has no axis 'dp'")
+    return BatchSharding(mesh, 'dp')
+
+
+class _AllReduceOptimizer:
+    """``optimizer`` with the gradients averaged over the dp axis first
+    (one all_reduce of the gradients flattened), so the clipping norm and
+    the AdamW update are the global batch's and the same bits on every
+    rank."""
+
+    def __init__(self, optimizer: Optimizer, dp: BatchSharding):
+        self.optimizer, self.dp = optimizer, dp
+
+    def update(self, opt, params, step: int):
+        self.dp.mean_([p.grad for p in params])
+        return self.optimizer.update(opt, params, step)
+
+
+def _shard_state(mesh):
+    """shard_state(state): every rank takes the mesh's first rank's
+    parameters, buffers, optimizer moments and step count, in place."""
+    def shard_state(state: TrainState) -> TrainState:
+        replicate(state.model, mesh)
+        opt = state.opt_state
+        replicate_tensors_(
+            [v for g in opt.param_groups for p in g['params']
+             for _, v in sorted(opt.state.get(p, {}).items())
+             if isinstance(v, torch.Tensor)], mesh)
+        step = torch.tensor([state.step], dtype=torch.long)
+        replicate_tensors_([step], mesh)
+        state.step = int(step)
+        return state
+    return shard_state
+
+
+def _dp_step(step: Callable, dp: BatchSharding,
+             mask_fn: Optional[Callable] = None,
+             arrange: Callable = lambda inputs, masks: (*inputs, *masks)):
+    """``step(state, *batch)`` on this rank's share of the batch, with the
+    loss (and aux) averaged over the axis for the metrics. With mask_fn the
+    returned step takes (state, *inputs, generator): every rank draws the
+    global batch's masks from its generator (seeded alike on every rank)
+    and keeps its rows; ``arrange(inputs, masks)`` orders the step's
+    arguments."""
+    def averaged(state, *batch):
+        state, metrics = step(state, *batch)
+        dp.mean_([v for k, v in metrics.items() if k != 'grad_norm'])
+        return state, metrics
+
+    if mask_fn is None:
+        return averaged
+
+    def keyed(state, *args):
+        *inputs, generator = args
+        masks = mask_fn(generator, inputs[0].shape[0] * dp.size)
+        masks = masks if isinstance(masks, tuple) else (masks,)
+        return averaged(state, *arrange(inputs,
+                                        [dp.local(m) for m in masks]))
+    return keyed
+
+
+def make_sharded_train_step(model: PretrainVisionTransformer,
+                            optimizer: Optimizer, mesh, n_vis: int,
+                            remat=True, mask_fn: Optional[Callable] = None,
+                            accum_steps: int = 1, device='cuda',
+                            **loss_kwargs):
+    """The VMAE step data-parallel over the mesh's axis 'dp' (tp = 1).
+    Returns (step, shard_state, data_sharding): ``step(state, x, mask)``
+    (with mask_fn ``step(state, x, generator)``) takes this rank's rows of
+    the batch, ``shard_state(state)`` gives every rank the first rank's
+    state, and ``data_sharding`` (a BatchSharding) says which rows are this
+    rank's. The result on every rank is the single-process step on the
+    global batch."""
+    dp = data_parallel(mesh)
+    step = make_train_step(model, _AllReduceOptimizer(optimizer, dp), n_vis,
+                           remat=remat, accum_steps=accum_steps,
+                           device=device, **loss_kwargs)
+    return _dp_step(step, dp, mask_fn), _shard_state(mesh), dp
+
+
+def make_sharded_cmae_train_step(model: nn.Module, optimizer: Optimizer,
+                                 mesh, n_vis: int, group_masked_counts,
+                                 remat=True,
+                                 mask_fn: Optional[Callable] = None,
+                                 accum_steps: int = 1):
+    """The ChannelMAE step data-parallel over 'dp', as
+    make_sharded_train_step: (step, shard_state, data_sharding)."""
+    dp = data_parallel(mesh)
+    step = make_cmae_train_step(model, _AllReduceOptimizer(optimizer, dp),
+                                n_vis, group_masked_counts, remat=remat,
+                                accum_steps=accum_steps)
+    return _dp_step(step, dp, mask_fn), _shard_state(mesh), dp
+
+
+def make_sharded_conjoined_train_step(model: nn.Module, optimizer: Optimizer,
+                                      mesh, n_vis: int, n_vis_context: int,
+                                      remat=True,
+                                      mask_fn: Optional[Callable] = None,
+                                      accum_steps: int = 1, **loss_kwargs):
+    """The conjoined step data-parallel over 'dp': step(state, x, mask,
+    x_context, mask_context), with mask_fn step(state, x, x_context,
+    generator); (step, shard_state, data_sharding)."""
+    dp = data_parallel(mesh)
+    step = make_conjoined_train_step(
+        model, _AllReduceOptimizer(optimizer, dp), n_vis, n_vis_context,
+        remat=remat, accum_steps=accum_steps, **loss_kwargs)
+    return (_dp_step(step, dp, mask_fn,
+                     lambda ins, ms: (ins[0], ms[0], ins[1], ms[1])),
+            _shard_state(mesh), dp)

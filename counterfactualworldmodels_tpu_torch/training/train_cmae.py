@@ -1,8 +1,9 @@
-"""Train a ChannelMAE (masked channel-group reconstruction) on one card.
+"""Train a ChannelMAE (masked channel-group reconstruction).
 
 Port of scripts/train_cmae.py: per-group uniform masking, the masked
 patches' MSE summed over channel groups, AdamW with the cosine schedule,
-rolling checkpoints with exact resume and JSONL metrics (training/loop.py).
+rolling checkpoints with exact resume, JSONL metrics and ``--dp`` over
+processes (training/loop.py).
 
 Data: a clip shard (one frame per clip) or synthetic images (a coarse 8x8
 noise image resized bilinearly). With ``--with-flow`` each clip's 2-frame
@@ -89,9 +90,11 @@ def make_flow_fn(args, device: torch.device):
     return flow_fn
 
 
-def make_data(args, device: torch.device, start_step: int = 0):
+def make_data(args, device: torch.device, start_step: int, batch_size: int,
+              seed: int):
     """Yields [B, C_total, H, W] f32 channel-group batches on ``device``:
-    the image in [0, 1], then (--with-flow) the raw flow channels."""
+    the image in [0, 1], then (--with-flow) the raw flow channels;
+    ``batch_size`` images a batch from the stream ``seed``."""
     flow_fn = make_flow_fn(args, device) if args.with_flow else None
     sz = args.img_size
 
@@ -101,15 +104,15 @@ def make_data(args, device: torch.device, start_step: int = 0):
         return torch.cat([img, flow_fn(img, f1)], dim=1)
 
     if args.synthetic:
-        rng = np.random.RandomState(args.seed + 1)
+        rng = np.random.RandomState(seed + 1)
         for _ in range(start_step):
-            rng.rand(args.batch_size, 3, 8, 8)
+            rng.rand(batch_size, 3, 8, 8)
         while True:
             coarse = torch.from_numpy(
-                rng.rand(args.batch_size, 3, 8, 8).astype(np.float32))
+                rng.rand(batch_size, 3, 8, 8).astype(np.float32))
             img = resize_bilinear(coarse, (sz, sz)).to(device)
             yield with_flow(img, torch.roll(img, 2, dims=-1))
-    loader = loop.shard_loader(args, (sz, sz), start_step)
+    loader = loop.shard_loader(args, (sz, sz), start_step, batch_size, seed)
     for clips in loader:                          # [B, T, C, H, W]
         clips = torch.from_numpy(clips).to(device)
         img = clips[:, 0]
@@ -120,6 +123,7 @@ def main(argv=None):
     args = parse_args(argv)
     loop.check_args(args)
     device = resolve_device(args.device)
+    dp = loop.data_parallel(args, device)
     partition = tuple(int(v) for v in args.partition.split(',') if v)
     if args.with_flow:
         partition = partition + (2,)
@@ -132,22 +136,28 @@ def main(argv=None):
     n_vis = model.num_patches - sum(counts)
     state = T.init_cmae_train_state(model, optimizer, args.seed)
     ckpt, state, start = loop.resume(args, state)
-    print(f'partition={partition} mask_size={model.mask_size} '
-          f'n_vis={n_vis} device={device} dtype={model.dtype} '
-          f'attn={model.attn_impl}', flush=True)
+    loop.say(f'partition={partition} mask_size={model.mask_size} '
+             f'n_vis={n_vis} device={device} dtype={model.dtype} '
+             f'attn={model.attn_impl} dp={dp.size}')
 
     def mask_fn(g, b):
         return cmae.group_uniform_mask(g, model.mask_size, args.mask_ratio,
                                        b)[0]
 
-    train_step = T.make_cmae_train_step(model, optimizer, n_vis, counts,
-                                        remat=not args.no_remat,
-                                        mask_fn=mask_fn,
-                                        accum_steps=args.accum_steps)
-    data = make_data(args, device, start)
+    kw = dict(remat=not args.no_remat, mask_fn=mask_fn,
+              accum_steps=args.accum_steps)
+    if dp.mesh is None:
+        train_step = T.make_cmae_train_step(model, optimizer, n_vis, counts,
+                                            **kw)
+    else:
+        train_step, shard_state, _ = T.make_sharded_cmae_train_step(
+            model, optimizer, dp.mesh, n_vis, counts, **kw)
+        state = shard_state(state)
+    data = make_data(args, device, start, dp.batch_size, dp.data_seed)
 
     def step_fn(state, step):
-        return train_step(state, next(data),
+        batch = dp.put(next(data), device, args.batch_size)
+        return train_step(state, batch,
                           loop.step_generator(device, args.seed, step))
 
     return loop.run(args, state, ckpt, start, step_fn, 'imgs_per_sec')

@@ -1,10 +1,10 @@
-"""Pretrain a conjoined (IMU-conditioned) VMAE on one card.
+"""Pretrain a conjoined (IMU-conditioned) VMAE.
 
 Port of scripts/train_conjoined.py: masked-prediction MSE on the main (RGB)
 stream with the IMU context fully visible
 (training/train.conjoined_prediction_loss), synthetic or shard data,
-rolling checkpoints with exact resume and JSONL metrics
-(training/loop.py). With a shard, the IMU comes from its sidecar
+rolling checkpoints with exact resume, JSONL metrics and ``--dp`` over
+processes (training/loop.py). With a shard, the IMU comes from its sidecar
 (``<shard>.imu``, data/shards.write_imu_sidecar), row by row with the
 loader's clips; without one it is a seeded placeholder.
 
@@ -84,12 +84,12 @@ def mask_sampler(model: conj.ConjoinedVMAE, n_vis: int):
 
 
 def make_data(args, model: conj.ConjoinedVMAE, device: torch.device,
-              start_step: int = 0):
+              start_step: int, batch_size: int, seed: int):
     """Yields (video [B, C, T, H, W] f32 in [0, 1], imu [B, 6, L, 1, 1])
-    on ``device``."""
+    on ``device``: ``batch_size`` clips a batch from the stream ``seed``."""
     sz = args.img_size
     L = model.context.sequence_length
-    rng = np.random.RandomState(args.seed + 1)
+    rng = np.random.RandomState(seed + 1)
 
     def placeholder(b):
         return (rng.randn(b, 6, L) * 0.1).astype(np.float32)
@@ -101,27 +101,27 @@ def make_data(args, model: conj.ConjoinedVMAE, device: torch.device,
 
     if args.synthetic:
         for _ in range(start_step):
-            rng.rand(args.batch_size, 3, 8, 8)
+            rng.rand(batch_size, 3, 8, 8)
             rng.randint(1, 5)
-            placeholder(args.batch_size)
+            placeholder(batch_size)
         while True:
             coarse = torch.from_numpy(
-                rng.rand(args.batch_size, 3, 8, 8).astype(np.float32))
+                rng.rand(batch_size, 3, 8, 8).astype(np.float32))
             img = resize_bilinear(coarse, (sz, sz))
             f2 = torch.roll(img, int(rng.randint(1, 5)), dims=-1)
             yield to_dev(torch.stack([img, f2], dim=2),
-                         placeholder(args.batch_size))
+                         placeholder(batch_size))
     sidecar = read_imu_sidecar(args.shard)
     if sidecar is not None:
         if sidecar.shape[2] != L:
             raise SystemExit(f'IMU sidecar length {sidecar.shape[2]} != the '
                              f'model context sequence_length {L}')
-        print(f'imu sidecar: {sidecar.shape[0]} clips x {sidecar.shape[1]}'
-              f'ch x {sidecar.shape[2]}', flush=True)
+        loop.say(f'imu sidecar: {sidecar.shape[0]} clips x '
+                 f'{sidecar.shape[1]}ch x {sidecar.shape[2]}')
     else:
         for _ in range(start_step):
-            placeholder(args.batch_size)
-    loader = loop.shard_loader(args, (sz, sz), start_step)
+            placeholder(batch_size)
+    loader = loop.shard_loader(args, (sz, sz), start_step, batch_size, seed)
     for clips in loader:                               # [B, T, C, H, W]
         video = torch.from_numpy(clips).transpose(1, 2)
         imu = (sidecar[loader.last_indices] if sidecar is not None
@@ -133,6 +133,7 @@ def main(argv=None):
     args = parse_args(argv)
     loop.check_args(args)
     device = resolve_device(args.device)
+    dp = loop.data_parallel(args, device)
     model = build_model(args, device)
     optimizer = T.make_optimizer(learning_rate=args.lr,
                                  warmup_steps=args.warmup_steps,
@@ -140,22 +141,29 @@ def main(argv=None):
     n = model.main.num_patches
     n_vis = max(1, int(round(n * (1 - args.mask_ratio))))
     n_vis_c = model.context.num_patches + int(model.context.concat_dummy_token)
-    print(f'main tokens={n} n_vis={n_vis} ctx n_vis={n_vis_c} '
-          f'device={device} dtype={model.dtype} attn={model.attn_impl}',
-          flush=True)
+    loop.say(f'main tokens={n} n_vis={n_vis} ctx n_vis={n_vis_c} '
+             f'device={device} dtype={model.dtype} attn={model.attn_impl} '
+             f'dp={dp.size}')
     model.load_state_dict(weights.init_conjoined_state_dict(
         model, torch.Generator(device=device).manual_seed(args.seed)),
         strict=True)
     state = T.TrainState(0, model, optimizer.init(model.parameters()))
     ckpt, state, start = loop.resume(args, state)
-    train_step = T.make_conjoined_train_step(
-        model, optimizer, n_vis, n_vis_c, remat=not args.no_remat,
-        mask_fn=mask_sampler(model, n_vis), accum_steps=args.accum_steps)
-    data = make_data(args, model, device, start)
+    kw = dict(remat=not args.no_remat, mask_fn=mask_sampler(model, n_vis),
+              accum_steps=args.accum_steps)
+    if dp.mesh is None:
+        train_step = T.make_conjoined_train_step(model, optimizer, n_vis,
+                                                 n_vis_c, **kw)
+    else:
+        train_step, shard_state, _ = T.make_sharded_conjoined_train_step(
+            model, optimizer, dp.mesh, n_vis, n_vis_c, **kw)
+        state = shard_state(state)
+    data = make_data(args, model, device, start, dp.batch_size, dp.data_seed)
 
     def step_fn(state, step):
         video, imu = next(data)
-        return train_step(state, video, imu,
+        return train_step(state, dp.put(video, device, args.batch_size),
+                          dp.put(imu, device, args.batch_size),
                           loop.step_generator(device, args.seed, step))
 
     return loop.run(args, state, ckpt, start, step_fn, 'clips_per_sec')

@@ -1,9 +1,9 @@
-"""Train a VMAE with the temporally-factored masking policy on one card.
+"""Train a VMAE with the temporally-factored masking policy.
 
 Port of scripts/train_vmae.py: synthetic clips or a CWMSHARD file through
-the native loader, rolling checkpoints with exact resume, JSONL metrics and
-a profiler window (training/loop.py). Multi-card meshes (--dp/--tp) wait for
-the parallel package.
+the native loader, rolling checkpoints with exact resume, JSONL metrics, a
+profiler window and data parallelism over processes (training/loop.py).
+Tensor parallelism (--tp above 1) comes with the model-sharding slice.
 
     python -m counterfactualworldmodels_tpu_torch.training.train_vmae \\
         --synthetic --model large --batch-size 4 --steps 10
@@ -15,6 +15,11 @@ the parallel package.
     python -m counterfactualworldmodels_tpu_torch.training.train_vmae \\
         --synthetic --model tiny --img-size 32 --batch-size 2 --steps 2 \\
         --device cpu
+
+    # data-parallel over 4 cards, one process each
+    torchrun --nproc_per_node=4 -m \\
+        counterfactualworldmodels_tpu_torch.training.train_vmae \\
+        --synthetic --model large --batch-size 16 --dp 4
 
 On CUDA the model runs in bf16 with the flash attention kernels; on the
 CPU in f32 with dense attention. Prints a JSON line per logged step.
@@ -63,18 +68,19 @@ def build_model(args, device: torch.device):
     return vmae.large_4x4patch_2frames_1tube(dtype=dtype, attn_impl=attn)
 
 
-def make_data(args, start_step: int = 0):
+def make_data(args, start_step: int, batch_size: int, seed: int):
     """Yields [B, T=2, C, H, W] float32 clips in [0, 1] (synthetic: a random
     frame and the same frame shifted by up to 8 px), or the shard loader's
     batches (uint8 [B, T, H, W, C] with --input-mode u8), from step
-    ``start_step`` on."""
+    ``start_step`` on: ``batch_size`` clips a batch from the stream
+    ``seed``."""
     if args.shard:
         crop = (args.img_size, args.img_size)
-        yield from loop.shard_loader(args, crop, start_step,
-                                     out_dtype=args.input_mode)
+        yield from loop.shard_loader(args, crop, start_step, batch_size,
+                                     seed, out_dtype=args.input_mode)
         return
-    rng = np.random.RandomState(args.seed)
-    base = rng.rand(args.batch_size, 1, 3, args.img_size,
+    rng = np.random.RandomState(seed)
+    base = rng.rand(batch_size, 1, 3, args.img_size,
                     args.img_size).astype(np.float32)
     for _ in range(start_step):
         rng.randint(-8, 9, 2)
@@ -88,6 +94,7 @@ def main(argv=None):
     args = parse_args(argv)
     loop.check_args(args)
     device = resolve_device(args.device)
+    dp = loop.data_parallel(args, device)
     model = build_model(args, device)
     optimizer = T.make_optimizer(learning_rate=args.lr,
                                  warmup_steps=args.warmup_steps,
@@ -98,20 +105,24 @@ def main(argv=None):
     ckpt, state, start = loop.resume(args, state)
     name = (torch.cuda.get_device_name(device) if device.type == 'cuda'
             else 'cpu')
-    print(f'device={name} model={args.model} dtype={model.dtype} '
-          f'attn={model.attn_impl} n_vis={n_vis}', flush=True)
+    loop.say(f'device={name} model={args.model} dtype={model.dtype} '
+             f'attn={model.attn_impl} n_vis={n_vis} dp={dp.size}')
 
     def mask_fn(g, b):
         return T.make_batch_masks(g, model, b, args.mask_ratio)[0]
 
-    train_step = T.make_train_step(model, optimizer, n_vis,
-                                   remat=not args.no_remat, mask_fn=mask_fn,
-                                   accum_steps=args.accum_steps,
-                                   device=device)
-    data = make_data(args, start)
+    kw = dict(remat=not args.no_remat, mask_fn=mask_fn,
+              accum_steps=args.accum_steps, device=device)
+    if dp.mesh is None:
+        train_step = T.make_train_step(model, optimizer, n_vis, **kw)
+    else:
+        train_step, shard_state, _ = T.make_sharded_train_step(
+            model, optimizer, dp.mesh, n_vis, **kw)
+        state = shard_state(state)
+    data = make_data(args, start, dp.batch_size, dp.data_seed)
 
     def step_fn(state, step):
-        batch = torch.from_numpy(np.asarray(next(data))).to(device)
+        batch = dp.put(np.asarray(next(data)), device, args.batch_size)
         return train_step(state, batch,
                           loop.step_generator(device, args.seed, step))
 

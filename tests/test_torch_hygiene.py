@@ -433,3 +433,59 @@ def test_cmae_and_conjoined_trainers_raise_without_cuda_unless_cpu():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             call()
     assert cmae.ChannelMae(**kw, device='cpu').mask_token.is_cpu
+
+
+SLICE10 = ('models.raft.corr', 'models.raft.raft', 'training.raft',
+           'training.train_raft', 'training.loop', 'training.train',
+           'parallel', 'parallel.mesh', 'parallel.multihost',
+           'parallel.inference', 'parallel.covariance')
+
+
+def test_raft_training_and_parallel_modules_import_without_jax():
+    """RAFT training and the parallel package import in a fresh process
+    with no JAX and no matplotlib."""
+    code = ('import importlib, sys; '
+            'pkg = "counterfactualworldmodels_tpu_torch."; '
+            f'[importlib.import_module(pkg + m) for m in {SLICE10!r}]; '
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "flax", "optax", "counterfactualworldmodels_tpu", '
+            '"matplotlib")]; '
+            'print(bad); sys.exit(1 if bad else 0)')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_blanket_exception_handler_in_raft_training_and_parallel():
+    """No function of RAFT training or the parallel package goes on after
+    an `except Exception`; parallel/multihost.py, whose JAX counterpart
+    degrades to one process when the rendezvous fails, holds no handler
+    at all: initialize_distributed raises."""
+    root = os.path.dirname(port.__file__)
+    broad = []
+    for mod in SLICE10:
+        path = os.path.join(root, *mod.split('.'))
+        path = (os.path.join(path, '__init__.py') if os.path.isdir(path)
+                else path + '.py')
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                broad += [f'{mod}:{node.name}'
+                          for _ in _broad_handlers(node)]
+    assert broad == []
+    with open(os.path.join(root, 'parallel', 'multihost.py')) as f:
+        tree = ast.parse(f.read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_raft_trainer_raises_without_cuda_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is valid')
+    from counterfactualworldmodels_tpu_torch.training import train_raft
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train_raft.main(['--synthetic', '--steps', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train_raft.main(['--mode', 'keypoint', '--synthetic', '--teacher',
+                         'movability', '--steps', '1'])

@@ -744,3 +744,80 @@ def test_channel_mae_step_on_the_card_matches_the_cpu(dev):
     assert not any(lc.values())
     assert lg['flash_attention_lse'] == 3 * 2 * 3
     assert lg['flash_attention_bwd'] == 3 * 3
+
+
+def test_kernel_lookup_refuses_autograd_on_the_card(dev):
+    """The lookup kernel has no backward: on the card the default routing
+    raises where autograd records the pyramid or the coordinates, and runs
+    (one launch) without recording; impl='gather' differentiates there,
+    with gradients within 1e-5 of the CPU's."""
+    rng = np.random.RandomState(21)
+    c = _rand(rng, 2, 6, 6, 6, 6)
+    coords = torch.from_numpy((rng.rand(2, 6, 6, 2) * 8 - 1).astype(
+        np.float32))
+    cot = _rand(rng, 2, 6, 6, 3 * 81)
+    grads = {}
+    for d in ('cpu', dev):
+        pyr = [lv.to(d).clone().requires_grad_()
+               for lv in corr.build_pyramid(c, 3)]
+        xy = coords.to(d).clone().requires_grad_()
+        if d == dev:
+            with pytest.raises(RuntimeError, match="impl='gather'"):
+                corr.lookup_pyramid(pyr, xy, 4)
+            kernels.reset_launches()
+            with torch.no_grad():
+                corr.lookup_pyramid(pyr, xy, 4)
+            assert kernels.LAUNCHES['window_lookup'] == 1
+        out = corr.lookup_pyramid(pyr, xy, 4, impl='gather')
+        (out * cot.to(d)).sum().backward()
+        grads[str(d)] = [t.grad.cpu() for t in pyr + [xy]]
+    for a, b in zip(grads['cpu'], grads['cuda']):
+        assert _err(a, b) <= 1e-5
+    from counterfactualworldmodels_tpu_torch.models.raft import raft as traft
+    model = traft.RAFT(iters=1, small=True, device=dev)
+    im = torch.rand(1, 3, 64, 64, device=dev) * 255
+    with pytest.raises(RuntimeError, match='no backward'):
+        model(im, im)
+    with torch.no_grad():
+        model(im, im)
+
+
+def test_small_raft_train_steps_on_the_card_match_the_cpu(dev):
+    """Three steps of make_raft_train_step and of make_keypoint_distill_step
+    on the small RAFT (f32, TF32 off, 2 iterations, 64x64) from the same
+    weights and batches: losses, EPE and gradient norms rtol 1e-4; the
+    card runs the gather lookup, no kernel launch."""
+    from counterfactualworldmodels_tpu_torch.models.raft.raft import RAFT
+    from counterfactualworldmodels_tpu_torch.training import raft as TR
+    from counterfactualworldmodels_tpu_torch.training import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(22)
+    g = torch.Generator().manual_seed(22)
+    flow = [TR.synthetic_flow_batch(torch.from_numpy(
+        (rng.rand(2, 3, 64, 64) * 255).astype(np.float32)), max_mag=3.0,
+        generator=g) for _ in range(3)]
+    kp = [(torch.from_numpy((rng.rand(2, 3, 64, 64) * 255).astype(
+        np.float32)), torch.from_numpy(rng.rand(2, 1, 64, 64).astype(
+            np.float32))) for _ in range(3)]
+    opt = train.make_optimizer(learning_rate=1e-4, warmup_steps=1,
+                               total_steps=10)
+    for keypoint, batches in ((False, flow), (True, kp)):
+        runs = {}
+        for d in ('cpu', dev):
+            model = RAFT(small=True, iters=2, device=d,
+                         output_dim=1 if keypoint else None)
+            state = TR.init_raft_train_state(model, opt, seed=5)
+            step = (TR.make_keypoint_distill_step(model, opt)
+                    if keypoint else TR.make_raft_train_step(model, opt))
+            kernels.reset_launches()
+            metrics = []
+            for batch in batches:
+                state, m = step(state, *batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+            runs[str(d)] = (metrics, dict(kernels.LAUNCHES))
+        (mc, _), (mg, lg) = runs['cpu'], runs['cuda']
+        for a, b in zip(mc, mg):
+            for k in a:
+                assert np.isclose(b[k], a[k], rtol=1e-4, atol=0), (k, a, b)
+        assert not any(lg.values())

@@ -238,9 +238,11 @@ def test_trainers_on_the_cpu_resume_to_the_same_losses(name, tmp_path,
 
 def test_trainers_refuse_what_is_not_ported(shard, tmp_path):
     for main, argv in TINY.values():
-        for extra in (['--dp', '2'], ['--tp', '2']):
-            with pytest.raises(SystemExit, match='item 11'):
-                main(argv + ['--synthetic', '--device', 'cpu'] + extra)
+        # --dp runs one process per card: one process cannot be two ranks
+        with pytest.raises(SystemExit, match='torchrun --nproc_per_node=2'):
+            main(argv + ['--synthetic', '--device', 'cpu', '--dp', '2'])
+        with pytest.raises(SystemExit, match='model-sharding slice'):
+            main(argv + ['--synthetic', '--device', 'cpu', '--tp', '2'])
         with pytest.raises(SystemExit, match='--shard PATH or --synthetic'):
             main(argv + ['--device', 'cpu'])
     with pytest.raises(SystemExit, match='imu400 requires --img-size 224'):
