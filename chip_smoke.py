@@ -36,7 +36,8 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    dim 32, K2 at the conjoined decoder suffix; K1, K5 and K6 at head dims
    8, 24 and 48 (run padded to 16, 32 and 64) in f32 and bf16; K5 and K6
    at the ChannelMAE trainer's shapes (with and without the flow group)
-   and at the imu400 main stream's;
+   and at the imu400 main stream's; K1, K5 and K6 at one tp = 2 rank's
+   heads and K1 at an sp = 2 rank's queries (phase 9's shapes);
 4. both paths at the tests' small configurations on the card and on the
    CPU (f32, TF32 off): masks equal, videos and flows within tolerance;
    three train steps with equal losses and gradient norms; FlowGenerator
@@ -135,6 +136,24 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    tests' small VMAE against the single-process step on the global batch
    and the tiny sample-sharded dispatch against the direct one, within the
    CPU tests' tolerances, every rank's parameters bitwise equal;
+9. model sharding (after phase 8): (a) a process group of one rank over
+   NCCL, mesh {'dp': 1, 'tp': 1}: ``make_sharded_train_step`` at phase 6's
+   configuration through the tensor-parallel modules (the two autograd
+   Functions at size 1, the tp-aware clip), three steps bitwise
+   ``make_train_step``'s, K5 72 / K6 36 a step; then two gloo ranks sharing
+   the card, mesh {'dp': 1, 'tp': 2}: (b) the VMAE step at ViT-L 4x4 @224
+   widths with its depth cut to 2 encoder + 1 decoder blocks (two f32
+   steps within 1e-5 of the single-process step on the card: losses,
+   grad_norm and the gathered parameters; four bf16 steps, sec/step of the
+   last three and the share of a step in the gloo all-reduces; K5 and K6
+   counted by shape at the halved heads), the small ChannelMAE and
+   conjoined steps against their single-process steps; (c) the tp, sp and
+   pp encoder forwards at ViT-L widths (4 blocks, the 3136-token prefix,
+   pp 2 stages x 2 microbatches) against the sequential stack, in f32 and
+   bf16, K1 counted by shape ([1,8,3136,3136,64] tp, [1,16,1568,3136,64]
+   sp); (d) ``train_vmae --synthetic --model base --tp 2`` through
+   ``main(argv)`` for 2 steps with a checkpoint, resumed in this process
+   at tp = 1: the third loss within 1e-5 of an uninterrupted tp = 1 run's;
 7. the kernels RAFT's ``convc1`` launches on the lookup's bf16 output
    (torch.profiler, last: it makes every later launch cost more).
 
@@ -358,6 +377,10 @@ def attention_cases(torch, F, fa, rec):
         ('padded D 8', 8, 4, 50, 50, 8),
         ('padded D 24', 8, 4, 39, 39, 24),
         ('padded D 48', 32, 2, 13, 13, 48),
+        # model sharding (phase 9 (c)): a tp = 2 rank's heads of the ViT-L
+        # prefix, and an sp = 2 rank's local queries against every key
+        ('tp 2 encoder prefix', 1, 8, 3136, 3136, 64),
+        ('sp 2 local queries', 1, 16, 1568, 3136, 64),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split('.')[1]
@@ -658,6 +681,9 @@ def training_kernel_cases(torch, F, fa, rec):
         # stream's 627 visible tokens and its decoder over 6272 + 64 nulls
         ('imu400 main encoder', bf, 8, 8, 12, 627, 627, 64, (24, 12)),
         ('imu400 main decoder', bf, 8, 8, 6, 6336, 6336, 64, (8, 4)),
+        # a tp = 2 rank of the ViT-L step (phase 9 (b)): half the heads
+        ('tp 2 encoder', bf, 1, B_TRAIN, 8, 3450, 3450, 64, (48, 24)),
+        ('tp 2 decoder', bf, 1, B_TRAIN, 4, 6272, 6272, 64, (24, 12)),
     ]
     for dt in (f32, bf):
         cases += [  # padded head dims at the small trainers' shapes
@@ -3476,6 +3502,558 @@ def two_ranks(torch, port, rec, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: model sharding (tensor, sequence and pipeline parallelism)
+# ---------------------------------------------------------------------------
+
+# the tp steps of phase 9 (b): ViT-L 4x4 @224 widths, depth cut to fit
+TP_DEPTH = dict(encoder_depth=2, decoder_depth=1)
+# phase 9 (c): the encoder stacks at ViT-L widths over the 3136-token prefix
+STACK_DEPTH = 4
+STACK_TOKENS = 3136
+# the ChannelMAE and conjoined models of tests/test_parallel.py's dp x tp
+# steps (tests/torch_model_parallel_ranks.py)
+TP_CMAE = dict(image_size=(32, 32), patch_size=(16, 16), in_channels=3,
+               channel_partition=(3,), encoder_embed_dim=64, encoder_depth=2,
+               encoder_num_heads=4, decoder_embed_dim=48, decoder_depth=1,
+               decoder_num_heads=4, mlp_ratio=2.0)
+TP_CONJ = dict(
+    main=dict(img_size=(32, 32), patch_size=(8, 8), in_chans=3, num_frames=2,
+              encoder_embed_dim=48, encoder_depth=2, encoder_num_heads=4,
+              decoder_embed_dim=32, decoder_depth=1, decoder_num_heads=4,
+              mlp_ratio=2.0),
+    context=dict(is_imu=True, in_chans=6, sequence_length=32, imu_tubelet=8,
+                 encoder_embed_dim=32, encoder_depth=2, encoder_num_heads=4,
+                 decoder_embed_dim=24, decoder_depth=1, decoder_num_heads=4,
+                 decoder_num_classes=48, mlp_ratio=2.0,
+                 concat_dummy_token=True))
+# phase 9 (d): train_vmae through main(argv), ViT-B at batch 4
+TP_TRAINER = ['--synthetic', '--model', 'base', '--batch-size', '4',
+              '--checkpoint-every', '2']
+TOL_TP = 1e-5
+
+
+class _ShapeSpy:
+    """Within the block, the [B, H, Nq, Nk, D] of every K1, K5 and K6
+    launch: each wrapper is wrapped, and a call's shapes are kept when the
+    wrapper's own count went up (the counts stay the wrappers')."""
+    NAMES = {'flash_attention': 'flash_attention',
+             '_flash_forward_lse': 'flash_attention_lse',
+             '_flash_backward': 'flash_attention_bwd'}
+
+    def __init__(self, port):
+        from counterfactualworldmodels_tpu_torch.ops import flash_attention
+        self.fa, self.launches = flash_attention, port.kernels.LAUNCHES
+        self.shapes = {k: [] for k in self.NAMES.values()}
+
+    def __enter__(self):
+        self.saved = {fn: getattr(self.fa, fn) for fn in self.NAMES}
+        for fn, key in self.NAMES.items():
+            setattr(self.fa, fn, self._spy(self.saved[fn], key))
+        return self
+
+    def _spy(self, fn, key):
+        def spied(q, k, *args):
+            before = self.launches[key]
+            out = fn(q, k, *args)
+            if self.launches[key] > before:
+                self.shapes[key].append(list(q.shape[:3]) +
+                                        [k.shape[2], q.shape[3]])
+            return out
+        return spied
+
+    def __exit__(self, *exc):
+        for fn, f in self.saved.items():
+            setattr(self.fa, fn, f)
+
+    def counted(self):
+        """{kernel: {shape as text: launches}}."""
+        out = {}
+        for key, shapes in self.shapes.items():
+            for s in shapes:
+                d = out.setdefault(key, {})
+                d[str(s)] = d.get(str(s), 0) + 1
+        return out
+
+
+def _rel_err(got, ref):
+    """max |got - ref| over every tensor, over the largest |ref|."""
+    err = max(max_err(got[k], ref[k]) for k in ref)
+    return err / max(float(v.float().abs().max()) for v in ref.values())
+
+
+def tp_world_one(torch, port, rec, smi):
+    """(a) a process group of one rank over NCCL, mesh {'dp': 1, 'tp': 1}:
+    make_sharded_train_step at phase 6's configuration through the tensor-
+    parallel modules (the two Functions at size 1, the tp-aware clip),
+    three steps bitwise make_train_step's, K5 72 / K6 36 a step."""
+    import tempfile
+    import torch.distributed as dist
+    from counterfactualworldmodels_tpu_torch import parallel
+    from counterfactualworldmodels_tpu_torch.models import vmae
+    from counterfactualworldmodels_tpu_torch.parallel import tensor
+    from counterfactualworldmodels_tpu_torch.training import train as T
+    dev = torch.device('cuda')
+    tmp = tempfile.mkdtemp(prefix='cwm_tp_')
+    parallel.initialize_distributed(
+        init_method='file://' + os.path.join(tmp, 'store'), world_size=1,
+        rank=0, device=dev, timeout_s=300)
+    try:
+        cfg = vmae.large_4x4patch_2frames_1tube(dtype=torch.bfloat16,
+                                                attn_impl='flash')
+        opt = T.make_optimizer(learning_rate=1.5e-4, warmup_steps=1,
+                               total_steps=100)
+        _, n_vis = T.make_batch_masks(None, cfg, B_TRAIN, MASK_RATIO)
+
+        def mask_fn(g, b):
+            return T.make_batch_masks(g, cfg, b, MASK_RATIO)[0]
+
+        rng = np.random.RandomState(0)
+        base = rng.rand(B_TRAIN, 1, 3, 224, 224).astype(np.float32)
+        clips = [torch.from_numpy(np.concatenate(
+            [base, np.roll(base, tuple(rng.randint(-8, 9, 2)),
+                           axis=(-2, -1))], 1)).to(dev) for _ in range(3)]
+        mesh = parallel.make_mesh({'dp': 1, 'tp': 1})
+        units = []
+
+        def plain(state):
+            return T.make_train_step(cfg, opt, n_vis, remat=True,
+                                     mask_fn=mask_fn, device=dev), state
+
+        def sharded(state):
+            step, shard_state, _ = T.make_sharded_train_step(
+                cfg, opt, mesh, n_vis, remat=True, mask_fn=mask_fn,
+                device=dev)
+            state = shard_state(state)
+            units.extend(type(m).__name__ for m in state.model.modules()
+                         if type(m) in tensor.TP_CLASSES.values())
+            return step, state
+
+        runs = {name: _vmae_steps(torch, T, cfg, opt, make, clips, port)
+                for name, make in (('make_train_step', plain),
+                                   ('make_sharded_train_step tp', sharded))}
+        torch.cuda.empty_cache()
+        depth = cfg.encoder_depth + cfg.decoder_depth
+        want = dict({k: 0 for k in port.kernels.LAUNCHES},
+                    flash_attention_lse=2 * depth, flash_attention_bwd=depth)
+        (lp, np_, _), (ls, ns, launches) = (runs['make_train_step'],
+                                           runs['make_sharded_train_step tp'])
+        out = dict(backend=dist.get_backend(), losses=ls, plain_losses=lp,
+                   grad_norms=ns, plain_grad_norms=np_,
+                   launches_per_step=launches, tp_modules=len(units),
+                   bitwise=ls == lp and ns == np_, card=smi)
+        out['ok'] = (out['bitwise'] and all(x == want for x in launches)
+                     and len(units) == 2 * depth)
+        log('9a tp world 1', json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec['phase9_world1'] = out
+    if not out['ok']:
+        raise AssertionError('tp = 1 over NCCL is not make_train_step')
+    return out
+
+
+def _tp_vmae(torch, port, dtype, steps, mesh=None):
+    """The depth-cut ViT-L VMAE step (TP_DEPTH, batch 4, remat) from
+    seed-0 weights for ``steps`` steps, tensor-parallel over ``mesh`` or
+    single-process: per-step [loss, grad_norm], launches and kernel shapes,
+    sec/step of all but the first step, and the gathered parameters."""
+    import dataclasses
+    from counterfactualworldmodels_tpu_torch.models import vmae
+    from counterfactualworldmodels_tpu_torch.parallel import tensor
+    from counterfactualworldmodels_tpu_torch.training import train as T
+    dev = torch.device('cuda')
+    cfg = dataclasses.replace(vmae.large_4x4patch_2frames_1tube(
+        dtype=dtype, attn_impl='flash'), **TP_DEPTH)
+    opt = T.make_optimizer(learning_rate=1.5e-4, warmup_steps=1,
+                           total_steps=100)
+    state = T.init_train_state(cfg, opt, seed=0, device=dev)
+    _, n_vis = T.make_batch_masks(None, cfg, B_TRAIN, MASK_RATIO)
+    if mesh is None:
+        step = T.make_train_step(cfg, opt, n_vis, remat=True, device=dev)
+    else:
+        step, shard_state, _ = T.make_sharded_train_step(
+            cfg, opt, mesh, n_vis, remat=True, device=dev)
+        state = shard_state(state)
+    rng = np.random.RandomState(0)
+    base = rng.rand(B_TRAIN, 1, 3, 224, 224).astype(np.float32)
+    metrics, launches, shapes, times = [], [], [], []
+    for i in range(steps):
+        x = torch.from_numpy(np.concatenate(
+            [base, np.roll(base, tuple(rng.randint(-8, 9, 2)),
+                           axis=(-2, -1))], 1)).to(dev)
+        mask = T.make_batch_masks(torch.Generator().manual_seed(i), cfg,
+                                  B_TRAIN, MASK_RATIO)[0]
+        torch.cuda.synchronize()
+        port.kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _ShapeSpy(port) as spy:
+            state, m = step(state, x, mask)
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append([float(m['loss']), float(m['grad_norm'])])
+        launches.append(dict(port.kernels.LAUNCHES))
+        shapes.append(spy.counted())
+    params = {k: v.detach().cpu() for k, v in
+              tensor.full_state_dict(state.model).items()}
+    return dict(metrics=metrics, launches=launches, shapes=shapes,
+                sec_per_step=float(np.mean(times[1:])) if steps > 1 else None,
+                params=params, state=state, step=step, cfg=cfg)
+
+
+def _allreduce_share(torch, run):
+    """One more step with every dist.all_reduce timed between
+    synchronizations: the share of the (instrumented) step spent in
+    them."""
+    import torch.distributed as dist
+    from counterfactualworldmodels_tpu_torch.training import train as T
+    dev = torch.device('cuda')
+    spent = [0.0, 0]
+    real = dist.all_reduce
+
+    def timed(t, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, *args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+
+    cfg = run['cfg']
+    x = torch.rand(B_TRAIN, 2, 3, 224, 224, device=dev)
+    mask = T.make_batch_masks(torch.Generator().manual_seed(99), cfg,
+                              B_TRAIN, MASK_RATIO)[0]
+    torch.cuda.synchronize()
+    dist.all_reduce = timed
+    try:
+        t0 = time.perf_counter()
+        run['step'](run['state'], x, mask)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = real
+    return dict(step_s=total, all_reduce_s=spent[0], all_reduces=spent[1],
+                share=spent[0] / total)
+
+
+def _tp_small(torch, mesh=None):
+    """Three f32 steps of the ChannelMAE and conjoined models of
+    tests/test_parallel.py on the card (tensor-parallel over ``mesh`` or
+    single-process): per-step [loss, grad_norm] and the gathered
+    parameters."""
+    from counterfactualworldmodels_tpu_torch.models import cmae, conjoined
+    from counterfactualworldmodels_tpu_torch.parallel import tensor
+    from counterfactualworldmodels_tpu_torch.training import train as T
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(2)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    out = {}
+    opt = T.make_optimizer(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    model = cmae.ChannelMae(**TP_CMAE, attn_impl='flash', device=dev)
+    state = T.init_cmae_train_state(model, opt, seed=1)
+    mask = np.ones((4, 4), bool)
+    mask[:, :2] = False
+    args = (t(rng.rand(4, 3, 32, 32).astype(np.float32)), t(mask))
+    if mesh is None:
+        step = T.make_cmae_train_step(model, opt, 2, (2,), remat=False)
+    else:
+        step, shard_state, _ = T.make_sharded_cmae_train_step(
+            model, opt, mesh, 2, (2,), remat=False)
+        state = shard_state(state)
+    runs = [('cmae', state, step, args)]
+    model = conjoined.ConjoinedVMAE(
+        main=conjoined.StreamSpec(**TP_CONJ['main']),
+        context=conjoined.StreamSpec(**TP_CONJ['context']),
+        conjoin_encoder_layers=((0, 0), (1, 1)),
+        conjoin_decoder_layers=((0, 0),), attn_impl='flash', device=dev)
+    model.load_state_dict(weights.init_conjoined_state_dict(
+        model, torch.Generator(device=dev).manual_seed(2)), strict=True)
+    state = T.TrainState(0, model, opt.init(model.parameters()))
+    mask = np.ones((4, 32), bool)
+    mask[:, :18] = False
+    args = (t(rng.rand(4, 3, 2, 32, 32).astype(np.float32)), t(mask),
+            t(rng.randn(4, 6, 32, 1, 1).astype(np.float32)),
+            t(np.zeros((4, 4), bool)))
+    if mesh is None:
+        step = T.make_conjoined_train_step(model, opt, 18, 4, remat=False)
+    else:
+        step, shard_state, _ = T.make_sharded_conjoined_train_step(
+            model, opt, mesh, 18, 4, remat=False)
+        state = shard_state(state)
+    runs.append(('conjoined', state, step, args))
+    for name, state, step, args in runs:
+        metrics = []
+        for _ in range(3):
+            state, m = step(state, *args)
+            metrics.append([float(m['loss']), float(m['grad_norm'])])
+        out[name] = dict(metrics=metrics, params={
+            k: v.detach().cpu() for k, v in
+            tensor.full_state_dict(state.model).items()})
+    return out
+
+
+def _stack_inputs(torch, dtype):
+    """ViT-L encoder blocks (STACK_DEPTH) from seed 3, stacked, and the
+    tokens: [1, 3136, 1024] for tp and sp, [2, 3136, 1024] for pp."""
+    import dataclasses
+    from counterfactualworldmodels_tpu_torch.models import vmae
+    from counterfactualworldmodels_tpu_torch.parallel import tensor
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    dev = torch.device('cuda')
+    cfg = dataclasses.replace(vmae.large_4x4patch_2frames_1tube(
+        dtype=dtype, attn_impl='flash'), encoder_depth=STACK_DEPTH,
+        decoder_depth=0)
+    sd = weights.init_vmae_state_dict(
+        cfg, torch.Generator(device=dev).manual_seed(3))
+    enc = {k[len('encoder.'):]: v for k, v in sd.items()
+           if k.startswith('encoder.')}
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(2, STACK_TOKENS, cfg.encoder_embed_dim, generator=g,
+                    device=dev).to(dtype)
+    return cfg, enc, tensor.stack_block_params(enc, STACK_DEPTH), x
+
+
+def _stacks(torch, port, meshes=None):
+    """The tp, sp and pp forwards (or, without meshes, the sequential
+    stack: models/layers.Block one layer after another on the card) in f32
+    and bf16, with each run's launches and shapes and the bf16 ms."""
+    from counterfactualworldmodels_tpu_torch import parallel
+    from counterfactualworldmodels_tpu_torch.parallel import tensor
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split('.')[1]
+        cfg, enc, stacked, x = _stack_inputs(torch, dtype)
+        if meshes is None:
+            block = tensor.template_block(stacked, cfg.encoder_embed_dim,
+                                          cfg.encoder_num_heads, None, dtype)
+            runs = {'tp': lambda: tensor.run_layers(block, stacked, x[:1]),
+                    'pp': lambda: tensor.run_layers(block, stacked, x)}
+            runs['sp'] = runs['tp']
+        else:
+            runs = {}
+            for how, make, kw in (
+                    ('tp', parallel.make_tp_encoder_forward, {}),
+                    ('sp', parallel.make_sp_encoder_forward, {}),
+                    ('pp', parallel.make_pp_encoder_forward,
+                     dict(num_microbatches=2))):
+                fwd, shard = make(cfg, meshes[how], **kw)
+                p = shard(enc)
+                xin = x if how == 'pp' else x[:1]
+                runs[how] = (lambda fwd=fwd, p=p, xin=xin: fwd(p, xin))
+        for how, fn in runs.items():
+            with torch.no_grad():
+                fn()                                  # warm-up
+                torch.cuda.synchronize()
+                port.kernels.reset_launches()
+                t0 = time.perf_counter()
+                with _ShapeSpy(port) as spy:
+                    y = fn()
+                    torch.cuda.synchronize()
+            out[f'{how} {dn}'] = dict(
+                out=y.float().cpu(), ms=(time.perf_counter() - t0) * 1e3,
+                launches=dict(port.kernels.LAUNCHES), shapes=spy.counted())
+        del stacked, enc, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_ranks_work(rank, tmp):
+    """One of two gloo ranks sharing the card: (b) the tp = 2 VMAE step at
+    ViT-L widths (f32 check, bf16 times, the all-reduce share) and the
+    small ChannelMAE and conjoined steps, (c) the tp, sp and pp stacks,
+    (d) train_vmae --tp 2 with a checkpoint; results saved for the
+    parent."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    import counterfactualworldmodels_tpu_torch as port
+    from counterfactualworldmodels_tpu_torch import parallel
+    from counterfactualworldmodels_tpu_torch.training import train_vmae
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        parallel.initialize_distributed(
+            init_method='file://' + os.path.join(tmp, 'store'),
+            world_size=2, rank=rank, backend='gloo', device='cuda',
+            timeout_s=600)
+        mesh = parallel.make_mesh({'dp': 1, 'tp': 2})
+        res = {'f32': _tp_vmae(torch, port, torch.float32, 2, mesh)}
+        bf = _tp_vmae(torch, port, torch.bfloat16, 4, mesh)
+        bf['all_reduce'] = _allreduce_share(torch, bf)
+        res['bf16'] = bf
+        for r in ('f32', 'bf16'):
+            for k in ('state', 'step', 'cfg'):
+                res[r].pop(k)
+        res['bf16'].pop('params')
+        torch.cuda.empty_cache()
+        res['small'] = _tp_small(torch, mesh)
+        res['stacks'] = _stacks(torch, port, {
+            how: parallel.make_mesh({how: 2}) for how in ('tp', 'sp', 'pp')})
+        t0 = time.perf_counter()
+        res['trainer'] = train_vmae.main(TP_TRAINER + [
+            '--tp', '2', '--steps', '2', '--checkpoint-dir',
+            os.path.join(tmp, 'ck')])
+        res['trainer_s'] = time.perf_counter() - t0
+        torch.save(res, os.path.join(tmp, f'rank{rank}.pt'))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f'rank{rank}.err'), 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def model_sharding(torch, port, rec, smi):
+    """(b)-(d) over two gloo ranks sharing the card (NCCL refuses two
+    ranks on one device), against the single-process paths on the card
+    computed first: (b) the VMAE step at ViT-L 4x4 @224 widths (TP_DEPTH
+    blocks), two f32 steps (TF32 off) within TOL_TP of the single-process
+    step (losses, grad_norm, the gathered parameters over their largest
+    magnitude), four bf16 steps (sec/step of the last three, the share of
+    a step spent in the gloo all-reduces), K5/K6 at the halved heads; the
+    small ChannelMAE and conjoined steps (f32, three steps, 1e-4); (c) the
+    tp, sp and pp encoder forwards (STACK_DEPTH ViT-L blocks, the
+    3136-token prefix; pp 2 stages x 2 microbatches) against the
+    sequential stack (f32 within TOL_TP, bf16 within REL_BF16 of the
+    largest magnitude), K1 at [1,8,3136,3136,64] for tp and
+    [1,16,1568,3136,64] for sp; (d) train_vmae --tp 2 for two steps with a
+    checkpoint, resumed here at tp = 1: the third loss within 1e-5 of an
+    uninterrupted tp = 1 run's."""
+    import multiprocessing
+    import tempfile
+    from counterfactualworldmodels_tpu_torch.training import train_vmae
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix='cwm_tp2_')
+    try:
+        t0 = time.perf_counter()
+        ref = _tp_vmae(torch, port, torch.float32, 2)
+        for k in ('state', 'step'):
+            ref.pop(k)
+        torch.cuda.empty_cache()
+        ref_small = _tp_small(torch)
+        ref_stacks = _stacks(torch, port)
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t0
+        ctx = multiprocessing.get_context('spawn')
+        procs = [ctx.Process(target=_tp_ranks_work, args=(r, tmp))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(900)
+        alive = [pr for pr in procs if pr.is_alive()]
+        for pr in alive:
+            pr.kill()
+            pr.join()
+        errs = []
+        for r in range(2):
+            path = os.path.join(tmp, f'rank{r}.err')
+            if os.path.exists(path):
+                with open(path) as f:
+                    errs.append(f.read())
+        if alive or errs or any(pr.exitcode for pr in procs):
+            raise AssertionError('the gloo ranks failed: alive '
+                                 f'{len(alive)}\n' + '\n'.join(errs))
+        ranks = [torch.load(os.path.join(tmp, f'rank{r}.pt'),
+                            weights_only=False) for r in range(2)]
+        out = dict(card=smi, depth=TP_DEPTH, stack_depth=STACK_DEPTH,
+                   references_s=ref_s, ranks_s=time.perf_counter() - t0)
+        # (b) the f32 check and the bf16 run
+        zeros = {k: 0 for k in port.kernels.LAUNCHES}
+        depth = TP_DEPTH['encoder_depth'] + TP_DEPTH['decoder_depth']
+        want = dict(zeros, flash_attention_lse=2 * depth,
+                    flash_attention_bwd=depth)
+        n_enc = int(TP_DEPTH['encoder_depth'])
+        want_shapes = {
+            'flash_attention_lse': {f'[{B_TRAIN}, 8, 3450, 3450, 64]':
+                                    2 * n_enc,
+                                    f'[{B_TRAIN}, 4, 6272, 6272, 64]':
+                                    2 * (depth - n_enc)},
+            'flash_attention_bwd': {f'[{B_TRAIN}, 8, 3450, 3450, 64]': n_enc,
+                                    f'[{B_TRAIN}, 4, 6272, 6272, 64]':
+                                    depth - n_enc}}
+        b = {}
+        for r, rk in enumerate(ranks):
+            f32, bf = rk['f32'], rk['bf16']
+            rel = max(abs(a - c) / abs(c) for g, h in
+                      zip(f32['metrics'], ref['metrics'])
+                      for a, c in zip(g, h))
+            b[f'rank{r}'] = dict(
+                f32_metrics=f32['metrics'], metrics_rel_err=rel,
+                params_rel_err=_rel_err(f32['params'], ref['params']),
+                bf16_metrics=bf['metrics'], sec_per_step=bf['sec_per_step'],
+                all_reduce=bf['all_reduce'], launches=bf['launches'][-1],
+                shapes=bf['shapes'][-1])
+        b['single_f32_metrics'] = ref['metrics']
+        b['ok'] = all(
+            b[f'rank{r}']['metrics_rel_err'] <= TOL_TP
+            and b[f'rank{r}']['params_rel_err'] <= TOL_TP
+            and all(x == want for x in ranks[r]['bf16']['launches'])
+            and all(s == want_shapes for s in ranks[r]['bf16']['shapes'])
+            and all(math.isfinite(v) for m in ranks[r]['bf16']['metrics']
+                    for v in m) for r in range(2))
+        log('9 tp=2 step', json.dumps(b))
+        small = {}
+        for name in ('cmae', 'conjoined'):
+            rf = ref_small[name]
+            small[name] = dict(
+                metrics=ranks[0]['small'][name]['metrics'],
+                single_metrics=rf['metrics'],
+                metrics_rel_err=max(
+                    abs(a - c) / abs(c) for rk in ranks for g, h in
+                    zip(rk['small'][name]['metrics'], rf['metrics'])
+                    for a, c in zip(g, h)),
+                params_max_err=max(
+                    max_err(rk['small'][name]['params'][k], v)
+                    for rk in ranks for k, v in rf['params'].items()))
+            small[name]['ok'] = (small[name]['metrics_rel_err'] <= 1e-4
+                                 and small[name]['params_max_err'] <= 1e-4)
+        log('9 tp=2 small', json.dumps(small))
+        # (c) the stacks
+        c = {}
+        want_k1 = {'tp': {'[1, 8, 3136, 3136, 64]': STACK_DEPTH},
+                   'sp': {'[1, 16, 1568, 3136, 64]': STACK_DEPTH},
+                   'pp': {'[1, 16, 3136, 3136, 64]': STACK_DEPTH}}
+        for key, rr in ref_stacks.items():
+            how, dn = key.split()
+            tol = TOL_TP if dn == 'float32' else REL_BF16
+            scale = float(rr['out'].abs().max())
+            errs_ = [max_err(rk['stacks'][key]['out'], rr['out'])
+                     for rk in ranks]
+            got = ranks[0]['stacks'][key]
+            c[key] = dict(max_abs_err=max(errs_), tol=tol * scale,
+                          ms=got['ms'], sequential_ms=rr['ms'],
+                          launches=got['launches'], shapes=got['shapes'])
+            shapes_ok = all(
+                rk['stacks'][key]['shapes'].get('flash_attention')
+                == want_k1[how] for rk in ranks)
+            c[key]['ok'] = max(errs_) <= tol * scale and shapes_ok
+        log('9 stacks', json.dumps(c))
+        # (d) the tp = 2 checkpoint resumed at tp = 1
+        d = dict(tp2=ranks[0]['trainer'], tp2_s=ranks[0]['trainer_s'])
+        d['tp1'] = train_vmae.main(TP_TRAINER + ['--steps', '3'])
+        d['resumed_tp1'] = train_vmae.main(TP_TRAINER + [
+            '--steps', '3', '--checkpoint-dir', os.path.join(tmp, 'ck')])
+        loss3, ref3 = d['resumed_tp1'][-1]['loss'], d['tp1'][-1]['loss']
+        d['rel_err'] = abs(loss3 - ref3) / abs(ref3)
+        d['ok'] = ([r['step'] for r in d['resumed_tp1']] == [3]
+                   and d['rel_err'] <= 1e-5)
+        log('9 trainer', json.dumps(d))
+        out.update(b=b, small=small, c=c, d=d)
+        out['ok'] = (b['ok'] and all(v['ok'] for v in small.values())
+                     and all(v['ok'] for v in c.values()) and d['ok'])
+        rec['phase9'] = out
+        if not out['ok']:
+            raise AssertionError('model sharding on two gloo ranks failed')
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _category(kernel_name):
     k = kernel_name.lower()
     for cat, keys in (('attention kernel (K1/K2/K5)', ('attention_kernel',
@@ -3695,6 +4273,9 @@ def main():
             world1 = phase('8 world 1', world_one, torch, port, rec, smi,
                            ctx5)
         phase('8 two ranks', two_ranks, torch, port, rec, smi)
+        tp1 = phase('9a tp world 1', tp_world_one, torch, port, rec, smi)
+        sharding = phase('9 model sharding', model_sharding, torch, port,
+                         rec, smi)
         phase('7 convc1', convc1_kernels, torch, rec)
     rec['failed'] = failed
     if args.record:
@@ -3747,7 +4328,12 @@ def main():
                  dp_train_step_world1=world1['train']['launches_per_step'][
                      -1],
                  sample_sharded_dispatch_world1=world1['dispatch'][
-                     'launches'])
+                     'launches'],
+                 tp_train_step_world1=tp1['launches_per_step'][-1],
+                 tp2_train_step=sharding['b']['rank0']['launches'],
+                 tp_stack_forward=sharding['c']['tp bfloat16']['launches'],
+                 sp_stack_forward=sharding['c']['sp bfloat16']['launches'],
+                 pp_stack_forward=sharding['c']['pp bfloat16']['launches'])
     table = []
     for kid, kernel, dtype, case, path, replaces in (
             ('K1', 'flash_attention', 'bfloat16', 'encoder prefix',
@@ -3808,7 +4394,20 @@ def main():
             ('K6', 'flash_attention_bwd', 'bfloat16', 'padded D 24',
              'small_conjoined_3_steps', REPLACES['flash_attention_bwd']),
             ('K6', 'flash_attention_bwd', 'bfloat16', 'padded D 8',
-             'small_conjoined_3_steps', REPLACES['flash_attention_bwd'])):
+             'small_conjoined_3_steps', REPLACES['flash_attention_bwd']),
+            # model sharding: one rank's share of the work (phase 9)
+            ('K5', 'flash_attention_lse', 'bfloat16', 'tp 2 encoder',
+             'tp2_train_step', REPLACES['flash_attention_lse']),
+            ('K5', 'flash_attention_lse', 'bfloat16', 'tp 2 decoder',
+             'tp2_train_step', REPLACES['flash_attention_lse']),
+            ('K6', 'flash_attention_bwd', 'bfloat16', 'tp 2 encoder',
+             'tp2_train_step', REPLACES['flash_attention_bwd']),
+            ('K6', 'flash_attention_bwd', 'bfloat16', 'tp 2 decoder',
+             'tp2_train_step', REPLACES['flash_attention_bwd']),
+            ('K1', 'flash_attention', 'bfloat16', 'tp 2 encoder prefix',
+             'tp_stack_forward', REPLACES['flash_attention']),
+            ('K1', 'flash_attention', 'bfloat16', 'sp 2 local queries',
+             'sp_stack_forward', REPLACES['flash_attention'])):
         r = pick(kernel, dtype, case)
         table.append(dict(name=kernel, tpu_kernel=kid, case=case,
                           route='cuda', source=SOURCES[kernel],

@@ -105,7 +105,8 @@ class Attention(nn.Module):
         self.dtype = dtype
         self.attn_impl = attn_impl
 
-    def forward(self, x):
+    def heads(self, x):
+        """q (pre-scaled), k, v [B, H, N, d] of x [B, N, D]."""
         b, n, _ = x.shape
         dt = self.dtype
         qkv = F.linear(x.to(dt), self.qkv.weight.to(dt))
@@ -116,14 +117,20 @@ class Attention(nn.Module):
         qkv = qkv.reshape(b, n, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)     # [B,H,N,d]
         q = (q * self.scale).contiguous()
-        k, v = k.contiguous(), v.contiguous()
+        return q, k.contiguous(), v.contiguous()
+
+    def attend(self, q, k, v):
+        """The heads' attention [B, H, Nq, d], through the flash kernels or
+        the plain version."""
         if self.attn_impl == 'flash':
             from ..ops.flash_attention import flash_attention
-            out = flash_attention(q, k, v)
-        else:
-            out = dense_attention(q, k, v, dtype=dt)
-        out = out.transpose(1, 2).reshape(b, n, -1)
-        return dense(out, self.proj, dt)
+            return flash_attention(q, k, v)
+        return dense_attention(q, k, v, dtype=self.dtype)
+
+    def forward(self, x):
+        b, n, _ = x.shape
+        out = self.attend(*self.heads(x)).transpose(1, 2).reshape(b, n, -1)
+        return dense(out, self.proj, self.dtype)
 
 
 class Block(nn.Module):

@@ -180,6 +180,18 @@ class BidirectionalCrossAttention(nn.Module):
         qk_src = _heads(dense(src, self.qk_src, dt), b, m, h, 2 * d)
         v = _heads(dense(x, self.v, dt), b, n, h, d)
         v_src = _heads(dense(src, self.v_src, dt), b, m, h, d)
+        y, y_src = self.exchange(qk, qk_src, v, v_src)
+        return (dense(y, self.projection, dt),
+                dense(y_src, self.projection_src, dt))
+
+    def exchange(self, qk, qk_src, v, v_src):
+        """Each stream's read of the other [B, N, h*d] / [B, M, h*d], before
+        the projections, from the heads' qk [B, h, N, 2d], qk_src
+        [B, h, M, 2d], v [B, h, N, d] and v_src [B, h, M, d]."""
+        d = self.head_dim
+        b, h, n, _ = v.shape
+        m = v_src.shape[2]
+        dt = self.dtype
         if self.shared_similarity:
             sim = torch.einsum('bhnd,bhmd->bhnm', (qk * self.scale).float(),
                                qk_src.float())
@@ -192,10 +204,8 @@ class BidirectionalCrossAttention(nn.Module):
                                     qk_src[..., d:], 'bhnd,bhmd->bhmn')
         y = _apply(attn, v_src, 'bhnm,bhmd->bhnd', dt)
         y_src = _apply(attn_src, v, 'bhmn,bhnd->bhmd', dt)
-        y = y.transpose(1, 2).reshape(b, n, h * d)
-        y_src = y_src.transpose(1, 2).reshape(b, m, h * d)
-        return (dense(y, self.projection, dt),
-                dense(y_src, self.projection_src, dt))
+        return (y.transpose(1, 2).reshape(b, n, h * d),
+                y_src.transpose(1, 2).reshape(b, m, h * d))
 
 
 def _gammas(names_dims, init_values, device):

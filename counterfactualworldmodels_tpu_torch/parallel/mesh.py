@@ -1,30 +1,36 @@
-"""Device meshes over the ranks of a torch.distributed process group.
+"""Device meshes over the ranks of a torch.distributed process group, and
+the partition rules of tensor parallelism.
 
-Port of counterfactualworldmodels_tpu/parallel/mesh.py, the data- and
-sample-parallel part. JAX runs one controller over every local device and
-lets XLA insert the collectives from shardings; PyTorch runs one process per
-card (``torchrun``), so a mesh here is a ``DeviceMesh`` over the ranks of
-the process group, and the wrappers that use it (training/train.py's
-sharded steps, parallel/inference.py, parallel/covariance.py) call the
-collectives themselves. ``BatchSharding`` is the counterpart of
-``NamedSharding(mesh, P(axis))`` on the leading axis: rank r of the axis
-holds the contiguous block r of rows.
+Port of counterfactualworldmodels_tpu/parallel/mesh.py. JAX runs one
+controller over every local device and lets XLA insert the collectives from
+shardings; PyTorch runs one process per card (``torchrun``), so a mesh here
+is a ``DeviceMesh`` over the ranks of the process group, and the code that
+uses it (training/train.py's sharded steps, parallel/tensor.py,
+parallel/inference.py, parallel/covariance.py) calls the collectives
+itself. ``BatchSharding`` is the counterpart of ``NamedSharding(mesh,
+P(axis))`` on the leading axis: rank r of the axis holds the contiguous
+block r of rows.
 
-Tensor parallelism (an axis ``tp`` of size > 1, the partition rules)
-belongs to the model-sharding slice and raises here.
+The partition rules map the reference-layout state-dict names (e.g.
+``encoder.blocks.3.attn.qkv.weight``) to a ``Split`` over the mesh axis
+'tp', or to None (replicated). They are JAX's ``VMAE_PARTITION_RULES`` and
+``CONJOINED_PARTITION_RULES`` on torch's layout: a Linear weight is
+[out, in] where a flax kernel is [in, out], so JAX's ``P(None, 'tp')`` on
+``fc1/kernel`` is ``Split(0)`` of ``mlp.fc1.weight`` and ``P('tp', None)``
+on ``proj/kernel`` is ``Split(1)`` of ``attn.proj.weight``. JAX stores qkv
+as [D, 3, A] and splits A; the port keeps the fused ``qkv.weight`` [3A, D],
+which it splits per third (``Split(0, thirds=True)``), so every shard is
+head-aligned and inside one of q, k and v.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import re
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-
-TP_SLICE = ('tensor parallelism (tp > 1) is not ported yet: it comes with '
-            'the model-sharding slice (ROADMAP.md, queue 1)')
-
 
 def _device_type() -> str:
     """'cuda' for an NCCL process group, 'cpu' for gloo (which also takes
@@ -35,10 +41,8 @@ def _device_type() -> str:
 def make_mesh(axis_sizes: Dict[str, int]) -> DeviceMesh:
     """A named mesh over every rank of the process group, ranks laid out
     row-major, e.g. make_mesh({'dp': 4}) or make_mesh({'dp': 2, 'tp': 1}).
-    The axis sizes must multiply to the world size (one process per card);
-    an axis ``tp`` of size > 1 raises ValueError."""
-    if axis_sizes.get('tp', 1) > 1:
-        raise ValueError(TP_SLICE)
+    The axis sizes must multiply to the world size (one process per card),
+    or ValueError is raised."""
     if not dist.is_initialized():
         raise RuntimeError('make_mesh needs a process group: call '
                            'parallel.initialize_distributed first')
@@ -160,3 +164,163 @@ def replicate_tensors_(tensors, mesh: DeviceMesh) -> None:
     src = int(mesh.mesh.reshape(-1)[0])
     for t in tensors:
         _broadcast_(t, src)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the partition rules and the shardings they give
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A tensor split over the mesh axis 'tp' (a JAX PartitionSpec with
+    'tp' on one dim): rank r of tp holds block r of dim ``dim``. With
+    ``thirds``, block r of each third of that dim: the fused qkv weight
+    [3A, D] keeps rows [t*A + r*A/tp, t*A + (r+1)*A/tp) for t = 0, 1, 2."""
+    dim: int
+    thirds: bool = False
+
+    def divides(self, shape, tp: int) -> bool:
+        if self.dim >= len(shape):
+            return False
+        n = shape[self.dim]
+        if self.thirds:
+            return n % 3 == 0 and (n // 3) % tp == 0
+        return n % tp == 0
+
+    def local(self, t: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
+        """Rank ``rank``'s block of the full tensor ``t`` (a copy)."""
+        n = t.shape[self.dim]
+        if not self.thirds:
+            b = n // tp
+            return t.narrow(self.dim, rank * b, b).clone()
+        a = n // 3
+        b = a // tp
+        return torch.cat([t.narrow(self.dim, k * a + rank * b, b)
+                          for k in range(3)], self.dim)
+
+    def full(self, blocks) -> torch.Tensor:
+        """The full tensor from every rank's block, in rank order."""
+        if not self.thirds:
+            return torch.cat(list(blocks), self.dim)
+        thirds = [b.chunk(3, self.dim) for b in blocks]
+        return torch.cat([torch.cat([t[k] for t in thirds], self.dim)
+                          for k in range(3)], self.dim)
+
+    def stacked(self) -> 'Split':
+        """The same split of a tensor with a leading layer axis."""
+        return Split(self.dim + 1, self.thirds)
+
+
+# The VMAE family (and the ChannelMAE, whose blocks are the same): heads of
+# the attention and the hidden units of the MLP split over tp, Megatron's
+# column-parallel qkv / fc1 and row-parallel proj / fc2. The row-parallel
+# layers' biases are replicated and added once, after the reduction.
+VMAE_PARTITION_RULES: Sequence[Tuple[str, Optional[Split]]] = (
+    (r'.*attn\.qkv\.weight$', Split(0, thirds=True)),
+    (r'.*attn\.(q_bias|v_bias)$', Split(0)),
+    (r'.*attn\.proj\.weight$', Split(1)),
+    (r'.*attn\.proj\.bias$', None),
+    (r'.*mlp\.fc1\.weight$', Split(0)),
+    (r'.*mlp\.fc1\.bias$', Split(0)),
+    (r'.*mlp\.fc2\.weight$', Split(1)),
+    (r'.*mlp\.fc2\.bias$', None),
+    # everything else replicated
+    (r'.*', None),
+)
+
+# The conjoined family: the streams' blocks take the VMAE rules; the cross
+# blocks (models/transformer.BidirectionalCrossAttention) split the values
+# over heads, the projections over their input and the MLPs over the
+# hidden dim. The packed qk weights stay replicated, as in JAX: a shard
+# would straddle the q|k boundary. The cross blocks' self-attention
+# (``self_attention.{trg,src}``) matches no rule and is replicated, as it is
+# under JAX's rules.
+CONJOINED_PARTITION_RULES: Sequence[Tuple[str, Optional[Split]]] = (
+    (r'.*cross_attention\.qk(_src)?\.weight$', None),
+    (r'.*cross_attention\.v(_src)?\.weight$', Split(0)),
+    (r'.*cross_attention\.projection(_src)?\.weight$', Split(1)),
+    (r'.*cross_attention\.projection(_src)?\.bias$', None),
+    (r'.*mlp\.(trg|src)\.layers\.0\.weight$', Split(0)),
+    (r'.*mlp\.(trg|src)\.layers\.0\.bias$', Split(0)),
+    (r'.*mlp\.(trg|src)\.layers\.2\.weight$', Split(1)),
+) + tuple(VMAE_PARTITION_RULES)
+
+
+def partition_spec_for(name: str, rules=VMAE_PARTITION_RULES
+                       ) -> Optional[Split]:
+    """The first rule matching the state-dict name ``name``: a Split, or
+    None (replicated)."""
+    for pattern, spec in rules:
+        if re.match(pattern, name):
+            return spec
+    return None
+
+
+def param_shardings(model: torch.nn.Module, mesh: DeviceMesh,
+                    rules=VMAE_PARTITION_RULES) -> Dict[str, Optional[Split]]:
+    """{parameter name: Split or None} for every parameter of ``model``
+    under ``rules`` on ``mesh`` (JAX's param_shardings).
+
+    A mesh without an axis 'tp' replicates everything. The port splits a
+    module (a block's attention, a block's MLP, a cross block's attention
+    or one of its MLPs) as a whole, since half of a layer's weights cannot
+    be split without a gather: where tp does not divide one of the
+    module's split dims, or its head count, the module stays replicated,
+    with JAX's warning."""
+    from .tensor import split_units
+    names = mesh.mesh_dim_names
+    tp = axis_size(mesh, 'tp') if 'tp' in names else None
+    specs = {n: (partition_spec_for(n, rules) if tp else None)
+             for n, _ in model.named_parameters()}
+    params = dict(model.named_parameters())
+    covered = set()
+    for prefix, unit, heads in split_units(model):
+        members = [n for n in specs if n.startswith(prefix + '.')]
+        covered.update(members)
+        split = {n: specs[n] for n in members if specs[n] is not None}
+        if not split:
+            continue
+        bad = [f'dim {s.dim} of {n} {tuple(params[n].shape)}'
+               for n, s in split.items() if not s.divides(params[n].shape, tp)]
+        if heads is not None and heads % tp:
+            bad.append(f'the {heads} heads of {prefix}')
+        if bad:
+            if tp > 1:
+                import warnings
+                warnings.warn(f'tp={tp} does not divide {"; ".join(bad)}; '
+                              f'replicating {prefix} (no tensor parallelism '
+                              'for it)', stacklevel=2)
+            for n in members:
+                specs[n] = None
+    stray = [n for n, s in specs.items() if s is not None and n not in covered]
+    if stray:
+        raise ValueError(f'the rules split {stray}, which no tensor-parallel '
+                         'module holds')
+    return specs
+
+
+def shard_params(model: torch.nn.Module, mesh: DeviceMesh,
+                 rules=VMAE_PARTITION_RULES) -> torch.nn.Module:
+    """Keep this rank's shard of every split parameter of ``model``, in
+    place, and run its split modules tensor-parallel over the mesh axis
+    'tp' (JAX's shard_params places the parameters per the rules). The
+    module must hold the same weights on every rank of the axis. Returns
+    the model, which records the shardings as ``model.tp_plan``."""
+    from .tensor import parallelize_
+    return parallelize_(model, mesh, param_shardings(model, mesh, rules))
+
+
+def opt_state_shardings(opt: torch.optim.Optimizer, model: torch.nn.Module,
+                        p_shardings: Optional[Dict[str, Optional[Split]]]
+                        = None) -> Dict[int, Optional[Split]]:
+    """{parameter index of ``opt.state_dict()``: Split or None}: the
+    optimizer's per-parameter moments follow their parameter's sharding;
+    its scalars (the step counts) are replicated. ``p_shardings`` defaults
+    to the model's plan (none: every entry None)."""
+    if p_shardings is None:
+        plan = getattr(model, 'tp_plan', None)
+        p_shardings = plan.specs if plan is not None else {}
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    params = [p for g in opt.param_groups for p in g['params']]
+    return {i: p_shardings.get(name_of.get(id(p))) for i, p in
+            enumerate(params)}

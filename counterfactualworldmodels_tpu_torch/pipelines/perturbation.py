@@ -9,7 +9,10 @@ and the rectangularizer's uniform noise (jax.random.uniform(key, (n,), 0,
 Conventions: video [T, C, H, W] (shared by the samples) or
 [S, T, C, H, W]; masks bool, True = masked, frame-major; shifts in patch
 units [dy, dx]. ``random_shift`` takes its integer draws as an input (or a
-``torch.Generator``) where the JAX function takes a key.
+``torch.Generator``) where the JAX function takes a key. ``translate2d``,
+``shift_frame_and_mask`` and ``make_motion_counterfactual`` also take the
+JAX functions' single-sample form (a shift [2], a mask without the sample
+axis) and then return one sample, as the JAX functions do.
 """
 from __future__ import annotations
 
@@ -24,7 +27,11 @@ from ..ops.patches import canonical_patch_size
 def translate2d(img: torch.Tensor, shift: torch.Tensor, fill) -> torch.Tensor:
     """Translate the last two dims of img [S, ..., H, W] by per-sample
     shift [S, 2] = (dy, dx), filling with ``fill``:
-    out[s, ..., y, x] = img[s, ..., y - dy, x - dx], out of bounds -> fill."""
+    out[s, ..., y, x] = img[s, ..., y - dy, x - dx], out of bounds -> fill.
+    A shift [2] translates the whole of img [..., H, W] (JAX's form)."""
+    shift = torch.as_tensor(shift, device=img.device)
+    if shift.dim() == 1:
+        return translate2d(img[None], shift[None], fill)[0]
     s = img.shape[0]
     h, w = img.shape[-2:]
     flat = img.reshape(s, -1, h, w)
@@ -51,7 +58,14 @@ def shift_frame_and_mask(x: torch.Tensor, mask_frame: torch.Tensor,
     x: [S, T, C, H, W]; mask_frame: bool [S, h, w] (True = masked);
     shift_patches: int [S, 2] (dy, dx). Returns (x_out [S,T,C,H,W],
     shifted_mask [S,h,w]). The shifted content appears only where the
-    SHIFTED mask is visible; elsewhere the original frame stays."""
+    SHIFTED mask is visible; elsewhere the original frame stays. One sample
+    in JAX's form (x [T, C, H, W], mask_frame [h, w], shift [2]) gives
+    (x_out [T,C,H,W], shifted_mask [h,w])."""
+    shift_patches = torch.as_tensor(shift_patches, device=x.device)
+    if x.dim() == 4:
+        x_out, m = shift_frame_and_mask(x[None], mask_frame[None],
+                                        shift_patches[None], patch_size, frame)
+        return x_out[0], m[0]
     _, ph, pw = canonical_patch_size(patch_size)
     scale = torch.tensor([ph, pw], device=shift_patches.device)
     x_f = x[:, frame]
@@ -91,7 +105,16 @@ def make_motion_counterfactual(x: torch.Tensor, passive: torch.Tensor,
     the passive / active patches; shift: int [S, 2] patch-unit motion of
     the active patches; noise: [S, H'*W'] rectangularizer noise for the
     target frame; n_vis_target: total visible count to rectangularize to
-    (None skips it). Returns (x_out [S, T, C, H, W], mask [S, N] bool)."""
+    (None skips it). Returns (x_out [S, T, C, H, W], mask [S, N] bool).
+    One sample in JAX's form (passive / active [N], shift [2], noise
+    [H'*W']) gives (x_out [T, C, H, W], mask [N])."""
+    shift = torch.as_tensor(shift, device=passive.device)
+    if passive.dim() == 1:
+        x_out, mask = make_motion_counterfactual(
+            x, passive[None], active[None], shift[None],
+            None if noise is None else noise[None], patch_size, n_vis_target,
+            frame, fix_passive)
+        return x_out[0], mask[0]
     _, ph, pw = canonical_patch_size(patch_size)
     t, c, h, w = x.shape[-4:]
     s = passive.shape[0]

@@ -8,16 +8,23 @@ masks and reads the batches the uninterrupted run drew and read from step
 s on. Each step's masks come from a generator seeded from (seed, step), and
 the data stream starts at batch s.
 
-``--dp N`` runs one process per card, launched by torchrun:
+``--dp D --tp T`` runs one process per card, D x T of them, launched by
+torchrun:
 
     torchrun --nproc_per_node=N -m \\
         counterfactualworldmodels_tpu_torch.training.train_vmae --dp N ...
+    torchrun --nproc_per_node=4 -m \\
+        counterfactualworldmodels_tpu_torch.training.train_vmae --tp 2 ...
 
-Each rank feeds its share of the global ``--batch-size`` from its own data
-stream (seeded ``seed + 100003 * rank``); the masks are drawn for the
-global batch from the shared seed and sliced by rank; the sharded step
-averages the gradients over the ranks. Rank 0 alone prints, logs metrics
-and writes checkpoints; every rank restores them.
+The ranks form the mesh {'dp': D, 'tp': T}, rank = dp coordinate * T + tp
+coordinate. Each dp coordinate feeds its share of the global
+``--batch-size`` from its own data stream (seeded ``seed + 100003 * dp
+coordinate``, so the tp ranks of one dp group read the same batch); the
+masks are drawn for the global batch from the shared seed and sliced by
+dp coordinate; the sharded step averages the gradients over dp and splits
+the model over tp. Rank 0 alone prints and logs metrics and writes
+checkpoints, which hold the full (gathered) state; every rank restores
+them, and a checkpoint resumes at any --tp.
 """
 from __future__ import annotations
 
@@ -31,10 +38,10 @@ import torch
 import torch.distributed as dist
 
 from ..data.shards import NativeClipLoader, open_loader
-from ..parallel.mesh import TP_SLICE, make_mesh
+from ..parallel.mesh import make_mesh
 from ..parallel.multihost import (host_local_batch_to_global,
                                   initialize_distributed)
-from ..utils.checkpoint import CheckpointManager
+from ..utils.checkpoint import CheckpointManager, gathers_for_rank0
 from ..utils.profiling import MetricsLogger, StepTraceWindow
 
 
@@ -62,7 +69,9 @@ def add_common_args(ap: argparse.ArgumentParser, batch_size: int,
                     help='gradient-accumulation microbatches per step')
     add_device_args(ap)
     ap.add_argument('--tp', type=int, default=1,
-                    help='tensor-parallel size: only 1 so far')
+                    help='tensor-parallel size: the heads and MLP hidden '
+                         'units split over this many processes, one per '
+                         'card (--dp x --tp of them, torchrun)')
 
 
 def add_device_args(ap: argparse.ArgumentParser) -> None:
@@ -76,9 +85,10 @@ def add_device_args(ap: argparse.ArgumentParser) -> None:
 
 
 def check_args(args) -> None:
-    """Refuse what the port does not run yet, and a run without data."""
-    if args.tp != 1:
-        raise SystemExit(f'--tp {args.tp}: {TP_SLICE}')
+    """Refuse a tp size below 1 and a run without data."""
+    if args.tp < 1:
+        raise SystemExit(f'--tp {args.tp}: the tensor-parallel size is at '
+                         'least 1')
     if not args.synthetic and not args.shard:
         raise SystemExit('pass --shard PATH or --synthetic')
 
@@ -96,13 +106,15 @@ def say(*msg) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
-    """A trainer's share of the work: ``mesh`` (a 'dp' mesh over the
-    ``size`` ranks, None on one process), this rank's ``batch_size`` of the
-    global one and the seed of its own data stream."""
+    """A trainer's share of the work: ``mesh`` (a {'dp': size} mesh, or
+    {'dp': size, 'tp': tp} with tensor parallelism; None on one process),
+    this dp coordinate's ``batch_size`` of the global one and the seed of
+    its data stream."""
     mesh: Optional[object]
     size: int
     batch_size: int
     data_seed: int
+    tp: int = 1
 
     def put(self, x, device, global_size: int) -> torch.Tensor:
         """This rank's batch on ``device``, its global size checked."""
@@ -115,22 +127,27 @@ class DataParallel:
 def data_parallel(args, device: torch.device) -> DataParallel:
     """Bring up the process group when torchrun started this process
     (parallel.initialize_distributed; the backend follows ``device``) and
-    size the data parallelism: ``--dp 0`` is every process, and --dp must
-    equal the world size (one process per card) and divide --batch-size."""
+    size the parallelism: ``--dp 0`` is every process over --tp, and --dp
+    x --tp must equal the world size (one process per card); --dp must
+    divide --batch-size. A trainer without --tp runs tp = 1."""
     initialize_distributed(device=device)
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    dp = args.dp or world
-    if dp != world:
-        raise SystemExit(f'--dp {dp} needs {dp} processes, one per card, and '
-                         f'this run has {world}: launch with torchrun '
-                         f'--nproc_per_node={dp}')
+    tp = getattr(args, 'tp', 1)
+    dp = args.dp or max(world // tp, 1)
+    if dp * tp != world:
+        raise SystemExit(f'--dp {dp} x --tp {tp} needs {dp * tp} processes, '
+                         f'one per card, and this run has {world}: launch '
+                         f'with torchrun --nproc_per_node={dp * tp}')
     if args.batch_size % dp:
         raise SystemExit(f'--dp {dp} must divide --batch-size '
                          f'{args.batch_size}')
-    mesh = make_mesh({'dp': dp}) if dp > 1 else None
+    if tp > 1:
+        mesh = make_mesh({'dp': dp, 'tp': tp})
+    else:
+        mesh = make_mesh({'dp': dp}) if dp > 1 else None
     return DataParallel(mesh, dp, args.batch_size // dp,
-                        args.seed + 100003 * rank)
+                        args.seed + 100003 * (rank // tp), tp)
 
 
 def dtype_and_attn(device: torch.device):
@@ -179,14 +196,18 @@ def run(args, state, ckpt: Optional[CheckpointManager], start_step: int,
     sec/step and ``rate_key`` (samples of the global batch per second);
     checkpoints every ``--checkpoint-every`` steps and at the end; the
     profiler window. Every rank runs the steps; rank 0 alone prints, logs
-    and saves. Returns the logged records."""
+    and saves (the other ranks of its tp group join the checkpoint's
+    gather). Returns the logged records."""
     main = is_main()
-    if not main:
+    if not (main or gathers_for_rank0(state.model)):
         ckpt = None
     metrics_log = MetricsLogger(args.metrics) if args.metrics and main \
         else None
     tracer = StepTraceWindow(args.profile_dir if main else None, start_step)
     records = []
+    # the last step with a checkpoint, alike on every rank that saves
+    saved = (start_step if ckpt is not None
+             and start_step in ckpt.all_steps() else None)
     t0, last = time.time(), start_step
     for step in range(start_step, args.steps):
         tracer.tick(step)
@@ -207,7 +228,8 @@ def run(args, state, ckpt: Optional[CheckpointManager], start_step: int,
                 metrics_log.log(**rec)
         if ckpt is not None and (step + 1) % args.checkpoint_every == 0:
             ckpt.save(step + 1, state)
-    if ckpt is not None and state.step not in ckpt.all_steps():
+            saved = step + 1
+    if ckpt is not None and state.step != saved:
         ckpt.save(state.step, state)
     tracer.close()
     if dist.is_initialized():

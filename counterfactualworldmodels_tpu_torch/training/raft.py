@@ -32,8 +32,9 @@ from ..models.raft.layers import FrozenBatchNorm
 from ..models.raft.raft import RAFT
 from ..ops.misc import (l1_loss, masked_bce_loss, masked_per_pixel_loss,
                         masked_sequence_loss)
+from ..parallel.mesh import axis_size
 from ..utils import weights
-from .train import (Optimizer, TrainState, _AllReduceOptimizer, _check_model,
+from .train import (Optimizer, TrainState, _ShardedOptimizer, _check_model,
                     _dp_step, _on, _shard_state, _update, apply_remat,
                     data_parallel)
 
@@ -182,11 +183,14 @@ def make_sharded_raft_train_step(model: RAFT, optimizer: Optimizer, mesh,
     gradients are averaged over the axis before the update. Returns (step,
     shard_state, data_sharding) like training.train's sharded steps; the
     step's signature is the unsharded one's."""
+    if 'tp' in mesh.mesh_dim_names and axis_size(mesh, 'tp') > 1:
+        raise ValueError('RAFT trains data-parallel only, as in the JAX '
+                         'package: the mesh has an axis tp above 1')
     dp = data_parallel(mesh)
-    opt = _AllReduceOptimizer(optimizer, dp)
+    opt = _ShardedOptimizer(optimizer, dp)
     step = (make_keypoint_distill_step(model, opt, **step_kwargs) if keypoint
             else make_raft_train_step(model, opt, **step_kwargs))
-    return _dp_step(step, dp), _shard_state(mesh), dp
+    return _dp_step(step, dp), _shard_state(mesh, opt), dp
 
 
 # ---------------------------------------------------------------------------

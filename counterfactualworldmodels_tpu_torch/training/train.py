@@ -1,6 +1,6 @@
-"""Masked-prediction training on one card: the VMAE, ChannelMAE and
-conjoined (IMU-conditioned) families. Port of
-counterfactualworldmodels_tpu/training/train.py without its sharded forms.
+"""Masked-prediction training: the VMAE, ChannelMAE and conjoined
+(IMU-conditioned) families, on one card or sharded over a dp x tp mesh.
+Port of counterfactualworldmodels_tpu/training/train.py.
 
 The objectives are the JAX package's: for the VMAE the rotated-table
 masking policy and MSE on the masked patch pixels against the
@@ -15,11 +15,16 @@ which return a new state, the port's steps update the parameters, the
 optimizer moments and the step count in place.
 
 Attention with ``attn_impl='flash'`` trains through the hand-written K5
-forward and K6 backward (ops/flash_attention). The data-parallel steps
-(``make_sharded_*``: a mesh axis 'dp' over the ranks of a process group,
-one process per card) run the same step on each rank's share of the
-batch and average the gradients over the axis before the clipping and the
-AdamW update, so every rank takes the global batch's step.
+forward and K6 backward (ops/flash_attention). The sharded steps
+(``make_sharded_*``: a mesh {'dp': d} or {'dp': d, 'tp': t} over the ranks
+of a process group, one process per card) run the same step on each dp
+rank's share of the batch and average the gradients over the dp group of
+the rank's tp coordinate before the clipping and the AdamW update, so
+every rank takes the global batch's step. With an axis 'tp' the model runs
+tensor-parallel (parallel/tensor.py): each rank keeps its shard of the
+split parameters and of their AdamW moments, and the clipping norm sums
+the split gradients' squares over the tp group, counting the replicated
+ones once (optax's global_norm of the sharded tree).
 """
 from __future__ import annotations
 
@@ -41,8 +46,10 @@ from ..models.vmae import (PretrainVisionTransformer, init_params, mask_order,
                            take_tokens)
 from ..ops.normalization import imagenet_normalize
 from ..ops.patches import patchify
-from ..parallel.mesh import (TP_SLICE, BatchSharding, axis_size, replicate,
-                             replicate_tensors_)
+from ..parallel.mesh import (CONJOINED_PARTITION_RULES, VMAE_PARTITION_RULES,
+                             BatchSharding, replicate, replicate_tensors_,
+                             shard_params)
+from ..parallel.tensor import shard_optimizer_state_, tp_global_norm
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -86,12 +93,15 @@ class Optimizer:
                                  betas=(self.b1, self.b2), eps=1e-8,
                                  weight_decay=self.weight_decay)
 
-    def update(self, opt: torch.optim.Optimizer, params, step: int):
+    def update(self, opt: torch.optim.Optimizer, params, step: int,
+               gnorm: Optional[torch.Tensor] = None):
         """Clip the parameters' gradients in place by optax's rule
         g * clip / max(|g|, clip), then take the AdamW step at
-        ``schedule(step)``. Returns the unclipped global norm."""
+        ``schedule(step)``. Returns the unclipped global norm (``gnorm``
+        when given, else the gradients' global_norm)."""
         grads = [p.grad for p in params]
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         factor = self.clip_norm / torch.clamp(gnorm, min=self.clip_norm)
         for g in grads:
             g.mul_(factor.to(g.dtype))
@@ -484,47 +494,57 @@ def make_conjoined_train_step(model: nn.Module, optimizer: Optimizer,
 
 
 # ---------------------------------------------------------------------------
-# Data parallelism: the sharded steps over a mesh axis 'dp' (tp = 1)
+# The sharded steps over a mesh {'dp': d} or {'dp': d, 'tp': t}
 # ---------------------------------------------------------------------------
 
 def data_parallel(mesh) -> BatchSharding:
-    """The batch split over the mesh's axis 'dp' (JAX's data_sharding);
-    raises ValueError for an axis 'tp' above 1 or a mesh without 'dp'."""
+    """The batch split over the mesh's axis 'dp' (JAX's data_sharding): the
+    tp ranks of one dp coordinate hold the same rows. Raises ValueError
+    for a mesh without 'dp'."""
     names = mesh.mesh_dim_names
-    if 'tp' in names and axis_size(mesh, 'tp') > 1:
-        raise ValueError(TP_SLICE)
     if 'dp' not in names:
         raise ValueError(f"the mesh {names} has no axis 'dp'")
     return BatchSharding(mesh, 'dp')
 
 
-class _AllReduceOptimizer:
+class _ShardedOptimizer:
     """``optimizer`` with the gradients averaged over the dp axis first
-    (one all_reduce of the gradients flattened), so the clipping norm and
-    the AdamW update are the global batch's and the same bits on every
-    rank."""
+    (one all_reduce of the gradients flattened, within the dp group of this
+    rank's tp coordinate) and, under tensor parallelism, the clipping norm
+    of the whole model: the same bits on every rank of a tp group."""
 
     def __init__(self, optimizer: Optimizer, dp: BatchSharding):
         self.optimizer, self.dp = optimizer, dp
+        self.plan = None        # the model's tp plan, set by shard_state
 
     def update(self, opt, params, step: int):
-        self.dp.mean_([p.grad for p in params])
-        return self.optimizer.update(opt, params, step)
+        grads = [p.grad for p in params]
+        self.dp.mean_(grads)
+        gnorm = None if self.plan is None else tp_global_norm(
+            grads, [getattr(p, 'tp_split', None) for p in params], self.plan)
+        return self.optimizer.update(opt, params, step, gnorm)
 
 
-def _shard_state(mesh):
+def _shard_state(mesh, opt: _ShardedOptimizer, rules=VMAE_PARTITION_RULES):
     """shard_state(state): every rank takes the mesh's first rank's
-    parameters, buffers, optimizer moments and step count, in place."""
+    parameters, buffers, optimizer moments and step count, in place; with
+    an axis 'tp', each rank then keeps its shard of the split parameters
+    and of their moments (mesh.shard_params, opt_state_shardings), and
+    ``opt`` clips by the tp-aware norm."""
     def shard_state(state: TrainState) -> TrainState:
         replicate(state.model, mesh)
-        opt = state.opt_state
+        opt_state = state.opt_state
         replicate_tensors_(
-            [v for g in opt.param_groups for p in g['params']
-             for _, v in sorted(opt.state.get(p, {}).items())
+            [v for g in opt_state.param_groups for p in g['params']
+             for _, v in sorted(opt_state.state.get(p, {}).items())
              if isinstance(v, torch.Tensor)], mesh)
         step = torch.tensor([state.step], dtype=torch.long)
         replicate_tensors_([step], mesh)
         state.step = int(step)
+        if 'tp' in mesh.mesh_dim_names:
+            shard_params(state.model, mesh, rules)
+            shard_optimizer_state_(opt_state, state.model)
+            opt.plan = state.model.tp_plan
         return state
     return shard_state
 
@@ -560,18 +580,21 @@ def make_sharded_train_step(model: PretrainVisionTransformer,
                             remat=True, mask_fn: Optional[Callable] = None,
                             accum_steps: int = 1, device='cuda',
                             **loss_kwargs):
-    """The VMAE step data-parallel over the mesh's axis 'dp' (tp = 1).
+    """The VMAE step over the mesh {'dp': d} or {'dp': d, 'tp': t}.
     Returns (step, shard_state, data_sharding): ``step(state, x, mask)``
     (with mask_fn ``step(state, x, generator)``) takes this rank's rows of
     the batch, ``shard_state(state)`` gives every rank the first rank's
-    state, and ``data_sharding`` (a BatchSharding) says which rows are this
-    rank's. The result on every rank is the single-process step on the
-    global batch."""
+    state and, with 'tp', keeps this rank's shard of it per
+    VMAE_PARTITION_RULES, and
+    ``data_sharding`` (a BatchSharding) says which rows are this rank's.
+    The result on every rank is the single-process step on the global
+    batch."""
     dp = data_parallel(mesh)
-    step = make_train_step(model, _AllReduceOptimizer(optimizer, dp), n_vis,
-                           remat=remat, accum_steps=accum_steps,
-                           device=device, **loss_kwargs)
-    return _dp_step(step, dp, mask_fn), _shard_state(mesh), dp
+    opt = _ShardedOptimizer(optimizer, dp)
+    step = make_train_step(model, opt, n_vis, remat=remat,
+                           accum_steps=accum_steps, device=device,
+                           **loss_kwargs)
+    return _dp_step(step, dp, mask_fn), _shard_state(mesh, opt), dp
 
 
 def make_sharded_cmae_train_step(model: nn.Module, optimizer: Optimizer,
@@ -579,13 +602,14 @@ def make_sharded_cmae_train_step(model: nn.Module, optimizer: Optimizer,
                                  remat=True,
                                  mask_fn: Optional[Callable] = None,
                                  accum_steps: int = 1):
-    """The ChannelMAE step data-parallel over 'dp', as
-    make_sharded_train_step: (step, shard_state, data_sharding)."""
+    """The ChannelMAE step over 'dp' (and 'tp': its blocks are the
+    VMAE's), as make_sharded_train_step: (step, shard_state,
+    data_sharding)."""
     dp = data_parallel(mesh)
-    step = make_cmae_train_step(model, _AllReduceOptimizer(optimizer, dp),
-                                n_vis, group_masked_counts, remat=remat,
-                                accum_steps=accum_steps)
-    return _dp_step(step, dp, mask_fn), _shard_state(mesh), dp
+    opt = _ShardedOptimizer(optimizer, dp)
+    step = make_cmae_train_step(model, opt, n_vis, group_masked_counts,
+                                remat=remat, accum_steps=accum_steps)
+    return _dp_step(step, dp, mask_fn), _shard_state(mesh, opt), dp
 
 
 def make_sharded_conjoined_train_step(model: nn.Module, optimizer: Optimizer,
@@ -593,13 +617,15 @@ def make_sharded_conjoined_train_step(model: nn.Module, optimizer: Optimizer,
                                       remat=True,
                                       mask_fn: Optional[Callable] = None,
                                       accum_steps: int = 1, **loss_kwargs):
-    """The conjoined step data-parallel over 'dp': step(state, x, mask,
+    """The conjoined step over 'dp' (and 'tp', per
+    CONJOINED_PARTITION_RULES): step(state, x, mask,
     x_context, mask_context), with mask_fn step(state, x, x_context,
     generator); (step, shard_state, data_sharding)."""
     dp = data_parallel(mesh)
+    opt = _ShardedOptimizer(optimizer, dp)
     step = make_conjoined_train_step(
-        model, _AllReduceOptimizer(optimizer, dp), n_vis, n_vis_context,
-        remat=remat, accum_steps=accum_steps, **loss_kwargs)
+        model, opt, n_vis, n_vis_context, remat=remat,
+        accum_steps=accum_steps, **loss_kwargs)
     return (_dp_step(step, dp, mask_fn,
                      lambda ins, ms: (ins[0], ms[0], ins[1], ms[1])),
-            _shard_state(mesh), dp)
+            _shard_state(mesh, opt, CONJOINED_PARTITION_RULES), dp)

@@ -2,8 +2,8 @@
 
 Port of scripts/train_cmae.py: per-group uniform masking, the masked
 patches' MSE summed over channel groups, AdamW with the cosine schedule,
-rolling checkpoints with exact resume, JSONL metrics and ``--dp`` over
-processes (training/loop.py).
+rolling checkpoints with exact resume, JSONL metrics, and ``--dp`` and
+``--tp`` over processes (training/loop.py).
 
 Data: a clip shard (one frame per clip) or synthetic images (a coarse 8x8
 noise image resized bilinearly). With ``--with-flow`` each clip's 2-frame
@@ -138,7 +138,7 @@ def main(argv=None):
     ckpt, state, start = loop.resume(args, state)
     loop.say(f'partition={partition} mask_size={model.mask_size} '
              f'n_vis={n_vis} device={device} dtype={model.dtype} '
-             f'attn={model.attn_impl} dp={dp.size}')
+             f'attn={model.attn_impl} dp={dp.size} tp={dp.tp}')
 
     def mask_fn(g, b):
         return cmae.group_uniform_mask(g, model.mask_size, args.mask_ratio,

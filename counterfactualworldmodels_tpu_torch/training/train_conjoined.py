@@ -3,8 +3,9 @@
 Port of scripts/train_conjoined.py: masked-prediction MSE on the main (RGB)
 stream with the IMU context fully visible
 (training/train.conjoined_prediction_loss), synthetic or shard data,
-rolling checkpoints with exact resume, JSONL metrics and ``--dp`` over
-processes (training/loop.py). With a shard, the IMU comes from its sidecar
+rolling checkpoints with exact resume, JSONL metrics, and ``--dp`` and
+``--tp`` over processes (training/loop.py; the cross blocks split by
+parallel.CONJOINED_PARTITION_RULES). With a shard, the IMU comes from its sidecar
 (``<shard>.imu``, data/shards.write_imu_sidecar), row by row with the
 loader's clips; without one it is a seeded placeholder.
 
@@ -143,7 +144,7 @@ def main(argv=None):
     n_vis_c = model.context.num_patches + int(model.context.concat_dummy_token)
     loop.say(f'main tokens={n} n_vis={n_vis} ctx n_vis={n_vis_c} '
              f'device={device} dtype={model.dtype} attn={model.attn_impl} '
-             f'dp={dp.size}')
+             f'dp={dp.size} tp={dp.tp}')
     model.load_state_dict(weights.init_conjoined_state_dict(
         model, torch.Generator(device=device).manual_seed(args.seed)),
         strict=True)

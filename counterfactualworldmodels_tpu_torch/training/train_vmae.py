@@ -2,8 +2,8 @@
 
 Port of scripts/train_vmae.py: synthetic clips or a CWMSHARD file through
 the native loader, rolling checkpoints with exact resume, JSONL metrics, a
-profiler window and data parallelism over processes (training/loop.py).
-Tensor parallelism (--tp above 1) comes with the model-sharding slice.
+profiler window, and data and tensor parallelism over processes
+(training/loop.py).
 
     python -m counterfactualworldmodels_tpu_torch.training.train_vmae \\
         --synthetic --model large --batch-size 4 --steps 10
@@ -20,6 +20,11 @@ Tensor parallelism (--tp above 1) comes with the model-sharding slice.
     torchrun --nproc_per_node=4 -m \\
         counterfactualworldmodels_tpu_torch.training.train_vmae \\
         --synthetic --model large --batch-size 16 --dp 4
+
+    # 2 x 2: the heads and MLP hidden units split over 2 cards, twice
+    torchrun --nproc_per_node=4 -m \\
+        counterfactualworldmodels_tpu_torch.training.train_vmae \\
+        --synthetic --model large --batch-size 8 --dp 2 --tp 2
 
 On CUDA the model runs in bf16 with the flash attention kernels; on the
 CPU in f32 with dense attention. Prints a JSON line per logged step.
@@ -106,7 +111,7 @@ def main(argv=None):
     name = (torch.cuda.get_device_name(device) if device.type == 'cuda'
             else 'cpu')
     loop.say(f'device={name} model={args.model} dtype={model.dtype} '
-             f'attn={model.attn_impl} n_vis={n_vis} dp={dp.size}')
+             f'attn={model.attn_impl} n_vis={n_vis} dp={dp.size} tp={dp.tp}')
 
     def mask_fn(g, b):
         return T.make_batch_masks(g, model, b, args.mask_ratio)[0]

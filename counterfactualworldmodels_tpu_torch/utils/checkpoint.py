@@ -11,6 +11,14 @@ directories ``step_000000123/`` under one directory, drops all but the
 newest ``max_to_keep`` and restores the latest. Every write goes to a
 temporary file that is renamed into place, so an interrupted save leaves
 no checkpoint that looks whole.
+
+Under tensor parallelism (a model with a ``tp_plan``, parallel/tensor.py)
+a training state holds this rank's shards: saving gathers the full
+reference-layout state dict and the full AdamW moments over the tp group
+(JAX's ``jax.device_get`` of the sharded arrays), so every rank of that
+group calls it and rank 0 alone writes. A trainer restores into its
+unsharded state and then shards it, so a checkpoint resumes at any tp
+size.
 """
 from __future__ import annotations
 
@@ -19,6 +27,9 @@ import shutil
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.tensor import full_optimizer_state_dict, full_state_dict
 
 STATE_FILE = 'train_state.pt'
 
@@ -46,17 +57,39 @@ def load_params(path: str) -> Dict[str, torch.Tensor]:
                       weights_only=True)
 
 
+def _is_rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def gathers_for_rank0(model) -> bool:
+    """Whether this rank joins rank 0's checkpoint gathers: it is in rank
+    0's tp group of a tensor-parallel model."""
+    plan = getattr(model, 'tp_plan', None)
+    return plan is not None and 0 in dist.get_process_group_ranks(plan.group)
+
+
+def _payload(state) -> Dict:
+    return {'step': int(state.step),
+            'model': _cpu(full_state_dict(state.model)),
+            'opt_state': full_optimizer_state_dict(state.opt_state,
+                                                   state.model)}
+
+
 def save_train_state(path: str, state) -> None:
-    """Save a training.TrainState (step, model, optimizer) to ``path``."""
-    _save({'step': int(state.step),
-           'model': _cpu(state.model.state_dict()),
-           'opt_state': state.opt_state.state_dict()}, path)
+    """Save a training.TrainState (step, model, optimizer) to ``path``, at
+    full size: under tensor parallelism every rank of rank 0's tp group
+    calls this (the gather) and rank 0 alone writes."""
+    payload = _payload(state)
+    if _is_rank0():
+        _save(payload, path)
 
 
 def restore_train_state(path: str, template):
     """Load a state saved by :func:`save_train_state` into ``template``'s
     model and optimizer (in place, on their device) and return the
-    template with the saved step."""
+    template with the saved step. The template is unsharded: a trainer
+    restores, then shards (training/train.py's shard_state), so a
+    checkpoint resumes at any tp."""
     saved = torch.load(os.path.abspath(path), map_location='cpu',
                        weights_only=True)
     template.model.load_state_dict(saved['model'], strict=True)
@@ -96,9 +129,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state) -> None:
+        """Checkpoint ``state`` as step ``step`` (every rank of rank 0's tp
+        group calls this under tensor parallelism; rank 0 writes)."""
+        payload = _payload(state)
+        if not _is_rank0():
+            return
         d = self._step_dir(step)
         os.makedirs(d, exist_ok=True)
-        save_train_state(os.path.join(d, STATE_FILE), state)
+        _save(payload, os.path.join(d, STATE_FILE))
         steps = self.all_steps()
         # keep at least the checkpoint just written
         drop = (steps[:-self.max_to_keep] if self.max_to_keep > 0

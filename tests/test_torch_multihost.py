@@ -3,7 +3,7 @@ and the trainers' --dp, on the CPU under gloo.
 
 Single-process: initialize_distributed's environment rules (a no-op
 without hints; a bad address raises, never a quiet single-process run),
-process_local_batch_size, and the refusal of tensor parallelism. Then one
+process_local_batch_size, and a tp mesh's world size on one rank. Then one
 spawn of two ranks (a FileStore under tmp_path, a join timeout) runs the
 module's multi-process checks: the hybrid mesh, per-rank batches,
 replicate, and ``train_vmae --dp`` / ``train_raft --dp`` for two steps
@@ -134,17 +134,22 @@ def test_process_local_batch_size_and_single_process_meshes():
         parallel.make_hybrid_mesh({'dp': 1}, {'local': 1})
 
 
-def test_tensor_parallelism_raises():
-    with pytest.raises(ValueError, match='model-sharding slice'):
-        parallel.make_mesh({'dp': 1, 'tp': 2})
-
-    class _Mesh:
-        mesh_dim_names = ('dp', 'tp')
-
-        def size(self, dim):
-            return (1, 2)[dim]
-    with pytest.raises(ValueError, match='model-sharding slice'):
-        TT.data_parallel(_Mesh())
+def test_tensor_parallelism_raises(tmp_path):
+    """A tp mesh needs one process per card: on a group of one rank
+    make_mesh({'dp': 1, 'tp': 2}) raises for the world size; a dp x tp
+    mesh splits the batch over 'dp', and a mesh without 'dp' raises."""
+    dist.init_process_group('gloo', init_method='file://' + str(
+        tmp_path / 'store'), world_size=1, rank=0)
+    try:
+        with pytest.raises(ValueError, match='has 2 ranks; the process '
+                                             'group has 1'):
+            parallel.make_mesh({'dp': 1, 'tp': 2})
+        mesh = parallel.make_mesh({'dp': 1, 'tp': 1})
+        assert TT.data_parallel(mesh).axis == 'dp'
+        with pytest.raises(ValueError, match="has no axis 'dp'"):
+            TT.data_parallel(parallel.make_mesh({'tp': 1}))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_images_mode_says_when_pil_is_missing(monkeypatch, tmp_path):

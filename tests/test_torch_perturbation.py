@@ -234,3 +234,42 @@ def test_add_markers_matches_jax(shape):
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     with pytest.raises(ValueError):
         tpert.add_markers(t(x), idx, (5, 5), shape='ring')
+
+
+def test_single_sample_forms_match_jax():
+    """JAX's single-sample calls (the forms its callers vmap) give JAX's
+    result bitwise: shift_frame_and_mask on x [2,3,32,32], a [4,4] mask
+    and a [2] shift; make_motion_counterfactual on x [2,3,32,32],
+    passive/active [32] and a [2] shift, without and with
+    rectangularization (noise [16], JAX's draws for the key)."""
+    rng = np.random.RandomState(9)
+    x = rng.rand(2, 3, 32, 32).astype(np.float32)
+    mask = rng.rand(4, 4) > 0.5
+    shift = np.array([1, -1], np.int32)
+    jx, jm = jpert.shift_frame_and_mask(jnp.asarray(x), jnp.asarray(mask),
+                                        jnp.asarray(shift), 8)
+    tx, tm = tpert.shift_frame_and_mask(t(x), t(mask), t(shift), 8)
+    assert tx.shape == (2, 3, 32, 32) and tm.shape == (4, 4)
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+
+    p, a, _, npf = _prompts(rng, 1, 32, 8, n_passive=3)
+    key = jax.random.PRNGKey(4)
+    for n_vis in (None, npf + 5):
+        jx, jm = jpert.make_motion_counterfactual(
+            jnp.asarray(x), jnp.asarray(p[0]), jnp.asarray(a[0]),
+            jnp.asarray(shift), None if n_vis is None else key, 8,
+            n_vis_target=n_vis)
+        noise = (None if n_vis is None else
+                 t(jax_uniform_noise(key[None], npf))[0])
+        tx, tm = tpert.make_motion_counterfactual(
+            t(x), t(p[0]), t(a[0]), t(shift), noise, 8, n_vis_target=n_vis)
+        assert tx.shape == (2, 3, 32, 32) and tm.shape == (32,)
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    # translate2d: one image, one [2] shift
+    img = rng.randn(3, 9, 7).astype(np.float32)
+    np.testing.assert_array_equal(
+        tpert.translate2d(t(img), t(np.array([2, -3])), 0.5).numpy(),
+        np.asarray(jpert.translate2d(jnp.asarray(img),
+                                     jnp.asarray([2, -3]), 0.5)))

@@ -241,7 +241,8 @@ def test_trainers_refuse_what_is_not_ported(shard, tmp_path):
         # --dp runs one process per card: one process cannot be two ranks
         with pytest.raises(SystemExit, match='torchrun --nproc_per_node=2'):
             main(argv + ['--synthetic', '--device', 'cpu', '--dp', '2'])
-        with pytest.raises(SystemExit, match='model-sharding slice'):
+        # so does --tp: two processes, one per card
+        with pytest.raises(SystemExit, match='torchrun --nproc_per_node=2'):
             main(argv + ['--synthetic', '--device', 'cpu', '--tp', '2'])
         with pytest.raises(SystemExit, match='--shard PATH or --synthetic'):
             main(argv + ['--device', 'cpu'])
