@@ -20,18 +20,22 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
 1. device: name, power limit, torch and CUDA versions;
 2. build: nvcc for sm_90a, with the seconds it took; each kernel's
    registers and spills (ptxas) and its count of HGMMA (wgmma)
-   instructions in ``cuobjdump -sass``: every bf16 attention kernel
-   (``*_sm90``) must be there at each head dim, hold some, and not spill
-   at D = 64;
+   instructions in ``cuobjdump -sass``: every tensor-core attention
+   kernel (bf16 ``*_sm90``, and the f32 forward ``attention_fwd_tf32``)
+   must be there at each head dim, hold some, and not spill at D = 64;
 3. each kernel against its plain PyTorch version on the card, at the
    paths' shapes, in f32 and bf16, with the kernel's, the plain version's
    and one library call's times, the ratio to the library call and the
-   share of the bound; the window lookup (f32 sums) one level per call and
+   share of the bound (f32 attention rows: the split-tf32 tensor-core
+   bound, 3 x operations / 495 TFLOP/s, with the CUDA-core bound beside
+   it; rows under 0.1 ms also timed by CUDA-graph replay, kernel and
+   library call); the window lookup (f32 sums) one level per call and
    fused, four levels in one launch as a RAFT iteration calls it, at the
    large RAFT's radius 4 and the small one's 3, with f32 and bf16 output,
    timed by CUDA-graph replay beside CUDA events; the
    training pair (K5 forward with logsumexp, K6 backward) at the encoder
-   and decoder training shapes, with K6's determinism check; the IMU
+   and decoder training shapes, in bf16 and f32, with K6's determinism
+   check; the IMU
    path's shapes: K1 at the ViT-B 4x4 prefix and at the IMU stream's head
    dim 32, K2 at the conjoined decoder suffix; K1, K5 and K6 at head dims
    8, 24 and 48 (run padded to 16, 32 and 64) in f32 and bf16; K5 and K6
@@ -200,6 +204,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 PEAK_BYTES = 3.35e12
+# f32 attention's bound: the tensor cores in tf32 (495 TFLOP/s) at three
+# products per f32-accurate product (split tf32, csrc/sm90_mma.cuh)
+PEAK_TF32 = 495e12
+SPLIT_TF32_PASSES = 3
+# rows whose kernel takes less than this are also timed by CUDA-graph
+# replay: there CUDA events around back-to-back calls time the Python
+GRAPH_BELOW_MS = 0.1
 
 # attention kernel vs plain: f32 absolute (K1 2e-5, K2 3e-5); bf16 within
 # REL_BF16 of the plain output's largest magnitude (at the main-path shapes
@@ -213,9 +224,10 @@ TOL_LOOKUP = 1e-5
 TOL_GRAD = dict(atol=2e-4, rtol=1e-4)
 TOL_LSE = dict(atol=1e-4, rtol=1e-5)
 REL_BF16 = 2e-2
-# the bf16 tensor-core kernels, each built for these head dims: the build
-# phase finds each in the ptxas report and the SASS by its mangled name
-SM90_KERNELS = {'attention': ('attention_fwd_sm90',),
+# the tensor-core kernels (bf16, and the f32 forward in split tf32), each
+# built for these head dims: the build phase finds each in the ptxas report
+# and the SASS by its mangled name
+SM90_KERNELS = {'attention': ('attention_fwd_sm90', 'attention_fwd_tf32'),
                 'attention_bwd': ('dkdv_sm90', 'dq_sm90')}
 HEAD_DIMS = (16, 32, 64, 128)
 S_FULL = 16
@@ -348,6 +360,36 @@ def bound(flops, nbytes, dtype_name):
     return (max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes')
 
 
+def attention_bound(flops, nbytes, dtype_name):
+    """bound_ms and bound_by of an attention row; f32 rows at the split-tf32
+    tensor-core rate (SPLIT_TF32_PASSES x operations / PEAK_TF32), with
+    the CUDA-core figure beside it as bound_cuda_core_ms."""
+    if dtype_name != 'float32':
+        bms, by = bound(flops, nbytes, dtype_name)
+        return dict(bound_ms=bms, bound_by=by)
+    t_ops = SPLIT_TF32_PASSES * flops / PEAK_TF32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                bound_cuda_core_ms=bound(flops, nbytes, 'float32')[0])
+
+
+def add_graph_ms(torch, r, kernel_fn, library_fn=None):
+    """A row whose kernel takes under GRAPH_BELOW_MS: its device time by
+    CUDA-graph replay (graph_ms), and the library call's where one is
+    given; None where the library call cannot be captured."""
+    if r['ms'] >= GRAPH_BELOW_MS:
+        return
+    r['graph_ms'] = graph_ms(torch, [kernel_fn])
+    if library_fn is not None and r.get('library_ms') is not None:
+        try:
+            r['library_graph_ms'] = graph_ms(torch, [library_fn])
+        except Exception as e:  # a yardstick only: report it and carry on
+            print(f'library call not captured: {type(e).__name__}: {e}',
+                  file=sys.stderr)
+            r['library_graph_ms'] = None
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -423,12 +465,15 @@ def attention_cases(torch, F, fa, rec):
             item = q.element_size()
             flops = 4 * b * h * nq * nk * d
             nbytes = item * b * h * d * (2 * nq + 2 * nk)
-            bms, by = bound(flops, nbytes, dn)
             r = dict(kernel='flash_attention', case=label, dtype=dn,
                      shape=[b, h, nq, nk, d], max_abs_err=err, tol=tol,
                      max_abs_plain=float(ref.float().abs().max()),
                      ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9)
+                     **attention_bound(flops, nbytes, dn),
+                     tflops=flops / ms / 1e9)
+            add_graph_ms(torch, r, lambda: fa.flash_attention(q, k, v),
+                         lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                scale=1.0))
             rec['phase3'].append(with_ratios(r))
             log('3 kernels', json.dumps(r))
             if not err <= tol:
@@ -469,18 +514,20 @@ def attention_cases(torch, F, fa, rec):
             mask = None if w0 == w1 == 1.0 else bias[None]
             lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, kc, vc, attn_mask=mask, scale=1.0))
-            del kc, vc
             item = q.element_size()
             flops = 4 * s * h * nq * (n0 + n1) * 64
             nbytes = item * 64 * h * (2 * s * nq + 2 * s0 * n0 + 2 * s * n1)
-            bms, by = bound(flops, nbytes, dn)
             r = dict(kernel='flash_attention_prefix', case=label, dtype=dn,
                      shape=[s, h, nq, n0, n1, 64, s0], weights=[w0, w1],
                      max_abs_err=err, tol=tol,
                      max_abs_plain=float(ref.float().abs().max()),
-                     ms=ms, plain_ms=plain_ms,
-                     library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     **attention_bound(flops, nbytes, dn),
                      tflops=flops / ms / 1e9)
+            add_graph_ms(torch, r, lambda: fa.flash_attention_prefix(*args),
+                         lambda: F.scaled_dot_product_attention(
+                             q, kc, vc, attn_mask=mask, scale=1.0))
+            del kc, vc
             rec['phase3'].append(with_ratios(r))
             log('3 kernels', json.dumps(r))
             if not err <= tol:
@@ -697,6 +744,9 @@ def training_kernel_cases(torch, F, fa, rec):
                #  launches of (K5, K6) per remat train step)
         ('encoder', bf, 1, B_TRAIN, 16, 3450, 3450, 64, (48, 24)),
         ('decoder', bf, 1, B_TRAIN, 8, 6272, 6272, 64, (24, 12)),
+        # the same in f32: the size of the f32 backward's work
+        ('encoder', f32, 1, B_TRAIN, 16, 3450, 3450, 64, (48, 24)),
+        ('decoder', f32, 1, B_TRAIN, 8, 6272, 6272, 64, (24, 12)),
         ('ragged', f32, 2, 2, 3, 1000, 777, 64, (0, 0)),
         # train_cmae's defaults (ViT-B, 224 px, 32 px patches, batch 32,
         # ratio 0.75): 13 visible tokens, 49 in the decoder; with the flow
@@ -767,26 +817,33 @@ def training_kernel_cases(torch, F, fa, rec):
         lib6 = None if fb is None or lib5 is None else fb - lib5
         item = q.element_size()
         pairs = bt * h * nq * nk * d
-        for kernel, ms, plain, lib, flops, nbytes, err, ok, launches in (
+        for (kernel, ms, plain, lib, flops, nbytes, err, ok, launches, fn,
+             lib_fn) in (
                 ('flash_attention_lse', ms5, plain5, lib5, 4 * pairs,
                  item * bt * h * d * (2 * nq + 2 * nk) + 4 * bt * h * nq,
-                 err5, ok5, per_step[0]),
+                 err5, ok5, per_step[0],
+                 lambda: fa._flash_forward_lse(q, k, v),
+                 lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)),
                 # the function's work is 10*pairs (the TPU kernel's five
                 # products); the two-pass kernel does 14*pairs
                 ('flash_attention_bwd', ms6, plain6, lib6, 10 * pairs,
                  item * bt * h * d * (3 * nq + 3 * nk) + 8 * bt * h * nq,
-                 err6, ok6, per_step[1])):
-            bms, by = bound(flops, nbytes, dn)
+                 err6, ok6, per_step[1],
+                 lambda: fa._flash_backward(q, k, v, do, lse, delta), None)):
             r = dict(kernel=kernel, case=label, dtype=dn,
                      shape=[bt, h, nq, nk, d], compared_batch=bc,
                      errors=err, max_abs_err=max(v for n, v in err.items()
                                                  if n != 'max_abs_plain'),
                      ok=ok, ms=ms, plain_ms=plain, library_ms=lib,
-                     bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9,
+                     **attention_bound(flops, nbytes, dn),
+                     tflops=flops / ms / 1e9,
                      launches_per_train_step=launches)
             if kernel == 'flash_attention_bwd':
                 r['deterministic'] = deterministic
                 r['kernel_tflops'] = 14 * pairs / ms / 1e9
+            # the backward's library call is the difference of two timed
+            # calls (forward + backward, forward): no graph of its own
+            add_graph_ms(torch, r, fn, lib_fn)
             rec['phase3'].append(with_ratios(r))
             log('3 kernels', json.dumps(r))
         del q, k, v, do, out, lse, leaves
@@ -4438,7 +4495,7 @@ def demo_phase(torch, port, rec, smi):
 
 def _category(kernel_name):
     k = kernel_name.lower()
-    for cat, keys in (('attention kernel (K1/K2/K5)', ('attention_kernel',
+    for cat, keys in (('attention kernel (K1/K2/K5)', ('attention_fwd_tf32',
                                                        'attention_fwd_sm90')),
                       ('attention backward kernel (K6)', ('dkdv_kernel',
                                                           'dq_kernel',
@@ -4840,16 +4897,17 @@ def main():
             ('K2', 'flash_attention_prefix', 'bfloat16', 'ViT-B 8x8 pool4 S 8',
              'demo_base', REPLACES['flash_attention_prefix'])):
         r = pick(kernel, dtype, case)
-        table.append(dict(name=kernel, tpu_kernel=kid, case=case,
-                          route='cuda', source=SOURCES[kernel],
-                          replaces=replaces, path=path,
-                          launches=paths[path][kernel],
-                          launches_per_path={k: v[kernel]
-                                             for k, v in paths.items()},
-                          max_abs_err=r['max_abs_err'], ms=r['ms'],
-                          plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
-                          bound_by=r['bound_by'],
-                          library_ms=r['library_ms']))
+        row = dict(name=kernel, tpu_kernel=kid, case=case, dtype=dtype,
+                   route='cuda', source=SOURCES[kernel], replaces=replaces,
+                   path=path, launches=paths[path][kernel],
+                   launches_per_path={k: v[kernel] for k, v in paths.items()},
+                   max_abs_err=r['max_abs_err'], ms=r['ms'],
+                   plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+                   bound_by=r['bound_by'], library_ms=r['library_ms'])
+        for key in ('bound_cuda_core_ms', 'graph_ms', 'library_graph_ms'):
+            if key in r:
+                row[key] = r[key]
+        table.append(row)
     print(json.dumps({'kernels': table}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

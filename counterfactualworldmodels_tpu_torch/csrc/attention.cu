@@ -29,11 +29,20 @@
 // What bounds it on the H100. At the main-path shapes (ViT-L 4x4 @224,
 // N = 3136, d = 64) attention does 4*N*Nk*d operations per (sample, head)
 // against 2*(N+Nk)*d*itemsize bytes of compulsory traffic, hundreds of
-// operations per byte: it is bound by arithmetic, and on bf16 by the
-// tensor cores (989 TFLOP/s) and, at d = 64, nearly as much by the exp2
-// unit (one exp2 per score against 4*d tensor-core operations).
+// operations per byte: it is bound by arithmetic. On bf16 that is the
+// tensor cores (989 TFLOP/s) and, at d = 64, nearly as much the exp2 unit
+// (one exp2 per score against 4*d tensor-core operations). On float32 it
+// is the tensor cores in tf32 with three products per product (split
+// tf32, sm90_mma.cuh): 495 / 3 = 165 TFLOP/s of f32-accurate work, against
+// 67 TFLOP/s for f32 on the CUDA cores.
 //
-// Two routes, chosen by dtype inside cwm_attention:
+// Two routes, chosen by dtype inside cwm_attention. Both run the same
+// online softmax on the score accumulator in registers: each row's max and
+// sum reduced over the 4 threads of a quad; an all-masked history keeps
+// m = -inf; the panel multiplicity applied once per panel switch (acc and
+// l are kept in units of the current panel's weight, scaled by w0/w1 when
+// panel 1 begins and by w_last in the stored lse; the output acc/l is free
+// of it; pool weights are powers of two, so that adds no rounding).
 //
 // bfloat16 -- attention_fwd_sm90, on the tensor cores (wgmma). A block of
 // two warpgroups owns 128 query rows (64 each); Q stays in shared memory
@@ -41,202 +50,407 @@
 // ring filled by cp.async, so the copy of tile t+1 overlaps the products
 // of tile t. Tiles are stored swizzled for wgmma (sm90_mma.cuh). Per tile
 // and warpgroup: S = Q.K^T is one wgmma chain with both operands in shared
-// memory; the online softmax runs on the accumulator fragment in
-// registers, each row's max and sum reduced over the 4 threads of a quad;
-// P is rounded to bf16 in registers (the TPU kernel's cast point,
+// memory; P is rounded to bf16 in registers (the TPU kernel's cast point,
 // flash_attention.py:273) and is the register A operand of O += P.V, with
-// V read MN-major from the same tile. The panel multiplicity is applied
-// once per panel switch: acc and l are kept in units of the current
-// panel's weight, scaled by w0/w1 when panel 1 begins and by w_last in the
-// stored lse (the output acc/l is free of it); pool weights are powers of
-// two, so that adds no rounding.
+// V read MN-major from the same tile.
 //
-// float32 -- attention_kernel, on the CUDA cores (full f32, no TF32). One
-// block of 256 threads per (sample*head, 64-query tile). Keys stream
-// through shared memory in tiles of 64 with an online softmax in the exp2
-// domain: the [Nq, Nk] score matrix never reaches device memory. Q and K
-// tiles are stored transposed ([d][row]) so each thread reads its 4x4
-// score micro-tile operands as two float4 loads per step of d (the
-// register-blocked SGEMM pattern); the probability tile goes back to
-// shared memory transposed for the P.V product, where each thread owns 4
-// query rows x d/16 output columns. Row statistics (m, l) live with the 16
-// threads of a row group and are combined with warp shuffles.
+// float32 -- attention_fwd_tf32, on the tensor cores in split tf32. Every
+// product is three tf32 wgmma chains (lo.hi, hi.lo, hi.hi), which keeps
+// f32 accuracy (~2^-21 per product; the plain f32 version's tolerances
+// hold with a wide margin) whatever PyTorch's TF32 flags say. tf32 wgmma
+// takes both operands K-major, and P.V contracts over keys, so V is needed
+// as V^T tiles. A block of two warpgroups owns 128 query rows (one of 64
+// at D = 128). Q is split once per block: into register A fragments
+// (D <= 64) or into hi/lo tiles in shared memory (D = 128, where the
+// fragments would not fit the registers). Raw K and V tiles of 64 keys
+// (16 at D = 128) stream through a two-stage cp.async ring two tiles
+// ahead; each tile is then split into tf32 hi/lo tiles of K and of V^T
+// (a second two-stage ring) by the block's threads, while the tensor cores
+// run the previous tile's S = Q.K^T: the split costs one pass over shared
+// memory per tile and overlaps the products. V is transposed in that pass:
+// it lands in a staging layout whose chunks are XOR-spread so that the
+// transposing reads and writes hit distinct banks. Within each 8-key step
+// the V^T tile holds the keys in the order in which a thread's score
+// accumulator holds P (keys 2c, 2c+1 in one thread, A-fragment columns c,
+// c+4), so P is split in registers and goes to the A operand of O += P.V
+// with no shuffle. One barrier per tile.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "sm90_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int NT = 256;       // threads per block: 16 row groups x 16
-constexpr int LD = BQ + 4;    // leading dim of the transposed tiles (BQ == BK)
+// ---------------------------------------------------------------------------
+// float32: tensor cores, split tf32
+// ---------------------------------------------------------------------------
+
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-constexpr int smem_floats(int d) { return 2 * d * LD + BK * d + BK * LD; }
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-attention_kernel(const float* __restrict__ q,
-                 const float* __restrict__ k0, const float* __restrict__ v0,
-                 int n0, int shared0, float w0,
-                 const float* __restrict__ k1, const float* __restrict__ v1,
-                 int n1, float w1,
-                 float* __restrict__ out, float* __restrict__ lse, int nq,
-                 int heads) {
-  constexpr int CT = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qt = smem;             // [D][LD]  q tile, transposed
-  float* kt = qt + D * LD;      // [D][LD]  k tile, transposed
-  float* vs = kt + D * LD;      // [BK][D]  v tile
-  float* pt = vs + BK * D;      // [BK][LD] probabilities, transposed
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;      // key / column group
-  const int ty = tid >> 4;      // query row group: rows ty*4 .. ty*4+3
-  const int bh = blockIdx.y;
-  const int q_start = blockIdx.x * BQ;
-
-  const float* qb = q + (size_t)bh * nq * D;
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, c = e % D;
-    const int gq = q_start + r;
-    qt[c * LD + r] = gq < nq ? qb[(size_t)gq * D + c] : 0.f;
+// The online softmax of one key tile, shared by both routes: on the score
+// accumulator s (BK keys; the thread's two rows, h = 0 at acc_row(0) and
+// h = 1 8 rows below) of a tile whose first key is r0 in a panel of n
+// keys, in the exp2 domain. Masks keys at or past n, updates the running
+// max m and the thread's share of the sum l (the quad is summed at the
+// end), rescales the accumulator o, and leaves the probabilities in s.
+template <int BK, int D>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
+                                             float (&o)[D / 2], float (&m)[2],
+                                             float (&l)[2], int r0, int n) {
+  using sm90::acc_col;
+  using sm90::exp2_ftz;
+  if (r0 + BK > n) {  // only a panel's last tile has padding
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j)
+      if (r0 + acc_col(j) >= n) s[j] = -INFINITY;
   }
-
-  float m[4], l[4], o[4][CT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    float mt = -INFINITY;  // of the raw scores; m is in the exp2 domain
 #pragma unroll
-    for (int c = 0; c < CT; ++c) o[i][c] = 0.f;
-  }
-
-  for (int panel = 0; panel < 2; ++panel) {
-    const int n = panel == 0 ? n0 : n1;
-    if (n == 0) continue;
-    const size_t kv_row = panel == 0 ? (size_t)(shared0 ? bh % heads : bh) : (size_t)bh;
-    const float* kb = (panel == 0 ? k0 : k1) + kv_row * n * D;
-    const float* vb = (panel == 0 ? v0 : v1) + kv_row * n * D;
-    const float w = panel == 0 ? w0 : w1;
-
-    for (int k_start = 0; k_start < n; k_start += BK) {
-      __syncthreads();  // previous tile (and the q tile writes) complete
-      for (int e = tid; e < BK * D; e += NT) {
-        const int r = e / D, c = e % D;
-        const int gk = k_start + r;
-        const bool ok = gk < n;
-        kt[c * LD + r] = ok ? kb[(size_t)gk * D + c] : 0.f;
-        vs[r * D + c] = ok ? vb[(size_t)gk * D + c] : 0.f;
+    for (int i = 0; i < BK / 8; ++i)
+      mt = fmaxf(mt, fmaxf(s[4 * i + 2 * h], s[4 * i + 2 * h + 1]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m[h], mt * LOG2E);
+    // an all-masked history keeps m = -inf; exp2(-inf - 0) = 0 then
+    const float base = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = exp2_ftz(m[h] - base);
+    float ls = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2_ftz(fmaf(s[4 * i + 2 * h + e], LOG2E, -base));
+        s[4 * i + 2 * h + e] = p;
+        ls += p;
       }
-      __syncthreads();
-
-      float s[4][4];
+    l[h] = l[h] * alpha + ls;
+    m[h] = m_new;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        const float4 a = *reinterpret_cast<const float4*>(&qt[d * LD + ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&kt[d * LD + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float mt = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = (k_start + tx * 4 + j < n) ? s[i][j] * LOG2E : -INFINITY;
-          mt = fmaxf(mt, s[i][j]);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-        const float m_new = fmaxf(m[i], mt);
-        // an all-masked history keeps m = -inf; exp2(-inf - 0) = 0 then
-        const float base = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = exp2f(m[i] - base);
-        float ls = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = exp2f(s[i][j] - base) * w;
-          ls += s[i][j];
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          ls += __shfl_xor_sync(0xffffffffu, ls, off);
-        l[i] = l[i] * alpha + ls;
-        m[i] = m_new;
-#pragma unroll
-        for (int c = 0; c < CT; ++c) o[i][c] *= alpha;
-      }
-
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(&pt[(tx * 4 + j) * LD + ty * 4]) =
-            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      __syncthreads();
-
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&pt[kk * LD + ty * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        float vv[CT];
-        if constexpr (CT % 4 == 0) {
-#pragma unroll
-          for (int c = 0; c < CT; c += 4) {
-            const float4 b = *reinterpret_cast<const float4*>(&vs[kk * D + tx * CT + c]);
-            vv[c] = b.x; vv[c + 1] = b.y; vv[c + 2] = b.z; vv[c + 3] = b.w;
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < CT; ++c) vv[c] = vs[kk * D + tx * CT + c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < CT; ++c) o[i][c] = fmaf(av[i], vv[c], o[i][c]);
-      }
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i + 2 * h] *= alpha;
+      o[4 * i + 2 * h + 1] *= alpha;
     }
   }
+}
 
-  float* ob = out + (size_t)bh * nq * D;
+using sm90::bf16;
+using sm90::Tile;
+
+template <int D>
+struct Tf32 {
+  static constexpr bool QREG = D <= 64;         // Q's fragments in registers
+  static constexpr int WGS = D == 128 ? 1 : 2;  // warpgroups per block
+  static constexpr int BQ = 64 * WGS;           // query rows per block
+  static constexpr int NT = 128 * WGS;
+  static constexpr int BK = D == 128 ? 16 : 64; // keys per tile
+  static constexpr int KT = BK * D * 4;         // bytes of a K or V^T tile
+  static constexpr int QT = QREG ? 0 : BQ * D * 4;
+  // Q hi, lo (D = 128); 2 stages of raw K, V; 2 of K hi, lo, V^T hi, lo
+  static constexpr int SMEM = 1024 + 2 * QT + 2 * 2 * KT + 2 * 4 * KT;
+};
+
+// V's staging tile, read only by split_v_transposed: row r (a key) at byte
+// 4D * r, its 16-byte chunk c in slot c ^ vswz(r). The XOR permutes each 8
+// aligned slots, so a quarter-warp's copies into one row stay on distinct
+// banks, and so do the 8 rows 8g + 2i + h (g = 0..3, h = 0..1) whose chunk
+// c a quarter-warp of split_v_transposed reads at once.
+template <int D>
+__device__ __forceinline__ int vswz(int r) {
+  return D >= 32 ? 2 * ((r >> 3) & 3) + (r & 1) : (r >> 3) & 3;
+}
+
+// Rows r0 .. r0+R-1 of V [n][D] f32 into the staging tile; zeros at or
+// past n
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_v_stage(uint32_t tile,
+                                             const float* __restrict__ src,
+                                             int r0, int n) {
+  constexpr int CPR = D / 4;  // chunks per row
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gq = q_start + ty * 4 + i;
-    if (gq >= nq) continue;
-    const float inv = 1.f / l[i];
+  for (int i = 0; i < (R * CPR + NT - 1) / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    if ((R * CPR) % NT != 0 && e >= R * CPR) break;
+    const int r = e / CPR, c = e % CPR;
+    const int g = r0 + r;
+    const bool ok = g < n;
+    sm90::cp_async16(tile + r * 4 * D + 16 * (c ^ vswz<D>(r)),
+                     src + (size_t)(ok ? g : 0) * D + 4 * c, ok);
+  }
+}
+
+// Each 16-byte chunk of the f32 tile `src` (BYTES long) split into the
+// chunks at the same offsets of the tf32 tiles hi and lo (hi may be src)
+template <int BYTES, int NT>
+__device__ __forceinline__ void split_tile(const uint8_t* src, uint8_t* hi,
+                                           uint8_t* lo) {
+  constexpr int CHUNKS = BYTES / 16;
 #pragma unroll
-    for (int c = 0; c < CT; ++c)
-      ob[(size_t)gq * D + tx * CT + c] = o[i][c] * inv;
-    if (lse != nullptr && tx == 0)
-      lse[(size_t)bh * nq + gq] = m[i] * LN2 + logf(l[i]);
+  for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    if (CHUNKS % NT != 0 && e >= CHUNKS) break;
+    const float4 x = *reinterpret_cast<const float4*>(src + 16 * e);
+    uint4 h, l;
+    sm90::split_tf32(x.x, h.x, l.x);
+    sm90::split_tf32(x.y, h.y, l.y);
+    sm90::split_tf32(x.z, h.z, l.z);
+    sm90::split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + 16 * e) = h;
+    *reinterpret_cast<uint4*>(lo + 16 * e) = l;
+  }
+}
+
+// V's staging tile (BK keys) split and transposed into the K-major V^T
+// tiles hi and lo (D rows of BK keys, Tile<2 * BK>). A thread takes keys
+// 8g + 2i + h (i = 0..3) x dims 4c .. 4c+3 and writes, for each dim, the
+// 4 floats at positions 8g + 4h .. 8g + 4h + 3 of that dim's row: position
+// p of an 8-key step holds key 2p (p < 4) or 2(p - 4) + 1, the score
+// accumulator's order (see the note at the top).
+template <int D, int BK, int NT>
+__device__ __forceinline__ void split_v_transposed(const uint8_t* stage,
+                                                   uint8_t* hi, uint8_t* lo) {
+  constexpr int TASKS = D * BK / 16;
+  constexpr int W = Tile<2 * BK>::W;
+#pragma unroll
+  for (int it = 0; it < (TASKS + NT - 1) / NT; ++it) {
+    const int e = threadIdx.x + it * NT;
+    if (TASKS % NT != 0 && e >= TASKS) break;
+    const int h = e & 1, g = (e >> 1) % (BK / 8), c = e / (BK / 4);
+    float x[4][4];  // [key i][dim j]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 8 * g + 2 * i + h;
+      const float4 v = *reinterpret_cast<const float4*>(
+          stage + r * 4 * D + 16 * (c ^ vswz<D>(r)));
+      x[i][0] = v.x;
+      x[i][1] = v.y;
+      x[i][2] = v.z;
+      x[i][3] = v.w;
+    }
+    const int b = 4 * (8 * g + 4 * h);  // byte of position 8g + 4h in a row
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = 4 * c + j;
+      const uint32_t off =
+          (b / W) * (D * W) + sm90::swizzle<W>(d * W + b % W);
+      uint4 hv, lv;
+      sm90::split_tf32(x[0][j], hv.x, lv.x);
+      sm90::split_tf32(x[1][j], hv.y, lv.y);
+      sm90::split_tf32(x[2][j], hv.z, lv.z);
+      sm90::split_tf32(x[3][j], hv.w, lv.w);
+      *reinterpret_cast<uint4*>(hi + off) = hv;
+      *reinterpret_cast<uint4*>(lo + off) = lv;
+    }
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k0, const void* v0, int n0,
-                   int shared0, float w0, const void* k1, const void* v1,
-                   int n1, float w1, void* out, float* lse, int bh,
-                   int heads, int nq, cudaStream_t stream) {
-  const int smem = smem_floats(D) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+__global__ void __launch_bounds__(Tf32<D>::NT, 1)
+attention_fwd_tf32(const float* __restrict__ q,
+                   const float* __restrict__ k0, const float* __restrict__ v0,
+                   int n0, int shared0, float w0,
+                   const float* __restrict__ k1, const float* __restrict__ v1,
+                   int n1, float w1, float* __restrict__ out,
+                   float* __restrict__ lse, int nq, int heads) {
+  using namespace sm90;
+  using C = Tf32<D>;
+  constexpr int BK = C::BK, KT = C::KT, QT = C::QT, NT = C::NT;
+  extern __shared__ uint8_t smem_raw[];
+  // byte offsets from a 1024-aligned base: generic pointers for the split
+  // passes, shared addresses for cp.async and the descriptors
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t sb = (raw_addr + 1023) & ~1023u;
+  uint8_t* base = smem_raw + (sb - raw_addr);
+  auto stage_k = [&](int t) { return 2 * QT + (t & 1) * 2 * KT; };
+  auto stage_v = [&](int t) { return stage_k(t) + KT; };
+  auto split_at = [&](int t) { return 2 * QT + 4 * KT + (t & 1) * 4 * KT; };
+
+  const int wg = threadIdx.x >> 7;
+  const int bh = blockIdx.y;
+  const int q_start = blockIdx.x * C::BQ;
+  const size_t row0 = shared0 ? (size_t)(bh % heads) : (size_t)bh;
+  const float* kb0 = k0 + row0 * n0 * D;
+  const float* vb0 = v0 + row0 * n0 * D;
+  const float* kb1 = k1 + (size_t)bh * n1 * D;
+  const float* vb1 = v1 + (size_t)bh * n1 * D;
+  const int t0 = (n0 + BK - 1) / BK;         // tiles of panel 0
+  const int tiles = t0 + (n1 + BK - 1) / BK;
+
+  auto load_kv = [&](int t) {
+    if (t < tiles) {
+      const bool p1 = t >= t0;
+      const int r0 = (p1 ? t - t0 : t) * BK;
+      const int n = p1 ? n1 : n0;
+      load_tile_f32<D, BK, NT>(sb + stage_k(t), p1 ? kb1 : kb0, r0, n);
+      load_v_stage<D, BK, NT>(sb + stage_v(t), p1 ? vb1 : vb0, r0, n);
+    }
+    cp_async_commit();  // one group per tile, empty past the end
+  };
+  auto split_kv = [&](int t) {  // raw tile t into its split tiles
+    uint8_t* s = base + split_at(t);
+    split_tile<KT, NT>(base + stage_k(t), s, s + KT);
+    split_v_transposed<D, BK, NT>(base + stage_v(t), s + 2 * KT, s + 3 * KT);
+  };
+
+  if constexpr (!C::QREG)  // raw Q into the hi tile, split in place below
+    load_tile_f32<D, C::BQ, NT>(sb, q + (size_t)bh * nq * D, q_start, nq);
+  load_kv(0);  // Q rides in group 0
+  load_kv(1);
+  constexpr int QK = C::QREG ? D / 8 : 1;
+  uint32_t qh[QK][4], ql[QK][4];
+  if constexpr (C::QREG) {
+    const float* qb = q + (size_t)bh * nq * D;
+    const int r = q_start + wg * 64 + acc_row(0);
+    const int c = threadIdx.x & 3;
+#pragma unroll
+    for (int kk = 0; kk < QK; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r + 8 * (e & 1);
+        const float x =
+            row < nq ? qb[(size_t)row * D + 8 * kk + c + 4 * (e >> 1)] : 0.f;
+        split_tf32(x, qh[kk][e], ql[kk][e]);
+      }
+  }
+  cp_async_wait<1>();  // tile 0 (and Q) landed
+  __syncthreads();     // ... for every thread
+  if constexpr (!C::QREG) split_tile<QT, NT>(base, base, base + QT);
+  split_kv(0);
+
+  float o[D / 2], s[BK / 2];
+  // Each tile's P.V goes to a fresh accumulator pv, added to o in f32: the
+  // tensor cores drop the bits of a sum below the accumulator's last place,
+  // which over the 3 * Nk / 8 steps of a row summed straight into o pulls
+  // the output toward zero (on an H100 at [8,16,3169,3169,64]: 6.7e-6
+  // from the plain f32 version, against the 2e-5 bound; 6.9e-7 with pv).
+  // pv lives in s's registers (dead once P is split) when they are enough.
+  constexpr bool PV_IN_S = D <= BK;
+  float pv_own[PV_IN_S ? 1 : D / 2];
+  float(&pv)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(PV_IN_S ? s : pv_own);
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) s[j] = 0.f;
+  if constexpr (!PV_IN_S) {
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) pv_own[j] = 0.f;
+  }
+  // the thread's two rows: h = 0 is row acc_row(0), h = 1 is 8 rows below
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();  // this thread's copies of tile t+1 landed
+    fence_async_smem();  // its split of tile t, to the tensor cores
+    __syncthreads();     // ... for every thread; tile t-1's buffers are free
+    load_kv(t + 2);
+    const bool p1 = t >= t0;
+    if (t == t0) {  // panel 1 begins: acc and l into its weight's units
+      const float cw = w0 / w1;
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] *= cw;
+      l[0] *= cw;
+      l[1] *= cw;
+    }
+    const uint32_t khi = sb + split_at(t), klo = khi + KT;
+    const uint32_t vhi = khi + 2 * KT, vlo = khi + 3 * KT;
+
+    wgmma_fence();  // S = Qlo.Khi + Qhi.Klo + Qhi.Khi
+    if constexpr (C::QREG) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma_rs_tf32<BK>(s, ql[kk], desc_k<2 * D, BK>(khi, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma_rs_tf32<BK>(s, qh[kk], desc_k<2 * D, BK>(klo, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma_rs_tf32<BK>(s, qh[kk], desc_k<2 * D, BK>(khi, 0, kk), 1);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma_ss_tf32<BK>(s, desc_k<2 * D, C::BQ>(sb + QT, wg * 64, kk),
+                        desc_k<2 * D, BK>(khi, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma_ss_tf32<BK>(s, desc_k<2 * D, C::BQ>(sb, wg * 64, kk),
+                        desc_k<2 * D, BK>(klo, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma_ss_tf32<BK>(s, desc_k<2 * D, C::BQ>(sb, wg * 64, kk),
+                        desc_k<2 * D, BK>(khi, 0, kk), 1);
+    }
+    wgmma_commit();
+    if (t + 1 < tiles) split_kv(t + 1);  // while the tensor cores run S
+    wgmma_wait<0>();
+    keep(s);
+
+    softmax_tile<BK, D>(s, o, m, l, (p1 ? t - t0 : t) * BK, p1 ? n1 : n0);
+    // P into tf32 A fragments: a[e] is element (e & 1) * 2 + (e >> 1) of
+    // the k-step's four (rows h = e & 1, key 2c + (e >> 1))
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(s[4 * kk + 2 * (e & 1) + (e >> 1)], ph[kk][e], pl[kk][e]);
+
+    wgmma_fence();  // pv = Plo.Vhi + Phi.Vlo + Phi.Vhi
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+      mma_rs_tf32<D>(pv, pl[kk], desc_k<2 * BK, D>(vhi, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+      mma_rs_tf32<D>(pv, ph[kk], desc_k<2 * BK, D>(vlo, 0, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+      mma_rs_tf32<D>(pv, ph[kk], desc_k<2 * BK, D>(vhi, 0, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(pv);
+    keep(ph);
+    keep(pl);
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] += pv[j];
+  }
+
+  const float w_last = tiles > t0 ? w1 : w0;
+  float* ob = out + (size_t)bh * nq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int gq = q_start + wg * 64 + acc_row(2 * h);
+    if (gq >= nq) continue;
+    const float inv = 1.f / l[h];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(ob + (size_t)gq * D + acc_col(4 * i)) =
+          make_float2(o[4 * i + 2 * h] * inv, o[4 * i + 2 * h + 1] * inv);
+    if (lse != nullptr && (threadIdx.x & 3) == 0)
+      lse[(size_t)bh * nq + gq] = m[h] * LN2 + logf(l[h] * w_last);
+  }
+}
+
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k0, const void* v0, int n0,
+                        int shared0, float w0, const void* k1, const void* v1,
+                        int n1, float w1, void* out, float* lse, int bh,
+                        int heads, int nq, cudaStream_t stream) {
+  using C = Tf32<D>;
+  static sm90::OncePerDevice smem_set;
+  cudaError_t err = smem_set([] {
+    return cudaFuncSetAttribute(attention_fwd_tf32<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                C::SMEM);
+  });
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + BQ - 1) / BQ, bh);
-  attention_kernel<D><<<grid, NT, smem, stream>>>(
+  const dim3 grid((nq + C::BQ - 1) / C::BQ, bh);
+  attention_fwd_tf32<D><<<grid, C::NT, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k0),
       static_cast<const float*>(v0), n0, shared0, w0,
       static_cast<const float*>(k1), static_cast<const float*>(v1), n1, w1,
@@ -247,9 +461,6 @@ cudaError_t launch(const void* q, const void* k0, const void* v0, int n0,
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores
 // ---------------------------------------------------------------------------
-
-using sm90::bf16;
-using sm90::Tile;
 
 constexpr int WG_GROUPS = 2;              // warpgroups per block
 constexpr int WG_BQ = 64 * WG_GROUPS;     // query rows per block
@@ -337,43 +548,7 @@ attention_fwd_sm90(const bf16* __restrict__ q,
     wgmma_wait<0>();
     keep(s);
 
-    const int n = p1 ? n1 : n0;
-    const int r0 = (p1 ? t - t0 : t) * BK;
-    const bool edge = r0 + BK > n;   // only a panel's last tile has padding
-    if (edge) {
-#pragma unroll
-      for (int j = 0; j < BK / 2; ++j)
-        if (r0 + acc_col(j) >= n) s[j] = -INFINITY;
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mt = -INFINITY;  // of the raw scores; m is in the exp2 domain
-#pragma unroll
-      for (int i = 0; i < BK / 8; ++i)
-        mt = fmaxf(mt, fmaxf(s[4 * i + 2 * h], s[4 * i + 2 * h + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m[h], mt * LOG2E);
-      // an all-masked history keeps m = -inf; exp2(-inf - 0) = 0 then
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2_ftz(m[h] - base);
-      float ls = 0.f;  // this thread's share; the quad is summed at the end
-#pragma unroll
-      for (int i = 0; i < BK / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = exp2_ftz(fmaf(s[4 * i + 2 * h + e], LOG2E, -base));
-          s[4 * i + 2 * h + e] = p;
-          ls += p;
-        }
-      l[h] = l[h] * alpha + ls;
-      m[h] = m_new;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        o[4 * i + 2 * h] *= alpha;
-        o[4 * i + 2 * h + 1] *= alpha;
-      }
-    }
+    softmax_tile<BK, D>(s, o, m, l, (p1 ? t - t0 : t) * BK, p1 ? n1 : n0);
     to_a<BK>(s, pa);
 
     wgmma_fence();
@@ -411,8 +586,12 @@ cudaError_t launch_sm90(const void* q, const void* k0, const void* v0, int n0,
                         int n1, float w1, void* out, float* lse, int bh,
                         int heads, int nq, cudaStream_t stream) {
   const int smem = wg_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static sm90::OncePerDevice smem_set;
+  cudaError_t err = smem_set([&] {
+    return cudaFuncSetAttribute(attention_fwd_sm90<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  });
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + WG_BQ - 1) / WG_BQ, bh);
   attention_fwd_sm90<D><<<grid, WG_NT, smem, stream>>>(
@@ -425,8 +604,8 @@ cudaError_t launch_sm90(const void* q, const void* k0, const void* v0, int n0,
 
 }  // namespace
 
-// dtype: 0 = float32 (attention_kernel, CUDA cores), 1 = bfloat16
-// (attention_fwd_sm90, tensor cores). Panel 1 is absent when n1 == 0 (K1).
+// dtype: 0 = float32 (attention_fwd_tf32, tensor cores in split tf32),
+// 1 = bfloat16 (attention_fwd_sm90, tensor cores). Panel 1 is absent when n1 == 0 (K1).
 // lse: null, or [bh, nq] float32 for the row logsumexps (K5).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int cwm_attention(const void* q, const void* k0, const void* v0,
@@ -441,8 +620,8 @@ extern "C" int cwm_attention(const void* q, const void* k0, const void* v0,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)sm90::with_head_dim(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    return dtype == 0 ? launch<D>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1,
-                                  out, lse, bh, heads, nq, s)
+    return dtype == 0 ? launch_tf32<D>(q, k0, v0, n0, shared0, w0, k1, v1,
+                                       n1, w1, out, lse, bh, heads, nq, s)
                       : launch_sm90<D>(q, k0, v0, n0, shared0, w0, k1, v1,
                                        n1, w1, out, lse, bh, heads, nq, s);
   });

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the bf16 attention kernels
-// (attention.cu, attention_bwd.cu): warpgroup matrix multiply (wgmma) with
-// bf16 operands and f32 accumulators, the shared-memory matrix descriptor,
+// Hopper (sm_90a) building blocks of the attention kernels (attention.cu,
+// attention_bwd.cu): warpgroup matrix multiply (wgmma) with bf16 or tf32
+// operands and f32 accumulators, the shared-memory matrix descriptor,
 // the swizzled tile layout and its cp.async copy, and the fences between
 // them.
 //
@@ -14,7 +14,10 @@
 // address bits, sees the same pattern the copy wrote. The same tile serves
 // as a K-major operand (the product contracts along D) and as an MN-major
 // one (it contracts down the rows), which is how P.V, dV, dK and dQ read
-// their B operand without a transposed copy.
+// their B operand without a transposed copy. A row of D floats has the
+// bytes of a row of 2D bf16 values, so an f32 tile is the bf16 tile of
+// twice the width: Tile<2 * D>, copied by load_tile_f32 and described by
+// desc_k<2 * D, R>, whose 32-byte k-step is the 8 values of one tf32 step.
 //
 // Fragments. A warpgroup is 4 warps; in an m64nN product warp w owns rows
 // 16w .. 16w+15. Element j (j < N/2) of a thread's f32 accumulator is at
@@ -22,7 +25,17 @@
 // (acc_row, acc_col). The bf16 A fragment of k-step kk (columns 16kk ..
 // 16kk+15) wants exactly elements 8kk .. 8kk+7 of that accumulator, in
 // pairs: a score tile becomes the register A operand of the next product
-// with no shuffle (to_a).
+// with no shuffle (to_a). The tf32 A fragment of a k-step (8 columns) is
+// a[0] at (row lane/4, column lane%4), a[1] 8 rows below, a[2] and a[3]
+// the same rows 4 columns on.
+//
+// Split tf32 products ("3xTF32"), for f32 accuracy on the tensor cores.
+// x = hi + lo with hi = x rounded to tf32 (to nearest, ties away: the 13
+// low bits of the f32 pattern) and lo = x - hi, exact in f32; the tensor
+// core keeps lo's high 19 bits, so hi + lo' is within 2^-21 |x| of x. A
+// product a.b is lo_a.hi_b + hi_a.lo_b + hi_a.hi_b in f32 accumulators,
+// the small terms first; lo_a.lo_b (under 2^-22 |ab|) is dropped. One tf32
+// pass alone keeps about three decimal digits.
 //
 // with_head_dim is the one switch from a runtime head dim to the kernels'
 // template argument, for both routes of attention.cu and attention_bwd.cu.
@@ -32,6 +45,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace sm90 {
@@ -140,6 +154,15 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
     const uint32_t off = (c / CPS) * (R * W) + swizzle<W>(r * W + (c % CPS) * 16);
     cp_async16(tile + off, src + (size_t)(ok ? g : 0) * D + c * 8, ok);
   }
+}
+
+// Rows r0 .. r0+R-1 of a row-major [n][D] float32 matrix into the f32
+// tile (Tile<2 * D>) at `tile`; rows at or past n are zeros.
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_tile_f32(uint32_t tile,
+                                              const float* __restrict__ src,
+                                              int r0, int n) {
+  load_tile<2 * D, R, NT>(tile, reinterpret_cast<const bf16*>(src), r0, n);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -347,6 +370,138 @@ __device__ __forceinline__ void mma_rs<128>(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
+
+// x rounded to tf32, to nearest with ties away from zero (the f32 pattern
+// with its 13 low bits cleared), on the integer units
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as hi + lo for the split products: hi in tf32, lo the exact f32 rest
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D[64 x N] (+)= A[64 x 8] . B[8 x N], tf32 in, f32 accumulate, issued
+// asynchronously by the warpgroup; both operands K-major (the only tf32
+// layout). mma_ss_tf32: A and B in shared memory. mma_rs_tf32: A from
+// registers (the tf32 fragment above). accumulate = 0 overwrites D.
+template <int N>
+__device__ void mma_ss_tf32(float (&d)[N / 2], uint64_t a, uint64_t b,
+                            int accumulate);
+template <int N>
+__device__ void mma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                            uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void mma_ss_tf32<16>(float (&d)[8], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_tf32<16>(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_tf32<32>(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_tf32<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_tf32<128>(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// A launcher's one-time setup (cudaFuncSetAttribute), run once per device:
+// each launcher instantiation keeps one of these as a function-local static.
+class OncePerDevice {
+ public:
+  template <typename F>
+  cudaError_t operator()(F&& setup) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 64) return setup();
+    const uint64_t bit = 1ull << dev;
+    if (done_.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    err = setup();
+    if (err == cudaSuccess) done_.fetch_or(bit, std::memory_order_acq_rel);
+    return err;
+  }
+
+ private:
+  std::atomic<uint64_t> done_{0};
+};
 
 // f(std::integral_constant<int, D>{}) for a head dim d the attention
 // kernels are built for (16, 32, 64, 128); any other d is refused.

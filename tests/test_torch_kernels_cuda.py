@@ -5,8 +5,10 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-bf16 attention runs on the tensor-core kernels (``*_sm90``: wgmma, shapes
-cut into 64- and 128-row tiles), f32 on the CUDA-core ones; the shapes
+Attention runs on the tensor cores: bf16 on the ``*_sm90`` kernels
+(wgmma, shapes cut into 64- and 128-row tiles), the f32 forward on
+``attention_fwd_tf32`` (wgmma in tf32 with split products, 64-key tiles,
+16 at D = 128); the f32 backward on the CUDA-core kernels. The shapes
 below cross those tile edges (Nk under one tile, Nq and Nk one past a
 boundary) at every head dim.
 
@@ -19,6 +21,11 @@ the f32 output cast. The training pair: the lse at 1e-4 and the f32 gradients
 at atol 2e-4 / rtol 1e-4 (tests/test_flash_attention.py's bounds); bf16
 gradients within 2e-2 of their largest magnitude.
 """
+import os
+import re
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -243,8 +250,28 @@ def _device_kernel_names(fn):
     return ' '.join(names)
 
 
+def _hgmma_counts(lib_path):
+    """{mangled kernel name: HGMMA instructions} in ``cuobjdump -sass``."""
+    cuda_home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    tool = shutil.which('cuobjdump') or os.path.join(cuda_home, 'bin',
+                                                     'cuobjdump')
+    sass = subprocess.run([tool, '-sass', lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r'Function : (\w+)', ln)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur and 'HGMMA' in ln:
+            counts[cur] += 1
+    return counts
+
+
 def test_bf16_attention_runs_on_the_tensor_core_kernels(dev):
-    """bf16 calls launch the wgmma kernels, f32 calls the CUDA-core ones."""
+    """bf16 calls launch the wgmma kernels; f32 calls launch the split-tf32
+    forward ``attention_fwd_tf32``, which holds HGMMA at every head dim,
+    and the CUDA-core backward."""
     rng = np.random.RandomState(8)
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -260,9 +287,84 @@ def test_bf16_attention_runs_on_the_tensor_core_kernels(dev):
     for kernel in ('attention_fwd_sm90', 'dkdv_sm90', 'dq_sm90'):
         assert kernel in names[torch.bfloat16]
         assert kernel not in names[torch.float32]
-    for kernel in ('attention_kernel', 'dkdv_kernel', 'dq_kernel'):
+    for kernel in ('attention_fwd_tf32', 'dkdv_kernel', 'dq_kernel'):
         assert kernel in names[torch.float32]
         assert kernel not in names[torch.bfloat16]
+    hgmma = _hgmma_counts(kernels.library_path('attention'))
+    for d in (16, 32, 64, 128):
+        fragment = f'18attention_fwd_tf32ILi{d}E'
+        found = [n for k, n in hgmma.items() if fragment in k]
+        assert len(found) == 1 and found[0] > 0, (d, found)
+
+
+_F32_SHAPES = [  # (b, h, nq, nk, d): every head dim, padded ones too;
+    # Nq and Nk one past a 64-key tile (16 at D = 128) and a 128-row block,
+    # a block with one valid query row, a key tile with one valid key
+    (2, 3, 100, 77, 16), (1, 2, 129, 65, 32), (2, 2, 130, 200, 64),
+    (1, 2, 257, 17, 128), (1, 2, 1, 1, 64), (1, 2, 65, 1, 128),
+    (2, 2, 129, 129, 8), (1, 3, 39, 39, 24), (2, 2, 13, 13, 48)]
+
+
+@pytest.mark.parametrize('shape', _F32_SHAPES, ids=str)
+def test_f32_attention_forward_matches_plain(dev, shape):
+    """The split-tf32 forward (K1, and K5 with its lse) against the plain
+    f32 version, TF32 off for cuBLAS, at the existing bounds: outputs 2e-5,
+    the lse 1e-4 / 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(sum(shape))
+    b, h, nq, nk, d = shape
+    q = _rand(rng, b, h, nq, d, scale=d ** -0.5).to(dev)
+    k, v = (_rand(rng, b, h, nk, d).to(dev) for _ in range(2))
+    out = fa.flash_attention(q, k, v)
+    ref, ref_lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+    assert _err(out, ref) <= 2e-5
+    out5, lse = fa._flash_forward_lse(q, k, v)
+    assert torch.equal(out5, out)
+    assert torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+def test_f32_prefix_attention_matches_plain(dev, d):
+    """K2 on the f32 route: a shared prefix read by S = 3 samples and
+    stacked per-sample prefixes, weights (16, 16), (1, 4) and (4, 1),
+    panels one past a key tile, against the plain version at 3e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(d)
+    bk = 16 if d == 128 else 64
+    for s0, n0, n1, w in [(1, bk + 1, 2 * bk + 1, (16.0, 16.0)),
+                          (3, 2 * bk + 1, bk + 1, (1.0, 4.0)),
+                          (1, 3 * bk, 5, (4.0, 1.0))]:
+        q = _rand(rng, 3, 2, 50, d, scale=d ** -0.5).to(dev)
+        k0, v0 = (_rand(rng, s0, 2, n0, d).to(dev) for _ in range(2))
+        k1, v1 = (_rand(rng, 3, 2, n1, d).to(dev) for _ in range(2))
+        out = fa.flash_attention_prefix(q, k0, v0, k1, v1, *w)
+        ref = fa._dense_two_source(q, k0, v0, k1, v1, *w)
+        assert _err(out, ref) <= 3e-5, (s0, n0, n1, w)
+
+
+def test_f32_attention_ignores_the_tf32_flags(dev):
+    """The kernel's arithmetic is its own: the output is bitwise the same
+    whatever torch.backends.cuda.matmul.allow_tf32 and cudnn.allow_tf32
+    say."""
+    rng = np.random.RandomState(12)
+    q = _rand(rng, 2, 4, 300, 64, scale=0.125).to(dev)
+    k, v = (_rand(rng, 2, 4, 300, 64).to(dev) for _ in range(2))
+    k1, v1 = (_rand(rng, 2, 4, 70, 64).to(dev) for _ in range(2))
+    outs = []
+    matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            torch.backends.cudnn.allow_tf32 = flag
+            outs.append((fa.flash_attention(q, k, v),
+                         fa.flash_attention_prefix(q, k[:1], v[:1], k1, v1,
+                                                   16.0, 16.0)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_gradients_come_from_k6(dev):
