@@ -21,7 +21,8 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
 2. build: nvcc for sm_90a, with the seconds it took; each kernel's
    registers and spills (ptxas) and its count of HGMMA (wgmma)
    instructions in ``cuobjdump -sass``: every tensor-core attention
-   kernel (bf16 ``*_sm90``, and the f32 forward ``attention_fwd_tf32``)
+   kernel (bf16 ``*_sm90``; f32 in split tf32, the forward
+   ``attention_fwd_tf32`` and the backward ``dkdv_tf32`` / ``dq_tf32``)
    must be there at each head dim, hold some, and not spill at D = 64;
 3. each kernel against its plain PyTorch version on the card, at the
    paths' shapes, in f32 and bf16, with the kernel's, the plain version's
@@ -224,11 +225,12 @@ TOL_LOOKUP = 1e-5
 TOL_GRAD = dict(atol=2e-4, rtol=1e-4)
 TOL_LSE = dict(atol=1e-4, rtol=1e-5)
 REL_BF16 = 2e-2
-# the tensor-core kernels (bf16, and the f32 forward in split tf32), each
-# built for these head dims: the build phase finds each in the ptxas report
-# and the SASS by its mangled name
+# the tensor-core kernels (bf16, and f32 in split tf32), each built for
+# these head dims: the build phase finds each in the ptxas report and the
+# SASS by its mangled name
 SM90_KERNELS = {'attention': ('attention_fwd_sm90', 'attention_fwd_tf32'),
-                'attention_bwd': ('dkdv_sm90', 'dq_sm90')}
+                'attention_bwd': ('dkdv_sm90', 'dq_sm90', 'dkdv_tf32',
+                                  'dq_tf32')}
 HEAD_DIMS = (16, 32, 64, 128)
 S_FULL = 16
 # the tests' small VMAE (tests/torch_port_common.SMALL_VMAE)
@@ -4497,8 +4499,8 @@ def _category(kernel_name):
     k = kernel_name.lower()
     for cat, keys in (('attention kernel (K1/K2/K5)', ('attention_fwd_tf32',
                                                        'attention_fwd_sm90')),
-                      ('attention backward kernel (K6)', ('dkdv_kernel',
-                                                          'dq_kernel',
+                      ('attention backward kernel (K6)', ('dkdv_tf32',
+                                                          'dq_tf32',
                                                           'dkdv_sm90',
                                                           'dq_sm90')),
                       ('window lookup kernel', ('window_lookup',)),

@@ -73,7 +73,9 @@
 // the V^T tile holds the keys in the order in which a thread's score
 // accumulator holds P (keys 2c, 2c+1 in one thread, A-fragment columns c,
 // c+4), so P is split in registers and goes to the A operand of O += P.V
-// with no shuffle. One barrier per tile.
+// with no shuffle. One barrier per tile. The staging layout and the split
+// passes (load_stage, split_tile, split_transposed, to_a_tf32) are in
+// sm90_mma.cuh, shared with the f32 backward.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -155,100 +157,6 @@ struct Tf32 {
   static constexpr int SMEM = 1024 + 2 * QT + 2 * 2 * KT + 2 * 4 * KT;
 };
 
-// V's staging tile, read only by split_v_transposed: row r (a key) at byte
-// 4D * r, its 16-byte chunk c in slot c ^ vswz(r). The XOR permutes each 8
-// aligned slots, so a quarter-warp's copies into one row stay on distinct
-// banks, and so do the 8 rows 8g + 2i + h (g = 0..3, h = 0..1) whose chunk
-// c a quarter-warp of split_v_transposed reads at once.
-template <int D>
-__device__ __forceinline__ int vswz(int r) {
-  return D >= 32 ? 2 * ((r >> 3) & 3) + (r & 1) : (r >> 3) & 3;
-}
-
-// Rows r0 .. r0+R-1 of V [n][D] f32 into the staging tile; zeros at or
-// past n
-template <int D, int R, int NT>
-__device__ __forceinline__ void load_v_stage(uint32_t tile,
-                                             const float* __restrict__ src,
-                                             int r0, int n) {
-  constexpr int CPR = D / 4;  // chunks per row
-#pragma unroll
-  for (int i = 0; i < (R * CPR + NT - 1) / NT; ++i) {
-    const int e = threadIdx.x + i * NT;
-    if ((R * CPR) % NT != 0 && e >= R * CPR) break;
-    const int r = e / CPR, c = e % CPR;
-    const int g = r0 + r;
-    const bool ok = g < n;
-    sm90::cp_async16(tile + r * 4 * D + 16 * (c ^ vswz<D>(r)),
-                     src + (size_t)(ok ? g : 0) * D + 4 * c, ok);
-  }
-}
-
-// Each 16-byte chunk of the f32 tile `src` (BYTES long) split into the
-// chunks at the same offsets of the tf32 tiles hi and lo (hi may be src)
-template <int BYTES, int NT>
-__device__ __forceinline__ void split_tile(const uint8_t* src, uint8_t* hi,
-                                           uint8_t* lo) {
-  constexpr int CHUNKS = BYTES / 16;
-#pragma unroll
-  for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
-    const int e = threadIdx.x + i * NT;
-    if (CHUNKS % NT != 0 && e >= CHUNKS) break;
-    const float4 x = *reinterpret_cast<const float4*>(src + 16 * e);
-    uint4 h, l;
-    sm90::split_tf32(x.x, h.x, l.x);
-    sm90::split_tf32(x.y, h.y, l.y);
-    sm90::split_tf32(x.z, h.z, l.z);
-    sm90::split_tf32(x.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(hi + 16 * e) = h;
-    *reinterpret_cast<uint4*>(lo + 16 * e) = l;
-  }
-}
-
-// V's staging tile (BK keys) split and transposed into the K-major V^T
-// tiles hi and lo (D rows of BK keys, Tile<2 * BK>). A thread takes keys
-// 8g + 2i + h (i = 0..3) x dims 4c .. 4c+3 and writes, for each dim, the
-// 4 floats at positions 8g + 4h .. 8g + 4h + 3 of that dim's row: position
-// p of an 8-key step holds key 2p (p < 4) or 2(p - 4) + 1, the score
-// accumulator's order (see the note at the top).
-template <int D, int BK, int NT>
-__device__ __forceinline__ void split_v_transposed(const uint8_t* stage,
-                                                   uint8_t* hi, uint8_t* lo) {
-  constexpr int TASKS = D * BK / 16;
-  constexpr int W = Tile<2 * BK>::W;
-#pragma unroll
-  for (int it = 0; it < (TASKS + NT - 1) / NT; ++it) {
-    const int e = threadIdx.x + it * NT;
-    if (TASKS % NT != 0 && e >= TASKS) break;
-    const int h = e & 1, g = (e >> 1) % (BK / 8), c = e / (BK / 4);
-    float x[4][4];  // [key i][dim j]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 8 * g + 2 * i + h;
-      const float4 v = *reinterpret_cast<const float4*>(
-          stage + r * 4 * D + 16 * (c ^ vswz<D>(r)));
-      x[i][0] = v.x;
-      x[i][1] = v.y;
-      x[i][2] = v.z;
-      x[i][3] = v.w;
-    }
-    const int b = 4 * (8 * g + 4 * h);  // byte of position 8g + 4h in a row
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = 4 * c + j;
-      const uint32_t off =
-          (b / W) * (D * W) + sm90::swizzle<W>(d * W + b % W);
-      uint4 hv, lv;
-      sm90::split_tf32(x[0][j], hv.x, lv.x);
-      sm90::split_tf32(x[1][j], hv.y, lv.y);
-      sm90::split_tf32(x[2][j], hv.z, lv.z);
-      sm90::split_tf32(x[3][j], hv.w, lv.w);
-      *reinterpret_cast<uint4*>(hi + off) = hv;
-      *reinterpret_cast<uint4*>(lo + off) = lv;
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(Tf32<D>::NT, 1)
 attention_fwd_tf32(const float* __restrict__ q,
@@ -287,14 +195,14 @@ attention_fwd_tf32(const float* __restrict__ q,
       const int r0 = (p1 ? t - t0 : t) * BK;
       const int n = p1 ? n1 : n0;
       load_tile_f32<D, BK, NT>(sb + stage_k(t), p1 ? kb1 : kb0, r0, n);
-      load_v_stage<D, BK, NT>(sb + stage_v(t), p1 ? vb1 : vb0, r0, n);
+      load_stage<D, BK, NT>(sb + stage_v(t), p1 ? vb1 : vb0, r0, n);
     }
     cp_async_commit();  // one group per tile, empty past the end
   };
   auto split_kv = [&](int t) {  // raw tile t into its split tiles
     uint8_t* s = base + split_at(t);
     split_tile<KT, NT>(base + stage_k(t), s, s + KT);
-    split_v_transposed<D, BK, NT>(base + stage_v(t), s + 2 * KT, s + 3 * KT);
+    split_transposed<D, BK, NT>(base + stage_v(t), s + 2 * KT, s + 3 * KT);
   };
 
   if constexpr (!C::QREG)  // raw Q into the hi tile, split in place below
@@ -390,14 +298,8 @@ attention_fwd_tf32(const float* __restrict__ q,
     keep(s);
 
     softmax_tile<BK, D>(s, o, m, l, (p1 ? t - t0 : t) * BK, p1 ? n1 : n0);
-    // P into tf32 A fragments: a[e] is element (e & 1) * 2 + (e >> 1) of
-    // the k-step's four (rows h = e & 1, key 2c + (e >> 1))
-    uint32_t ph[BK / 8][4], pl[BK / 8][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_tf32(s[4 * kk + 2 * (e & 1) + (e >> 1)], ph[kk][e], pl[kk][e]);
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];  // P as tf32 A fragments
+    to_a_tf32<BK>(s, ph, pl);
 
     wgmma_fence();  // pv = Plo.Vhi + Phi.Vlo + Phi.Vhi
 #pragma unroll

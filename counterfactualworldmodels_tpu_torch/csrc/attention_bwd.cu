@@ -34,7 +34,16 @@
 // What bounds it on the H100. At the training shapes (ViT-L 4x4 @224,
 // N = 3450 encoder tokens or 6272 decoder tokens, D = 64) the work is
 // hundreds of operations per byte of compulsory traffic: it is bound by
-// arithmetic, on bf16 by the tensor cores (989 TFLOP/s).
+// arithmetic, on bf16 by the tensor cores (989 TFLOP/s), on float32 by the
+// tensor cores in tf32 with three products per product (495 / 3 = 165
+// TFLOP/s of f32-accurate work, against 67 TFLOP/s on the CUDA cores).
+// Within a float32 block the nearer limit is shared memory: tf32 wgmma
+// reads a K-major operand from shared memory at 4 bytes a value, and the
+// score products take both operands from there (below), so they and the
+// split passes ask about as many bytes of shared memory per clock as it
+// gives (128 per SM) at the tensor cores' full rate. At the ViT-L shapes
+// the f32 route runs at 0.29-0.32 of the split-tf32 bound (chip_smoke.py,
+// an H100 80GB HBM3 at 700 W).
 //
 // Two routes, chosen by dtype inside cwm_attention_bwd:
 //
@@ -52,15 +61,40 @@
 //   pass 2, per key tile (64 keys): S = Q.K^T and dP = dO.V^T; dS in
 //     registers; dQ += dS.K with K read MN-major.
 //
-// float32 -- dkdv_kernel and dq_kernel, on the CUDA cores (full f32, no
-// TF32). 256 threads per block as 16 x 16 groups. Tiles live in shared
-// memory as float32, transposed ([d][row]) where they feed the 4x4
-// register-blocked score products (two float4 loads per step of d), and
-// row-major where they feed the P/dS products (each thread owns 4 rows x
-// D/16 columns of the accumulator). The tiles exceed 48 KB at D = 64
-// (about 103 KB per block), so the launch raises the dynamic shared memory
-// limit; in pass 1 the P and dS tiles reuse the space of the transposed
-// query tiles, which keeps D = 128 inside the 227 KB a block may have.
+// float32 -- dkdv_tf32 and dq_tf32, on the tensor cores in split tf32
+// (sm90_mma.cuh): every product is three tf32 wgmma chains, lo.hi, hi.lo,
+// hi.hi, with f32 accumulators, whatever PyTorch's TF32 flags say. The
+// passes and the arithmetic are the bf16 route's, with no rounding of P or
+// dS. tf32 wgmma takes both operands K-major, so the three products that
+// contract down rows need transposed tiles: dV += P^T.dO and dK += dS^T.Q
+// read dO^T and Q^T tiles, dQ += dS.K a K^T tile, each built in shared
+// memory from a staging tile whose chunks are XOR-spread (the transposing
+// reads and writes hit distinct banks) and stored, within each 8-row step,
+// in the order of the score accumulator, so P^T, dS^T and dS are split in
+// registers into A fragments with no shuffle. The score products contract
+// over D and need no transpose.
+//   Layout. A block is two warpgroups owning 64 resident rows each (one
+//   at D = 128). The resident K and V (pass 1) or Q and dO (pass 2) are
+//   split once into hi/lo tiles in shared memory and read as the A
+//   operand of the score products: as register fragments they would take
+//   128 registers at D = 64 beside the 64 of the dK and dV sums. Streamed
+//   tiles are 32 rows (16 at D = 128). Shared memory holds, per block, the
+//   resident hi/lo tiles (128 KB at D = 64), ONE stage of the streamed
+//   tile's split tiles, row-major (RM) and transposed (TR), and a
+//   two-stage cp.async ring of its raw rows: 226 KB in pass 1 at D = 64
+//   and 128. Two split stages of 64 rows would be 256 KB more.
+//   Overlap without a second split stage: the score products read RM and
+//   the accumulating products read TR, so each tile's TR is split while
+//   the tensor cores run its score products, and the next tile's RM while
+//   they run its accumulating products. That takes two barriers per tile.
+//   In pass 1 the tile's lse and delta ride in the ring beside it.
+//   Accuracy. Each tile's contribution to dV, dK (Nq / 8 * 3 k-steps per
+//   element over the whole loop) and dQ goes to a fresh accumulator that
+//   is added to the running sum in f32: the tensor cores drop the bits of
+//   a sum below the accumulator's last place, which summed straight into
+//   one accumulator biases a long contraction (attention.cu's forward
+//   measured 6.7e-6 that way against 6.9e-7). At D = 128 dV's and dK's
+//   tile share one fresh accumulator, in turn, for the registers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,287 +104,391 @@
 
 namespace {
 
-constexpr int BT = 64;        // rows per tile, queries and keys alike
-constexpr int NT = 256;       // threads per block: 16 x 16
-constexpr int LD = BT + 4;    // leading dim of the transposed and P/dS tiles
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Rows r0 .. r0+BT-1 of a row-major [n][D] source into shared memory as
-// float32: transposed into tdst[c*LD + r] and/or row-major into
-// rdst[r*D + c] (either may be null). Rows past n are zero.
+// ---------------------------------------------------------------------------
+// float32: tensor cores, split tf32
+// ---------------------------------------------------------------------------
+
+// Both passes: NW warpgroups, each owning 64 resident rows (keys in pass
+// 1, queries in pass 2), and streamed tiles of BT rows. Shared memory, in
+// bytes from a 1024-aligned base: the resident X and Y (K and V in pass 1,
+// Q and dO in pass 2) as hi, lo tiles; the streamed tile's row-major
+// hi, lo tiles (RM: X then Y); its transposed hi, lo tiles (TR: X^T, then
+// Y^T in pass 1); a two-stage ring of raw streamed tiles (X, Y staged),
+// and in pass 1 the tile's lse and delta beside the ring.
 template <int D>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src, int r0,
-                                          int n, float* tdst, float* rdst) {
-  for (int e = threadIdx.x; e < BT * D; e += NT) {
-    const int r = e / D, c = e % D;
-    const int g = r0 + r;
-    const float x = g < n ? src[(size_t)g * D + c] : 0.f;
-    if (tdst) tdst[c * LD + r] = x;
-    if (rdst) rdst[r * D + c] = x;
-  }
+struct Tf32Bwd {
+  static constexpr int NW = D == 128 ? 1 : 2;    // warpgroups per block
+  static constexpr int R = 64 * NW;              // resident rows per block
+  static constexpr int NT = 128 * NW;
+  static constexpr int BT = D == 128 ? 16 : 32;  // streamed rows per tile
+  static constexpr int RT = R * D * 4;           // a resident tile
+  static constexpr int ST = BT * D * 4;          // a streamed tile
+  static constexpr int RM = 4 * RT;
+  static constexpr int TR = RM + 4 * ST;
+  static constexpr int RAW1 = TR + 4 * ST;       // pass 1: TR holds 4 tiles
+  static constexpr int RAW2 = TR + 2 * ST;       // pass 2: 2
+  static constexpr int STATS = RAW1 + 4 * ST;    // pass 1: [2][lse, delta][BT]
+  static constexpr int SMEM1 = 1024 + STATS + 2 * 2 * BT * 4;
+  static constexpr int SMEM2 = 1024 + RAW2 + 4 * ST;
+  // two fresh accumulators (dV's and dK's) where the registers allow
+  static constexpr bool TWO = D <= 64;
+};
+
+// d = A.B^T in split tf32 over D (lo.hi, hi.lo, hi.hi; one accumulator):
+// A rows row0 .. row0+63 of an RA-row tile pair, B the N-row tile pair,
+// both K-major Tile<2 * D> in shared memory
+template <int N, int D, int RA>
+__device__ __forceinline__ void ss3(float (&d)[N / 2], uint32_t ahi,
+                                    uint32_t alo, int row0, uint32_t bhi,
+                                    uint32_t blo) {
+  using namespace sm90;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    mma_ss_tf32<N>(d, desc_k<2 * D, RA>(alo, row0, kk),
+                   desc_k<2 * D, N>(bhi, 0, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    mma_ss_tf32<N>(d, desc_k<2 * D, RA>(ahi, row0, kk),
+                   desc_k<2 * D, N>(blo, 0, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    mma_ss_tf32<N>(d, desc_k<2 * D, RA>(ahi, row0, kk),
+                   desc_k<2 * D, N>(bhi, 0, kk), 1);
 }
 
-// acc[i][j] = sum_d a[d][a0+i] * b[d][b0+j] over two transposed tiles.
-template <int D>
-__device__ __forceinline__ void product_tt(const float* a, int a0,
-                                           const float* b, int b0,
-                                           float acc[4][4]) {
+// d = A.B in split tf32 over BT rows: A the register fragments (to_a_tf32)
+// of a [64 x BT] accumulator, B the transposed tile pair (D rows of BT,
+// split_transposed)
+template <int D, int BT>
+__device__ __forceinline__ void rs3(float (&d)[D / 2],
+                                    const uint32_t (&ah)[BT / 8][4],
+                                    const uint32_t (&al)[BT / 8][4],
+                                    uint32_t bhi, uint32_t blo) {
+  using namespace sm90;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int kk = 0; kk < BT / 8; ++kk)
+    mma_rs_tf32<D>(d, al[kk], desc_k<2 * BT, D>(bhi, 0, kk), kk);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(&a[d * LD + a0]);
-    const float4 y = *reinterpret_cast<const float4*>(&b[d * LD + b0]);
-    const float xv[4] = {x.x, x.y, x.z, x.w};
-    const float yv[4] = {y.x, y.y, y.z, y.w};
+  for (int kk = 0; kk < BT / 8; ++kk)
+    mma_rs_tf32<D>(d, ah[kk], desc_k<2 * BT, D>(blo, 0, kk), 1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
-  }
+  for (int kk = 0; kk < BT / 8; ++kk)
+    mma_rs_tf32<D>(d, ah[kk], desc_k<2 * BT, D>(bhi, 0, kk), 1);
 }
 
-// CT consecutive floats of a row-major tile row into registers.
-template <int CT>
-__device__ __forceinline__ void load_cols(const float* p, float out[CT]) {
-  if constexpr (CT % 4 == 0) {
+// the thread's accumulator rows h = 0, 1 (acc_row(0) and 8 below) at row
+// g of a [*, D] f32 output
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* dst,
+                                               const float (&acc)[D / 2],
+                                               int h, size_t g) {
 #pragma unroll
-    for (int c = 0; c < CT; c += 4) {
-      const float4 b = *reinterpret_cast<const float4*>(&p[c]);
-      out[c] = b.x; out[c + 1] = b.y; out[c + 2] = b.z; out[c + 3] = b.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < CT; ++c) out[c] = p[c];
-  }
+  for (int i = 0; i < D / 8; ++i)
+    *reinterpret_cast<float2*>(dst + g * D + sm90::acc_col(4 * i)) =
+        make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
 }
 
-__host__ __device__ constexpr int area_floats(int d) { return 2 * d * LD > 2 * BT * LD ? 2 * d * LD : 2 * BT * LD; }
-__host__ __device__ constexpr int dkdv_smem_floats(int d) { return 2 * d * LD + 2 * BT * d + area_floats(d) + 2 * BT; }
-__host__ __device__ constexpr int dq_smem_floats(int d) { return 4 * d * LD + BT * d + BT * LD + 2 * BT; }
-
-// Pass 1: dK and dV of one (bh, 64-key tile).
+// Pass 1: dK and dV of one (bh, R keys); query tiles of BT stream.
 template <int D>
-__global__ void __launch_bounds__(NT)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk, float* __restrict__ dv, int nq, int nk) {
-  constexpr int CT = D / 16;
-  extern __shared__ float smem[];
-  float* kt = smem;               // [D][LD]  this block's keys, transposed
-  float* vt = kt + D * LD;        // [D][LD]  its values, transposed
-  float* qs = vt + D * LD;        // [BT][D]  query tile, row-major
-  float* dos = qs + BT * D;       // [BT][D]  dO tile, row-major
-  float* area = dos + BT * D;
-  float* qt = area;               // [D][LD]  query tile, transposed
-  float* dot = area + D * LD;     // [D][LD]  dO tile, transposed
-  float* ps = area;               // [BT][LD] P as [query][key] (reuses qt/dot)
-  float* dss = area + BT * LD;    // [BT][LD] dS as [query][key]
-  float* lsl = area + area_floats(D);  // [BT] lse * log2 e of the query tile
-  float* dls = lsl + BT;               // [BT] delta of the query tile
+__global__ void __launch_bounds__(Tf32Bwd<D>::NT, 1)
+dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          float* __restrict__ dk, float* __restrict__ dv, int nq, int nk) {
+  using namespace sm90;
+  using C = Tf32Bwd<D>;
+  constexpr int R = C::R, BT = C::BT, NT = C::NT, RT = C::RT, ST = C::ST;
+  constexpr int KHI = 0, KLO = RT, VHI = 2 * RT, VLO = 3 * RT;
+  constexpr int QHI = C::RM, QLO = QHI + ST, DOHI = QHI + 2 * ST,
+                DOLO = QHI + 3 * ST;
+  constexpr int QTHI = C::TR, QTLO = QTHI + ST, DOTHI = QTHI + 2 * ST,
+                DOTLO = QTHI + 3 * ST;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t sb = (raw_addr + 1023) & ~1023u;
+  uint8_t* base = smem_raw + (sb - raw_addr);
+  auto raw_q = [](int t) { return C::RAW1 + (t & 1) * 2 * ST; };
+  auto raw_do = [](int t) { return C::RAW1 + (t & 1) * 2 * ST + ST; };
+  auto stats = [](int t) { return C::STATS + (t & 1) * 2 * BT * 4; };
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;        // score tile: queries tx*4..; products: columns
-  const int ty = tid >> 4;        // keys ty*4 .. ty*4+3
+  const int wg = threadIdx.x >> 7;
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BT;
+  const int k0 = blockIdx.x * R;
   const size_t qoff = (size_t)bh * nq;
+  const float* qb = q + qoff * D;
+  const float* dob = dout + qoff * D;
+  const int tiles = (nq + BT - 1) / BT;
 
-  load_tile<D>(k + (size_t)bh * nk * D, k0, nk, kt, nullptr);
-  load_tile<D>(v + (size_t)bh * nk * D, k0, nk, vt, nullptr);
-
-  float acc_k[4][CT], acc_v[4][CT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int q0 = 0; q0 < nq; q0 += BT) {
-    __syncthreads();  // the previous tile's products are done with the area
-    load_tile<D>(q + qoff * D, q0, nq, qt, qs);
-    load_tile<D>(dout + qoff * D, q0, nq, dot, dos);
-    if (tid < BT) {
-      const bool ok = q0 + tid < nq;
-      lsl[tid] = ok ? lse[qoff + q0 + tid] * LOG2E : 0.f;
-      dls[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    product_tt<D>(kt, ty * 4, qt, tx * 4, s);    // S^T  [key][query]
-    product_tt<D>(vt, ty * 4, dot, tx * 4, dp);  // dP^T [key][query]
-    float p[4][4], ds[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool kok = k0 + ty * 4 + i < nk;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx * 4 + j;
-        const bool ok = kok && q0 + r < nq;
-        const float pf = ok ? exp2f(s[i][j] * LOG2E - lsl[r]) : 0.f;
-        p[i][j] = pf;
-        ds[i][j] = pf * (dp[i][j] - dls[r]);
+  // raw K and V into their hi tiles, split in place below
+  load_tile_f32<D, R, NT>(sb + KHI, k + (size_t)bh * nk * D, k0, nk);
+  load_tile_f32<D, R, NT>(sb + VHI, v + (size_t)bh * nk * D, k0, nk);
+  auto load_q = [&](int t) {
+    if (t < tiles) {
+      const int r0 = t * BT;
+      load_stage<D, BT, NT>(sb + raw_q(t), qb, r0, nq);
+      load_stage<D, BT, NT>(sb + raw_do(t), dob, r0, nq);
+      const int i = threadIdx.x;
+      if (i < 2 * BT) {  // the tile's lse, then its delta
+        const int c = i % BT;
+        const bool ok = r0 + c < nq;
+        cp_async4(sb + stats(t) + 4 * i,
+                  (i < BT ? lse : delta) + qoff + (ok ? r0 + c : 0), ok);
       }
     }
-    __syncthreads();  // every thread is done reading qt/dot
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(&ps[(tx * 4 + j) * LD + ty * 4]) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-      *reinterpret_cast<float4*>(&dss[(tx * 4 + j) * LD + ty * 4]) =
-          make_float4(ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
-    }
-    __syncthreads();
+    cp_async_commit();  // one group per tile, empty past the end
+  };
+  load_q(0);  // K and V ride in group 0
+  load_q(1);
+  cp_async_wait<1>();
+  __syncthreads();
+  split_tile<RT, NT>(base + KHI, base + KHI, base + KLO);
+  split_tile<RT, NT>(base + VHI, base + VHI, base + VLO);
+  split_rows<D, BT, NT>(base + raw_q(0), base + QHI, base + QLO);
+  split_rows<D, BT, NT>(base + raw_do(0), base + DOHI, base + DOLO);
 
-#pragma unroll 4
-    for (int r = 0; r < BT; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&ps[r * LD + ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&dss[r * LD + ty * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-      float dov[CT], qv[CT];
-      load_cols<CT>(&dos[r * D + tx * CT], dov);
-      load_cols<CT>(&qs[r * D + tx * CT], qv);
+  constexpr bool TWO = C::TWO;
+  float dka[D / 2], dva[D / 2], s[BT / 2], dp[BT / 2];
+  float fv[D / 2], fk_own[TWO ? D / 2 : 1];  // a tile's dV and dK
+  float(&fk)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(TWO ? fk_own : fv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < D / 2; ++j) dka[j] = dva[j] = fv[j] = 0.f;
 #pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          acc_v[i][c] = fmaf(av[i], dov[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(bv[i], qv[c], acc_k[i][c]);
-        }
+  for (int j = 0; j < (TWO ? D / 2 : 1); ++j) fk_own[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < BT / 2; ++j) s[j] = dp[j] = 0.f;
+  const bool key_ok[2] = {k0 + wg * 64 + acc_row(0) < nk,
+                          k0 + wg * 64 + acc_row(2) < nk};
+
+  for (int t = 0; t < tiles; ++t) {
+    fence_async_smem();  // this thread's split of RM(t), to the tensor cores
+    __syncthreads();     // RM(t) whole; every warpgroup is done with TR(t-1)
+
+    wgmma_fence();  // S^T = K.Q^T, dP^T = V.dO^T
+    ss3<BT, D, R>(s, sb + KHI, sb + KLO, wg * 64, sb + QHI, sb + QLO);
+    ss3<BT, D, R>(dp, sb + VHI, sb + VLO, wg * 64, sb + DOHI, sb + DOLO);
+    wgmma_commit();
+    // while the tensor cores run them: Q^T and dO^T of tile t
+    split_transposed<D, BT, NT>(base + raw_q(t), base + QTHI, base + QTLO);
+    split_transposed<D, BT, NT>(base + raw_do(t), base + DOTHI,
+                                base + DOTLO);
+    wgmma_wait<0>();
+    keep(s);
+    keep(dp);
+
+    const float* ls = reinterpret_cast<const float*>(base + stats(t));
+    const float* dl = ls + BT;
+    const int q0 = t * BT;
+    // masks only where the tile crosses Nq or the block crosses Nk
+    const bool edge = !(key_ok[0] && key_ok[1]) || q0 + BT > nq;
+#pragma unroll
+    for (int j = 0; j < BT / 2; ++j) {  // rows: keys, columns: queries
+      const int c = acc_col(j);
+      const bool ok = !edge || (key_ok[(j >> 1) & 1] && q0 + c < nq);
+      const float p = ok ? exp2_ftz(fmaf(s[j], LOG2E, -ls[c] * LOG2E)) : 0.f;
+      s[j] = p;
+      dp[j] = p * (dp[j] - dl[c]);
     }
+    uint32_t ph[BT / 8][4], pl[BT / 8][4], dh[BT / 8][4], dlo[BT / 8][4];
+    to_a_tf32<BT>(s, ph, pl);    // P^T
+    to_a_tf32<BT>(dp, dh, dlo);  // dS^T
+
+    cp_async_wait<0>();  // this thread's copies of raw tile t+1 landed
+    fence_async_smem();  // its split of TR(t), to the tensor cores
+    __syncthreads();     // TR(t) whole; RM(t) and raw tile t are free
+    load_q(t + 2);
+
+    // Each tile's dV and dK go to fresh accumulators, added to the sums in
+    // f32: the tensor cores drop the bits of a sum below the accumulator's
+    // last place, which over Nq / 8 * 3 steps of one accumulator biases it
+    wgmma_fence();
+    rs3<D, BT>(fv, ph, pl, sb + DOTHI, sb + DOTLO);  // P^T.dO
+    if constexpr (!TWO) {  // one fresh accumulator, in turn
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(fv);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) dva[j] += fv[j];
+      wgmma_fence();
+    }
+    rs3<D, BT>(fk, dh, dlo, sb + QTHI, sb + QTLO);  // dS^T.Q
+    wgmma_commit();
+    if (t + 1 < tiles) {  // RM(t+1), while the tensor cores run them
+      split_rows<D, BT, NT>(base + raw_q(t + 1), base + QHI, base + QLO);
+      split_rows<D, BT, NT>(base + raw_do(t + 1), base + DOHI, base + DOLO);
+    }
+    wgmma_wait<0>();
+    keep(fv);
+    keep(fk);
+    keep(ph);
+    keep(pl);
+    keep(dh);
+    keep(dlo);
+    if constexpr (TWO) {
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) dva[j] += fv[j];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dka[j] += fk[j];
   }
 
   float* dkb = dk + (size_t)bh * nk * D;
   float* dvb = dv + (size_t)bh * nk * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = k0 + ty * 4 + i;
+  for (int h = 0; h < 2; ++h) {
+    const int g = k0 + wg * 64 + acc_row(2 * h);
     if (g >= nk) continue;
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      dkb[(size_t)g * D + tx * CT + c] = acc_k[i][c];
-      dvb[(size_t)g * D + tx * CT + c] = acc_v[i][c];
-    }
+    store_rows_f32<D>(dkb, dka, h, g);
+    store_rows_f32<D>(dvb, dva, h, g);
   }
 }
 
-// Pass 2: dQ of one (bh, 64-query tile).
+// Pass 2: dQ of one (bh, R queries); key tiles of BT stream.
 template <int D>
-__global__ void __launch_bounds__(NT)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, int nq, int nk) {
-  constexpr int CT = D / 16;
-  extern __shared__ float smem[];
-  float* qt = smem;               // [D][LD]  this block's queries, transposed
-  float* dot = qt + D * LD;       // [D][LD]  their dO rows, transposed
-  float* kt = dot + D * LD;       // [D][LD]  key tile, transposed
-  float* vt = kt + D * LD;        // [D][LD]  value tile, transposed
-  float* ks = vt + D * LD;        // [BT][D]  key tile, row-major
-  float* dss = ks + BT * D;       // [BT][LD] dS as [key][query]
-  float* lsl = dss + BT * LD;     // [BT]
-  float* dls = lsl + BT;          // [BT]
+__global__ void __launch_bounds__(Tf32Bwd<D>::NT, 1)
+dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        float* __restrict__ dq, int nq, int nk) {
+  using namespace sm90;
+  using C = Tf32Bwd<D>;
+  constexpr int R = C::R, BT = C::BT, NT = C::NT, RT = C::RT, ST = C::ST;
+  constexpr int QHI = 0, QLO = RT, DOHI = 2 * RT, DOLO = 3 * RT;
+  constexpr int KHI = C::RM, KLO = KHI + ST, VHI = KHI + 2 * ST,
+                VLO = KHI + 3 * ST;
+  constexpr int KTHI = C::TR, KTLO = KTHI + ST;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t sb = (raw_addr + 1023) & ~1023u;
+  uint8_t* base = smem_raw + (sb - raw_addr);
+  auto raw_k = [](int t) { return C::RAW2 + (t & 1) * 2 * ST; };
+  auto raw_v = [](int t) { return C::RAW2 + (t & 1) * 2 * ST + ST; };
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;        // score tile: keys tx*4..; products: columns
-  const int ty = tid >> 4;        // queries ty*4 .. ty*4+3
+  const int wg = threadIdx.x >> 7;
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BT;
+  const int q0 = blockIdx.x * R;
   const size_t qoff = (size_t)bh * nq;
   const float* kb = k + (size_t)bh * nk * D;
   const float* vb = v + (size_t)bh * nk * D;
+  const int tiles = (nk + BT - 1) / BT;
 
-  load_tile<D>(q + qoff * D, q0, nq, qt, nullptr);
-  load_tile<D>(dout + qoff * D, q0, nq, dot, nullptr);
-  if (tid < BT) {
-    const bool ok = q0 + tid < nq;
-    lsl[tid] = ok ? lse[qoff + q0 + tid] * LOG2E : 0.f;
-    dls[tid] = ok ? delta[qoff + q0 + tid] : 0.f;
+  // raw Q and dO into their hi tiles, split in place below
+  load_tile_f32<D, R, NT>(sb + QHI, q + qoff * D, q0, nq);
+  load_tile_f32<D, R, NT>(sb + DOHI, dout + qoff * D, q0, nq);
+  auto load_kv = [&](int t) {
+    if (t < tiles) {
+      load_stage<D, BT, NT>(sb + raw_k(t), kb, t * BT, nk);
+      load_stage<D, BT, NT>(sb + raw_v(t), vb, t * BT, nk);
+    }
+    cp_async_commit();  // one group per tile, empty past the end
+  };
+  load_kv(0);  // Q and dO ride in group 0
+  load_kv(1);
+
+  int gq[2];
+  bool q_ok[2];
+  float lsl[2], dls[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    gq[h] = q0 + wg * 64 + acc_row(2 * h);
+    q_ok[h] = gq[h] < nq;
+    lsl[h] = q_ok[h] ? lse[qoff + gq[h]] * LOG2E : 0.f;
+    dls[h] = q_ok[h] ? delta[qoff + gq[h]] : 0.f;
   }
+  cp_async_wait<1>();
+  __syncthreads();
+  split_tile<RT, NT>(base + QHI, base + QHI, base + QLO);
+  split_tile<RT, NT>(base + DOHI, base + DOHI, base + DOLO);
+  split_rows<D, BT, NT>(base + raw_k(0), base + KHI, base + KLO);
+  split_rows<D, BT, NT>(base + raw_v(0), base + VHI, base + VLO);
 
-  float acc[4][CT];
+  float dqa[D / 2], f[D / 2], s[BT / 2], dp[BT / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < D / 2; ++j) dqa[j] = f[j] = 0.f;
 #pragma unroll
-    for (int c = 0; c < CT; ++c) acc[i][c] = 0.f;
+  for (int j = 0; j < BT / 2; ++j) s[j] = dp[j] = 0.f;
 
-  for (int k0 = 0; k0 < nk; k0 += BT) {
-    __syncthreads();  // the previous tile's product is done with ks/dss
-    load_tile<D>(kb, k0, nk, kt, ks);
-    load_tile<D>(vb, k0, nk, vt, nullptr);
-    __syncthreads();
+  for (int t = 0; t < tiles; ++t) {
+    fence_async_smem();  // this thread's split of RM(t), to the tensor cores
+    __syncthreads();     // RM(t) whole; every warpgroup is done with TR(t-1)
 
-    float s[4][4], dp[4][4];
-    product_tt<D>(qt, ty * 4, kt, tx * 4, s);    // S  [query][key]
-    product_tt<D>(dot, ty * 4, vt, tx * 4, dp);  // dP [query][key]
+    wgmma_fence();  // S = Q.K^T, dP = dO.V^T
+    ss3<BT, D, R>(s, sb + QHI, sb + QLO, wg * 64, sb + KHI, sb + KLO);
+    ss3<BT, D, R>(dp, sb + DOHI, sb + DOLO, wg * 64, sb + VHI, sb + VLO);
+    wgmma_commit();
+    // while the tensor cores run them: K^T of tile t
+    split_transposed<D, BT, NT>(base + raw_k(t), base + KTHI, base + KTLO);
+    wgmma_wait<0>();
+    keep(s);
+    keep(dp);
+
+    const int k0 = t * BT;
+    // masks only where the tile crosses Nk or the block crosses Nq
+    const bool edge = !(q_ok[0] && q_ok[1]) || k0 + BT > nk;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool kok = k0 + tx * 4 + j < nk;
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        const bool ok = kok && q0 + r < nq;
-        const float pf = ok ? exp2f(s[i][j] * LOG2E - lsl[r]) : 0.f;
-        ds[i] = pf * (dp[i][j] - dls[r]);
-      }
-      *reinterpret_cast<float4*>(&dss[(tx * 4 + j) * LD + ty * 4]) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    for (int j = 0; j < BT / 2; ++j) {  // rows: queries, columns: keys
+      const int h = (j >> 1) & 1;
+      const bool ok = !edge || (q_ok[h] && k0 + acc_col(j) < nk);
+      const float p = ok ? exp2_ftz(fmaf(s[j], LOG2E, -lsl[h])) : 0.f;
+      dp[j] = p * (dp[j] - dls[h]);
     }
-    __syncthreads();
+    uint32_t dh[BT / 8][4], dlo[BT / 8][4];
+    to_a_tf32<BT>(dp, dh, dlo);  // dS
 
-#pragma unroll 4
-    for (int r = 0; r < BT; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&dss[r * LD + ty * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      float kv[CT];
-      load_cols<CT>(&ks[r * D + tx * CT], kv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CT; ++c) acc[i][c] = fmaf(av[i], kv[c], acc[i][c]);
+    cp_async_wait<0>();  // this thread's copies of raw tile t+1 landed
+    fence_async_smem();  // its split of TR(t), to the tensor cores
+    __syncthreads();     // TR(t) whole; RM(t) and raw tile t are free
+    load_kv(t + 2);
+
+    // each tile's dQ goes to a fresh accumulator, added to the sum in f32
+    wgmma_fence();
+    rs3<D, BT>(f, dh, dlo, sb + KTHI, sb + KTLO);  // dS.K
+    wgmma_commit();
+    if (t + 1 < tiles) {  // RM(t+1), while the tensor cores run it
+      split_rows<D, BT, NT>(base + raw_k(t + 1), base + KHI, base + KLO);
+      split_rows<D, BT, NT>(base + raw_v(t + 1), base + VHI, base + VLO);
     }
+    wgmma_wait<0>();
+    keep(f);
+    keep(dh);
+    keep(dlo);
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dqa[j] += f[j];
   }
 
   float* dqb = dq + qoff * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = q0 + ty * 4 + i;
-    if (g >= nq) continue;
-#pragma unroll
-    for (int c = 0; c < CT; ++c)
-      dqb[(size_t)g * D + tx * CT + c] = acc[i][c];
-  }
+  for (int h = 0; h < 2; ++h)
+    if (q_ok[h]) store_rows_f32<D>(dqb, dqa, h, gq[h]);
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, void* dk, void* dv, int bh, int nq, int nk,
-                   cudaStream_t stream) {
-  const int smem1 = dkdv_smem_floats(D) * (int)sizeof(float);
-  const int smem2 = dq_smem_floats(D) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse,
+                        const float* delta, void* dq, void* dk, void* dv,
+                        int bh, int nq, int nk, cudaStream_t stream) {
+  using C = Tf32Bwd<D>;
+  static sm90::OncePerDevice smem_set;
+  cudaError_t err = smem_set([] {
+    cudaError_t e = cudaFuncSetAttribute(
+        dkdv_tf32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM1);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        dq_tf32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM2);
+  });
   if (err != cudaSuccess) return err;
   const float* qq = static_cast<const float*>(q);
   const float* kk = static_cast<const float*>(k);
   const float* vv = static_cast<const float*>(v);
   const float* dd = static_cast<const float*>(dout);
-  dkdv_kernel<D><<<dim3((nk + BT - 1) / BT, bh), NT, smem1, stream>>>(
-      qq, kk, vv, dd, lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), nq, nk);
+  dkdv_tf32<D><<<dim3((nk + C::R - 1) / C::R, bh), C::NT, C::SMEM1,
+                 stream>>>(qq, kk, vv, dd, lse, delta,
+                           static_cast<float*>(dk), static_cast<float*>(dv),
+                           nq, nk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<D><<<dim3((nq + BT - 1) / BT, bh), NT, smem2, stream>>>(
+  dq_tf32<D><<<dim3((nq + C::R - 1) / C::R, bh), C::NT, C::SMEM2, stream>>>(
       qq, kk, vv, dd, lse, delta, static_cast<float*>(dq), nq, nk);
   return cudaGetLastError();
 }
@@ -655,8 +793,8 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (dkdv_kernel, dq_kernel: CUDA cores), 1 = bfloat16
-// (dkdv_sm90, dq_sm90: tensor cores) for q, k, v, dout, dq, dk, dv; lse and
+// dtype: 0 = float32 (dkdv_tf32, dq_tf32: tensor cores in split tf32),
+// 1 = bfloat16 (dkdv_sm90, dq_sm90: tensor cores) for q, k, v, dout, dq, dk, dv; lse and
 // delta are float32 [bh, nq]. All tensors contiguous. Launches pass 1 then
 // pass 2 on the stream; returns cudaGetLastError() (0 on success).
 extern "C" int cwm_attention_bwd(const void* q, const void* k, const void* v,
@@ -672,7 +810,8 @@ extern "C" int cwm_attention_bwd(const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(delta);
   return (int)sm90::with_head_dim(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    return dtype == 0 ? launch<D>(q, k, v, dout, l, dl, dq, dk, dv, bh, nq, nk, s)
+    return dtype == 0 ? launch_tf32<D>(q, k, v, dout, l, dl, dq, dk, dv, bh,
+                                       nq, nk, s)
                       : launch_sm90<D>(q, k, v, dout, l, dl, dq, dk, dv, bh,
                                        nq, nk, s);
   });

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the attention kernels (attention.cu,
 // attention_bwd.cu): warpgroup matrix multiply (wgmma) with bf16 or tf32
 // operands and f32 accumulators, the shared-memory matrix descriptor,
-// the swizzled tile layout and its cp.async copy, and the fences between
-// them.
+// the swizzled tile layout and its cp.async copy, the split-tf32 passes,
+// and the fences between them.
 //
 // Tile layout. A tile of R rows of D bf16 values (row-major [n][D] in
 // device memory) lives in shared memory in the layout wgmma reads with a
@@ -35,7 +35,12 @@
 // core keeps lo's high 19 bits, so hi + lo' is within 2^-21 |x| of x. A
 // product a.b is lo_a.hi_b + hi_a.lo_b + hi_a.hi_b in f32 accumulators,
 // the small terms first; lo_a.lo_b (under 2^-22 |ab|) is dropped. One tf32
-// pass alone keeps about three decimal digits.
+// pass alone keeps about three decimal digits. The f32 kernels split
+// their operands in shared memory: a raw tile lands by cp.async in a
+// staging layout (load_stage) and is split into K-major hi/lo tiles, as it
+// is (split_rows) or transposed (split_transposed) for a product that
+// contracts down its rows; to_a_tf32 splits an accumulator into A
+// fragments in the order split_transposed stores the rows.
 //
 // with_head_dim is the one switch from a runtime head dim to the kernels'
 // template argument, for both routes of attention.cu and attention_bwd.cu.
@@ -384,6 +389,142 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// an m64nN f32 accumulator as the split tf32 A operands (hi, lo) of the
+// N/8 k-steps of the next product: a[e] of a k-step is element
+// (e & 1) * 2 + (e >> 1) of its four (rows h = e & 1, column 2c + (e >> 1)),
+// so fragment column c holds accumulator column 2c and column c + 4 holds
+// 2c + 1. The B operand stores each 8-row k-step in that order
+// (split_transposed).
+template <int N>
+__device__ __forceinline__ void to_a_tf32(const float (&acc)[N / 2],
+                                          uint32_t (&hi)[N / 8][4],
+                                          uint32_t (&lo)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_tf32(acc[4 * kk + 2 * (e & 1) + (e >> 1)], hi[kk][e], lo[kk][e]);
+}
+
+// The staging tile of an f32 tile that is split in shared memory: row r
+// at byte 4D * r, its 16-byte chunk c in slot c ^ stage_swz(r). The XOR
+// permutes each 8 aligned slots, so a quarter-warp's copies into one row
+// stay on distinct banks, and so do the 8 rows 8g + 2i + h (g = 0..3,
+// h = 0..1) whose chunk c a quarter-warp of split_transposed reads at once.
+template <int D>
+__device__ __forceinline__ int stage_swz(int r) {
+  return D >= 32 ? 2 * ((r >> 3) & 3) + (r & 1) : (r >> 3) & 3;
+}
+
+// Rows r0 .. r0+R-1 of a row-major [n][D] f32 matrix into the staging
+// tile at shared address `tile`, by the NT threads of the block; zeros at
+// or past n
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_stage(uint32_t tile,
+                                           const float* __restrict__ src,
+                                           int r0, int n) {
+  constexpr int CPR = D / 4;  // chunks per row
+#pragma unroll
+  for (int i = 0; i < (R * CPR + NT - 1) / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    if ((R * CPR) % NT != 0 && e >= R * CPR) break;
+    const int r = e / CPR, c = e % CPR;
+    const int g = r0 + r;
+    const bool ok = g < n;
+    cp_async16(tile + r * 4 * D + 16 * (c ^ stage_swz<D>(r)),
+               src + (size_t)(ok ? g : 0) * D + 4 * c, ok);
+  }
+}
+
+__device__ __forceinline__ void split4(const float4 x, uint4& h, uint4& l) {
+  split_tf32(x.x, h.x, l.x);
+  split_tf32(x.y, h.y, l.y);
+  split_tf32(x.z, h.z, l.z);
+  split_tf32(x.w, h.w, l.w);
+}
+
+// Each 16-byte chunk of the f32 tile `src` (BYTES long) split into the
+// chunks at the same offsets of the tf32 tiles hi and lo (hi may be src)
+template <int BYTES, int NT>
+__device__ __forceinline__ void split_tile(const uint8_t* src, uint8_t* hi,
+                                           uint8_t* lo) {
+  constexpr int CHUNKS = BYTES / 16;
+#pragma unroll
+  for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    if (CHUNKS % NT != 0 && e >= CHUNKS) break;
+    uint4 h, l;
+    split4(*reinterpret_cast<const float4*>(src + 16 * e), h, l);
+    *reinterpret_cast<uint4*>(hi + 16 * e) = h;
+    *reinterpret_cast<uint4*>(lo + 16 * e) = l;
+  }
+}
+
+// A staging tile of R rows split into the K-major tf32 tiles hi and lo
+// (R rows of D values, Tile<2 * D>, the layout load_tile_f32 writes)
+template <int D, int R, int NT>
+__device__ __forceinline__ void split_rows(const uint8_t* stage, uint8_t* hi,
+                                           uint8_t* lo) {
+  constexpr int W = Tile<2 * D>::W;
+  constexpr int CPR = D / 4;   // chunks per row
+  constexpr int CPS = W / 16;  // chunks per slab row
+#pragma unroll
+  for (int i = 0; i < (R * CPR + NT - 1) / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    if ((R * CPR) % NT != 0 && e >= R * CPR) break;
+    const int r = e / CPR, c = e % CPR;
+    uint4 h, l;
+    split4(*reinterpret_cast<const float4*>(stage + r * 4 * D +
+                                            16 * (c ^ stage_swz<D>(r))),
+           h, l);
+    const uint32_t off =
+        (c / CPS) * (R * W) + swizzle<W>(r * W + (c % CPS) * 16);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// A staging tile of R rows split and transposed into the K-major tf32
+// tiles hi and lo (D rows of R values, Tile<2 * R>): the operand of a
+// product that contracts down the R rows. A thread takes rows
+// 8g + 2i + h (i = 0..3) x columns 4c .. 4c+3 and writes, for each column,
+// the 4 floats at positions 8g + 4h .. 8g + 4h + 3 of that column's row:
+// position p of an 8-row step holds row 2p (p < 4) or 2(p - 4) + 1, the
+// order of to_a_tf32's fragments.
+template <int D, int R, int NT>
+__device__ __forceinline__ void split_transposed(const uint8_t* stage,
+                                                 uint8_t* hi, uint8_t* lo) {
+  constexpr int TASKS = D * R / 16;
+  constexpr int W = Tile<2 * R>::W;
+#pragma unroll
+  for (int it = 0; it < (TASKS + NT - 1) / NT; ++it) {
+    const int e = threadIdx.x + it * NT;
+    if (TASKS % NT != 0 && e >= TASKS) break;
+    const int h = e & 1, g = (e >> 1) % (R / 8), c = e / (R / 4);
+    float x[4][4];  // [row i][column j]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 8 * g + 2 * i + h;
+      const float4 v = *reinterpret_cast<const float4*>(
+          stage + r * 4 * D + 16 * (c ^ stage_swz<D>(r)));
+      x[i][0] = v.x;
+      x[i][1] = v.y;
+      x[i][2] = v.z;
+      x[i][3] = v.w;
+    }
+    const int b = 4 * (8 * g + 4 * h);  // byte of position 8g + 4h in a row
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = 4 * c + j;
+      const uint32_t off = (b / W) * (D * W) + swizzle<W>(d * W + b % W);
+      uint4 hv, lv;
+      split4(make_float4(x[0][j], x[1][j], x[2][j], x[3][j]), hv, lv);
+      *reinterpret_cast<uint4*>(hi + off) = hv;
+      *reinterpret_cast<uint4*>(lo + off) = lv;
+    }
+  }
+}
+
 // D[64 x N] (+)= A[64 x 8] . B[8 x N], tf32 in, f32 accumulate, issued
 // asynchronously by the warpgroup; both operands K-major (the only tf32
 // layout). mma_ss_tf32: A and B in shared memory. mma_rs_tf32: A from
@@ -405,6 +546,20 @@ __device__ __forceinline__ void mma_ss_tf32<16>(float (&d)[8], uint64_t a,
       "}, %8, %9, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss_tf32<32>(float (&d)[16], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

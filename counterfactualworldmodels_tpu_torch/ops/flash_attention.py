@@ -7,9 +7,9 @@ tensors the wrappers launch the hand-written kernels of ``csrc/attention.cu``
 their plain versions, ``_chunked_dense_attention``, ``_dense_two_source``
 and ``_chunked_attention_bwd`` (the same math: f32 scores and softmax).
 Inside each kernel entry the dtype picks the route: bf16 runs on the
-tensor cores (wgmma); the f32 forward on the tensor cores in tf32 with
-split products (lo.hi + hi.lo + hi.hi: f32 accuracy, whatever PyTorch's
-TF32 flags say), the f32 backward on the CUDA cores in full f32.
+tensor cores (wgmma); f32, forward and backward, on the tensor cores in
+tf32 with split products (lo.hi + hi.lo + hi.hi: f32 accuracy, whatever
+PyTorch's TF32 flags say).
 Layout: q, k, v [B, H, N, D]; q pre-scaled (softmax scale 1).
 
 The kernels are built for head dims 16, 32, 64 and 128. Any other D up to

@@ -6,11 +6,12 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
 Attention runs on the tensor cores: bf16 on the ``*_sm90`` kernels
-(wgmma, shapes cut into 64- and 128-row tiles), the f32 forward on
-``attention_fwd_tf32`` (wgmma in tf32 with split products, 64-key tiles,
-16 at D = 128); the f32 backward on the CUDA-core kernels. The shapes
-below cross those tile edges (Nk under one tile, Nq and Nk one past a
-boundary) at every head dim.
+(wgmma, shapes cut into 64- and 128-row tiles); f32 on wgmma in tf32 with
+split products, the forward on ``attention_fwd_tf32`` (64-key tiles, 16 at
+D = 128) and the backward on ``dkdv_tf32`` / ``dq_tf32`` (blocks of 128
+resident rows, 64 at D = 128; streamed tiles of 32 rows, 16 at D = 128).
+The shapes below cross those tile edges (Nk under one tile, Nq and Nk one
+past a boundary) at every head dim.
 
 Tolerances: f32 2e-5 / 3e-5 (the JAX kernel tests' bounds: sums in another
 order); bf16 2e-2 (outputs of magnitude ~1 differ by a couple of bf16 ulps:
@@ -221,14 +222,16 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, dtype):
 
 def test_flash_attention_bwd_kernel_is_deterministic(dev):
     rng = np.random.RandomState(5)
-    for shape in [(2, 4, 333, 333, 64), (1, 2, 129, 65, 128),
-                  (2, 2, 200, 77, 32)]:
-        q, k, v, do = _grad_inputs(rng, dev, torch.bfloat16, *shape)
-        out, lse = fa._flash_forward_lse(q, k, v)
-        delta = (do.float() * out.float()).sum(-1)
-        first = fa._flash_backward(q, k, v, do, lse, delta)
-        second = fa._flash_backward(q, k, v, do, lse, delta)
-        assert all(torch.equal(a, b) for a, b in zip(first, second)), shape
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in [(2, 4, 333, 333, 64), (1, 2, 129, 65, 128),
+                      (2, 2, 200, 77, 32)]:
+            q, k, v, do = _grad_inputs(rng, dev, dtype, *shape)
+            out, lse = fa._flash_forward_lse(q, k, v)
+            delta = (do.float() * out.float()).sum(-1)
+            first = fa._flash_backward(q, k, v, do, lse, delta)
+            second = fa._flash_backward(q, k, v, do, lse, delta)
+            assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+                dtype, shape)
 
 
 def _device_kernel_names(fn):
@@ -270,8 +273,9 @@ def _hgmma_counts(lib_path):
 
 def test_bf16_attention_runs_on_the_tensor_core_kernels(dev):
     """bf16 calls launch the wgmma kernels; f32 calls launch the split-tf32
-    forward ``attention_fwd_tf32``, which holds HGMMA at every head dim,
-    and the CUDA-core backward."""
+    kernels, the forward ``attention_fwd_tf32`` and the backward
+    ``dkdv_tf32`` / ``dq_tf32``, each of which holds HGMMA at every head
+    dim."""
     rng = np.random.RandomState(8)
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -287,14 +291,17 @@ def test_bf16_attention_runs_on_the_tensor_core_kernels(dev):
     for kernel in ('attention_fwd_sm90', 'dkdv_sm90', 'dq_sm90'):
         assert kernel in names[torch.bfloat16]
         assert kernel not in names[torch.float32]
-    for kernel in ('attention_fwd_tf32', 'dkdv_kernel', 'dq_kernel'):
+    for kernel in ('attention_fwd_tf32', 'dkdv_tf32', 'dq_tf32'):
         assert kernel in names[torch.float32]
         assert kernel not in names[torch.bfloat16]
-    hgmma = _hgmma_counts(kernels.library_path('attention'))
-    for d in (16, 32, 64, 128):
-        fragment = f'18attention_fwd_tf32ILi{d}E'
-        found = [n for k, n in hgmma.items() if fragment in k]
-        assert len(found) == 1 and found[0] > 0, (d, found)
+    for lib, kernel in (('attention', 'attention_fwd_tf32'),
+                        ('attention_bwd', 'dkdv_tf32'),
+                        ('attention_bwd', 'dq_tf32')):
+        hgmma = _hgmma_counts(kernels.library_path(lib))
+        for d in (16, 32, 64, 128):
+            fragment = f'{len(kernel)}{kernel}ILi{d}E'
+            found = [n for k, n in hgmma.items() if fragment in k]
+            assert len(found) == 1 and found[0] > 0, (kernel, d, found)
 
 
 _F32_SHAPES = [  # (b, h, nq, nk, d): every head dim, padded ones too;
@@ -323,6 +330,25 @@ def test_f32_attention_forward_matches_plain(dev, shape):
     assert torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize('shape', _F32_SHAPES, ids=str)
+def test_f32_attention_backward_matches_plain(dev, shape):
+    """The split-tf32 backward (K6) against the plain f32 version, TF32 off
+    for cuBLAS, at TOL_GRAD (atol 2e-4 / rtol 1e-4): one launch, gradients
+    of the caller's shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(sum(shape) + 1)
+    q, k, v, do = _grad_inputs(rng, dev, torch.float32, *shape)
+    out, lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+    delta = (do * out).sum(-1)
+    before = kernels.LAUNCHES['flash_attention_bwd']
+    got = fa._flash_backward(q, k, v, do, lse, delta)
+    assert kernels.LAUNCHES['flash_attention_bwd'] == before + 1
+    ref = fa._chunked_attention_bwd(q, k, v, do, lse, delta)
+    for name, a, r in zip('qkv', got, ref):
+        assert a.dtype == torch.float32 and a.shape == r.shape, name
+        assert torch.allclose(a, r, atol=2e-4, rtol=1e-4), name
+
+
 @pytest.mark.parametrize('d', [16, 32, 64, 128])
 def test_f32_prefix_attention_matches_plain(dev, d):
     """K2 on the f32 route: a shared prefix read by S = 3 samples and
@@ -343,13 +369,16 @@ def test_f32_prefix_attention_matches_plain(dev, d):
 
 
 def test_f32_attention_ignores_the_tf32_flags(dev):
-    """The kernel's arithmetic is its own: the output is bitwise the same
-    whatever torch.backends.cuda.matmul.allow_tf32 and cudnn.allow_tf32
-    say."""
+    """The kernels' arithmetic is their own: the outputs and the backward's
+    gradients are bitwise the same whatever
+    torch.backends.cuda.matmul.allow_tf32 and cudnn.allow_tf32 say."""
     rng = np.random.RandomState(12)
     q = _rand(rng, 2, 4, 300, 64, scale=0.125).to(dev)
     k, v = (_rand(rng, 2, 4, 300, 64).to(dev) for _ in range(2))
     k1, v1 = (_rand(rng, 2, 4, 70, 64).to(dev) for _ in range(2))
+    do = _rand(rng, 2, 4, 300, 64).to(dev)
+    out, lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+    delta = (do * out).sum(-1)
     outs = []
     matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
                      torch.backends.cudnn.allow_tf32)
@@ -359,7 +388,8 @@ def test_f32_attention_ignores_the_tf32_flags(dev):
             torch.backends.cudnn.allow_tf32 = flag
             outs.append((fa.flash_attention(q, k, v),
                          fa.flash_attention_prefix(q, k[:1], v[:1], k1, v1,
-                                                   16.0, 16.0)))
+                                                   16.0, 16.0),
+                         *fa._flash_backward(q, k, v, do, lse, delta)))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
