@@ -175,6 +175,16 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    chiprun_out/fidelity_report.json; (d) the demo at --model base, then
    --model large --movability, each step's ms and launches, every PNG
    decoded here;
+11. the measurement entry points (after phase 10): each script's
+   ``main(argv)`` at full width: ``bench`` (ViT-L 4x4 + RAFT-24, bf16, S =
+   16, the S probe at 64, the rung ladder, the stages; K1 36, K2 12, lookup
+   24 a dispatch), ``bench_sweep --sizes 16``, ``latency_bench --model
+   large`` (the cold prediction, the warm click, the imu400 click),
+   ``serve_latency`` to prompt 16, ``loadgen`` at base 224,
+   ``bench_conjoined`` at imu400 (both engines), ``bench_train``'s ten
+   families at 2 steps (K5 / K6 a step asserted), ``bench_loader`` and
+   ``bench_attention`` at S = 16; every JSON line parsed, finite, with a
+   positive headline, and each cut of a default listed in the record;
 7. the kernels RAFT's ``convc1`` launches on the lookup's bf16 output
    (torch.profiler, last: it makes every later launch cost more).
 
@@ -4495,6 +4505,199 @@ def demo_phase(torch, port, rec, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the measurement entry points
+# ---------------------------------------------------------------------------
+
+# each cut of a script's default run, as the record lists it
+PHASE11_REDUCTIONS = [
+    'bench: CWM_BENCH_SBIG=64 (the S probe at 64 only; the script\'s '
+    'default probes 64, 128 and 256)',
+    'bench_sweep: --sizes 16 with CWM_BENCH_RUNGS=0 (one size, no ladder)',
+    'latency_bench: --iters 20 (default 50)',
+    'loadgen: --requests 32 (default 64)',
+    'bench_train: CWM_TRAIN_BENCH_STEPS=2 (default 8)',
+    'bench_loader: --clips 64 --seconds 0.5 --threads 1,4 (default 512 '
+    'clips, 5 s a row, threads 1,2,4)',
+]
+
+
+def _run_script(torch, main, argv, env=()):
+    """An entry point's ``main(argv)`` with ``env`` set for the call:
+    (what it returned, the JSON lines it printed, seconds). The printed
+    lines must parse."""
+    import contextlib
+    import gc
+    import io
+    env = dict(env)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith('{')]
+    if not lines:
+        raise AssertionError(f'{main.__module__} printed no JSON line')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, lines, secs
+
+
+def _finite_tree(v):
+    if isinstance(v, dict):
+        return all(_finite_tree(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return all(_finite_tree(x) for x in v)
+    return not isinstance(v, float) or math.isfinite(v)
+
+
+def measurement_phase(torch, port, rec, smi):
+    """11. The measurement entry points (``scripts/bench*``, the latency,
+    first-request and load probes) through their ``main(argv)`` on the
+    card at full width: the bench at ViT-L 4x4 + RAFT-24, S = 16, with the
+    S probe at 64 and the rung ladder (K1 36, K2 12, lookup 24 a dispatch,
+    asserted); the sweep at S = 16 (a child process); latency_bench --model
+    large (the cold prediction K1 36, the warm click K2 12, the imu400
+    click K2 4); serve_latency to prompt 16 (the first request K1 36 / K2
+    12 / lookup 24, the rest K2 12 / lookup 24); loadgen at base 224;
+    bench_conjoined at imu400 on both engines (fast K2 4, lookup 24; exact
+    K2 0, lookup 24); bench_train's ten families (K5 / K6 a step: ViT-L
+    72 / 36, accum 2 twice that, no remat 36 / 36, ChannelMAE 32 / 16,
+    imu400 64 / 32, none for RAFT); bench_loader; bench_attention at S =
+    16 (K1 and K2 once a call, within 2e-2 of the plain f32 output's
+    largest magnitude). Every JSON line parses, holds finite numbers and a
+    positive headline; the reductions are listed in the record."""
+    from counterfactualworldmodels_tpu_torch.scripts import (
+        bench, bench_attention, bench_conjoined, bench_loader, bench_sweep,
+        bench_train, latency_bench, loadgen, serve_latency)
+    zero = {k: 0 for k in port.kernels.LAUNCHES}
+    out = dict(card=smi, reductions=PHASE11_REDUCTIONS, seconds={})
+    rec['phase11'] = out                 # filled in as the scripts run
+    bad = []
+
+    def check(name, ok, detail):
+        if not ok:
+            bad.append(f'{name}: {detail}')
+
+    def run(name, main, argv, env=()):
+        r, lines, secs = _run_script(torch, main, argv, env)
+        out['seconds'][name] = secs
+        check(name, all(_finite_tree(ln) for ln in lines),
+              'a number that is not finite')
+        log('11 measurement', f'{name} in {secs:.1f}s: '
+                              + json.dumps(lines[-1])[:1500])
+        return r, lines
+
+    # the dispatch: the library-default rung at ViT-L
+    b, _ = run('bench', bench.main, [], {'CWM_BENCH_SBIG': '64'})
+    want = dict(zero, flash_attention=36, flash_attention_prefix=12,
+                window_lookup=24)
+    check('bench', b['value'] > 0 and b['launches_per_dispatch'] == want
+          and b['config']['engine']
+          == 'shared-prefix/default:pooled4+suffix4+tanh'
+          and set(b['s_scaling']) == {'s16', 's64'}
+          and b['mfu_executed'] > 0 and min(b['stages'].values()) > 0
+          and {'exact-numerics', 'pooled2+suffix2+tanh', 'pooled4+suffix4',
+               'pooled4+suffix4+tanh'} <= set(b['rungs']), json.dumps(b))
+    out['bench'] = b
+
+    sw, _ = run('bench_sweep', bench_sweep.main, ['--sizes', '16'],
+                {'CWM_BENCH_RUNGS': '0'})
+    check('bench_sweep', [r['s'] for r in sw['rows']] == [16]
+          and sw['rows'][0]['sims_per_sec'] > 0, json.dumps(sw))
+    out['bench_sweep'] = sw
+
+    lat, _ = run('latency_bench', latency_bench.main,
+                 ['--model', 'large', '--iters', '20'])
+    check('latency_bench', lat['p50_ms'] > 0
+          and lat['launches_per_call'] == dict(zero, flash_attention=36)
+          and lat['warm_prefix']['launches_per_call']
+          == dict(zero, flash_attention_prefix=12)
+          and lat['warm_prefix_imu']['launches_per_call'][
+              'flash_attention_prefix'] == 4, json.dumps(lat))
+    out['latency_bench'] = lat
+
+    sl, _ = run('serve_latency', serve_latency.main, ['--max-prompt', '16'])
+    s = sl['serve_first_request_by_prompt_size']
+    warm = dict(zero, flash_attention_prefix=12, window_lookup=24)
+    check('serve_latency', s['worst_first_request_sec'] > 0
+          and s['launches_by_prompt_size'][1]
+          == dict(warm, flash_attention=36)
+          and all(s['launches_by_prompt_size'][k] == warm
+                  for k in range(2, 17)), json.dumps(s))
+    out['serve_latency'] = s
+
+    lg, _ = run('loadgen', loadgen.main, ['--requests', '32'])
+    tb = lg['trials']['batched']
+    check('loadgen', lg['value'] > 0
+          and tb['micro_batching']['requests_batched'] > 0
+          and tb['launches']['flash_attention_prefix'] > 0
+          and tb['launches']['window_lookup'] > 0, json.dumps(lg))
+    out['loadgen'] = lg
+
+    cj, _ = run('bench_conjoined', bench_conjoined.main, [])
+    check('bench_conjoined', cj['value'] > 0 and cj['exact_sims_per_sec'] > 0
+          and cj['config']['model'].startswith('imu400')
+          and cj['launches_fast']['flash_attention_prefix'] == 4
+          and cj['launches_fast']['window_lookup'] == 24
+          and cj['launches_fast']['flash_attention'] > 0
+          and cj['launches_exact']['flash_attention'] > 0
+          and cj['launches_exact']['flash_attention_prefix'] == 0
+          and cj['launches_exact']['window_lookup'] == 24, json.dumps(cj))
+    out['bench_conjoined'] = cj
+
+    (tr, head), _ = run('bench_train', bench_train.main, [],
+                        {'CWM_TRAIN_BENCH_STEPS': '2'})
+    pairs = {'vmae_large': (72, 36), 'vmae_large_accum2': (144, 72),
+             'vmae_large_remat_off': (36, 36), 'cmae_base': (32, 16),
+             'conjoined_imu': (64, 32), 'raft': (0, 0)}
+    for r in tr['results']:
+        ln = r.get('launches_per_step')
+        if ln is None:                       # the loader-in-loop row
+            check(r['family'], r['clips_per_sec'] > 0, json.dumps(r))
+            continue
+        k5, k6 = ln['flash_attention_lse'], ln['flash_attention_bwd']
+        want = pairs.get(r['family'])
+        ok = ((k5, k6) == want if want is not None
+              else k5 >= k6 > 0)
+        check(r['family'], ok and r['sec_per_step'] > 0
+              and (r['mfu'] or 0) > 0, json.dumps(r))
+    check('bench_train', head['value'] > 0 and len(tr['results']) == 10,
+          json.dumps(head))
+    out['bench_train'] = tr
+
+    ld, _ = run('bench_loader', bench_loader.main,
+                ['--clips', '64', '--seconds', '0.5', '--threads', '1,4'])
+    check('bench_loader', ld['value'] > 0
+          and len(ld['results']['loaders']) == 8, json.dumps(ld))
+    out['bench_loader'] = ld
+
+    at, _ = run('bench_attention', bench_attention.main, ['--s', '16'])
+    rows = at['rows']
+    check('bench_attention', rows['ours']['launches']
+          == {'flash_attention': 1}
+          and rows['ours-two-source']['launches']
+          == {'flash_attention_prefix': 1}
+          and not rows['sdpa']['launches'] and not rows['plain']['launches']
+          and all(r['ms'] > 0 for r in rows.values()), json.dumps(rows))
+    out['bench_attention'] = at
+
+    out['not_as_expected'] = bad
+    if bad:
+        raise AssertionError('measurement entry points: ' + '; '.join(bad))
+    return out
+
+
 def _category(kernel_name):
     k = kernel_name.lower()
     for cat, keys in (('attention kernel (K1/K2/K5)', ('attention_fwd_tf32',
@@ -4724,6 +4927,9 @@ def main():
         fidelity = phase('10c fidelity', fidelity_phase, torch, port, rec,
                          smi)
         demo = phase('10d demo', demo_phase, torch, port, rec, smi)
+        torch.cuda.empty_cache()
+        measurement = phase('11 measurement', measurement_phase, torch, port,
+                            rec, smi)
         phase('7 convc1', convc1_kernels, torch, rec)
     rec['failed'] = failed
     if args.record:
@@ -4792,7 +4998,8 @@ def main():
                  fidelity_pool4_f32_leg=fidelity['legs_of'][
                      'pool4_suffix4_tanh f32'],
                  demo_base=demo['base']['launches'],
-                 demo_large_movability=demo['large']['launches'])
+                 demo_large_movability=demo['large']['launches'],
+                 bench_dispatch=measurement['bench']['launches_per_dispatch'])
     table = []
     for kid, kernel, dtype, case, path, replaces in (
             ('K1', 'flash_attention', 'bfloat16', 'encoder prefix',

@@ -9,7 +9,11 @@
   counterfactual videos, flows and end products from the exact model;
 - ``demo_counterfactuals``: factual prediction, a counterfactual, motion
   maps, a covariance probe and movability, written as PNGs;
-- ``gen_api_doc``: the port's public API as ``docs/API_torch.md``.
+- ``gen_api_doc``: the port's public API as ``docs/API_torch.md``;
+- the measurement entry points: ``bench`` (counterfactual simulations per
+  second), ``bench_sweep``, ``latency_bench``, ``serve_latency``,
+  ``loadgen``, ``bench_conjoined``, ``bench_train``, ``bench_loader`` and
+  ``bench_attention``, over ``_bench_common``.
 
 Each mirrors the JAX package's script of the same name (flags and JSON
 keys), takes ``--device`` (default ``cuda``; ``cpu`` runs the plain

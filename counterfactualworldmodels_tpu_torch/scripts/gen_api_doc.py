@@ -72,6 +72,7 @@ MODULES = [
     ('training.train_cmae', 'The ChannelMAE trainer.'),
     ('training.train_conjoined', 'The conjoined trainer.'),
     ('training.train_raft', 'The RAFT trainer.'),
+    ('training.flops', 'FLOPs of the training steps (the trainers\' MFU).'),
     ('data.shards', 'Shard format and the native (C++) clip loader with IMU '
                     'sidecars.'),
     ('data.utils', 'Image/video IO helpers and demo utilities.'),
@@ -108,6 +109,25 @@ MODULES = [
                                      'counterfactuals, motion maps, '
                                      'movability.'),
     ('scripts.gen_api_doc', 'This generator.'),
+    ('scripts._bench_common', 'The measurement entry points\' shared '
+                              'prompts, timing windows and peak.'),
+    ('scripts.bench', 'Counterfactual simulations per second (the '
+                      'dispatch), with the S probe and the rung ladder.'),
+    ('scripts.bench_sweep', 'The bench over several sample counts S.'),
+    ('scripts.latency_bench', 'p50 / p99 latency of a prediction, a click '
+                              'and an IMU click.'),
+    ('scripts.serve_latency', 'First-request latency per prompt size '
+                              'through the service.'),
+    ('scripts.loadgen', 'Serving throughput under concurrent clients, '
+                        'micro-batching on and off.'),
+    ('scripts.bench_conjoined', 'The IMU-conditioned counterfactual on both '
+                                'engines.'),
+    ('scripts.bench_train', 'Training steps/s, clips/s and MFU per '
+                            'family.'),
+    ('scripts.bench_loader', 'The native clip loader against the Python '
+                             'one.'),
+    ('scripts.bench_attention', 'The decoder-suffix attention candidates '
+                                '(K1, K2, SDPA, plain).'),
 ]
 
 

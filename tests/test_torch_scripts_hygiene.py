@@ -14,8 +14,9 @@ import torch
 
 import counterfactualworldmodels_tpu_torch as port
 from counterfactualworldmodels_tpu_torch.scripts import (
-    demo_counterfactuals, extract_structure, fidelity_report, gen_api_doc,
-    make_shards)
+    bench, bench_attention, bench_conjoined, bench_loader, bench_sweep,
+    bench_train, demo_counterfactuals, extract_structure, fidelity_report,
+    gen_api_doc, latency_bench, loadgen, make_shards, serve_latency)
 
 from test_torch_hygiene import _broad_handlers
 
@@ -23,7 +24,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ('scripts.extract_structure', 'scripts.make_shards',
            'scripts.fidelity_report', 'scripts.demo_counterfactuals',
            'scripts.gen_api_doc', 'scripts._io', 'utils.png',
-           'utils.colormaps', 'serve')
+           'utils.colormaps', 'serve', 'scripts._bench_common',
+           'scripts.bench', 'scripts.bench_sweep', 'scripts.latency_bench',
+           'scripts.serve_latency', 'scripts.loadgen',
+           'scripts.bench_conjoined', 'scripts.bench_train',
+           'scripts.bench_loader', 'scripts.bench_attention',
+           'training.flops')
+BENCHES = ('bench', 'bench_sweep', 'latency_bench', 'serve_latency',
+           'loadgen', 'bench_conjoined', 'bench_train', 'bench_loader',
+           'bench_attention')
 
 
 def test_scripts_import_without_jax_pil_or_matplotlib():
@@ -44,7 +53,8 @@ def test_no_blanket_exception_handler_in_the_scripts():
     """No fallback and no swallowed error: the fidelity report raises where
     the JAX script records an error and degrades, the shard writer's video
     reader catches only ImportError, the API doc generator lets a failing
-    import raise."""
+    import raise, the measurement entry points keep no degrade chain and
+    record no error."""
     root = os.path.dirname(port.__file__)
     broad = []
     for mod in SCRIPTS:
@@ -64,8 +74,17 @@ def test_no_blanket_exception_handler_in_the_scripts():
     (fidelity_report.main, ['--samples', '1', '--max-images', '1']),
     (demo_counterfactuals.main, ['--samples', '1']),
     (gen_api_doc.main, ['--out', 'unused.md']),
+    (bench.main, []),
+    (bench_sweep.main, ['--sizes', '2']),
+    (latency_bench.main, ['--iters', '1']),
+    (serve_latency.main, ['--max-prompt', '1']),
+    (loadgen.main, ['--requests', '1']),
+    (bench_conjoined.main, []),
+    (bench_train.main, []),
+    (bench_loader.main, ['--clips', '1']),
+    (bench_attention.main, ['--s', '1']),
 ], ids=['extract_structure', 'make_shards', 'fidelity_report',
-        'demo_counterfactuals', 'gen_api_doc'])
+        'demo_counterfactuals', 'gen_api_doc', *BENCHES])
 def test_scripts_raise_without_cuda_unless_cpu_is_asked(main, argv,
                                                          tmp_path,
                                                          monkeypatch):
@@ -82,7 +101,8 @@ def test_api_doc_covers_every_script(tmp_path):
                             '--device', 'cpu'])
     text = open(out).read()
     for mod in ('extract_structure', 'make_shards', 'fidelity_report',
-                'demo_counterfactuals', 'gen_api_doc'):
+                'demo_counterfactuals', 'gen_api_doc', '_bench_common',
+                *BENCHES):
         assert f'## `counterfactualworldmodels_tpu_torch.scripts.{mod}`' in (
             text), mod
     assert ' at 0x' not in text
