@@ -33,6 +33,7 @@ from ..ops import patches as patch_ops
 from ..ops.flash_attention import flash_attention, flash_attention_prefix
 from ..ops.normalization import imagenet_normalize
 from ..ops.pos_embed import sinusoid_encoding_table
+from ..utils import profiling
 from .layers import dense_attention, layer_norm
 from .vmae import PretrainVisionTransformer, mask_order
 
@@ -425,29 +426,30 @@ def encode_prefix(model: PretrainVisionTransformer, fp: FastParams,
                   use_flash: bool, x0n) -> PrefixCache:
     """Run the shared frame-0 pass once. x0n: [1, C, H, W] normalized
     frame 0. Returns the per-layer encoder/decoder prefix KV caches."""
-    n0 = model.num_patches_per_frame
-    dtype = fp.patch_kernel.dtype
-    dev = x0n.device
+    with profiling.span('cf.prefix_build'):
+        n0 = model.num_patches_per_frame
+        dtype = fp.patch_kernel.dtype
+        dev = x0n.device
 
-    p0 = patch_ops.patchify(x0n[:, :, None], model.full_patch_size,
-                            temporal_dim=2, squeeze_channel_dim=True)
-    tokens0 = (torch.matmul(p0.to(dtype), fp.patch_kernel).to(dtype)
-               + fp.patch_bias)
-    pos_enc = sinusoid_encoding_table(
-        model.num_patches, model.encoder_embed_dim, device=dev)[:, :n0]
-    tokens0 = tokens0 + pos_enc.to(dtype)
+        p0 = patch_ops.patchify(x0n[:, :, None], model.full_patch_size,
+                                temporal_dim=2, squeeze_channel_dim=True)
+        tokens0 = (torch.matmul(p0.to(dtype), fp.patch_kernel).to(dtype)
+                   + fp.patch_bias)
+        pos_enc = sinusoid_encoding_table(
+            model.num_patches, model.encoder_embed_dim, device=dev)[:, :n0]
+        tokens0 = tokens0 + pos_enc.to(dtype)
 
-    h0, enc_kvs = _prefix_blocks(fp.enc_blocks, tokens0,
-                                 model.encoder_num_heads, use_flash)
-    h0 = _ln(h0, fp.enc_norm)
+        h0, enc_kvs = _prefix_blocks(fp.enc_blocks, tokens0,
+                                     model.encoder_num_heads, use_flash)
+        h0 = _ln(h0, fp.enc_norm)
 
-    z0 = torch.matmul(h0, fp.e2d_kernel).to(dtype)
-    pos_dec = sinusoid_encoding_table(
-        model.num_patches, model.decoder_embed_dim, device=dev).to(dtype)
-    z0 = z0 + pos_dec[:, :n0]
-    _, dec_kvs = _prefix_blocks(fp.dec_blocks, z0, model.decoder_num_heads,
-                                use_flash)
-    return PrefixCache(enc_kvs=enc_kvs, dec_kvs=dec_kvs)
+        z0 = torch.matmul(h0, fp.e2d_kernel).to(dtype)
+        pos_dec = sinusoid_encoding_table(
+            model.num_patches, model.decoder_embed_dim, device=dev).to(dtype)
+        z0 = z0 + pos_dec[:, :n0]
+        _, dec_kvs = _prefix_blocks(fp.dec_blocks, z0,
+                                    model.decoder_num_heads, use_flash)
+        return PrefixCache(enc_kvs=enc_kvs, dec_kvs=dec_kvs)
 
 
 def predict_frame1_from_prefix(model: PretrainVisionTransformer,
@@ -471,63 +473,74 @@ def _predict_frame1_core(model: PretrainVisionTransformer, fp: FastParams,
                          cache: PrefixCache, x1n, vis1_idx,
                          prefix_pool: int = 1, suffix_pool: int = 1,
                          gelu: str = 'erf'):
+    with profiling.span('cf.suffix'):
+        dtype = fp.patch_kernel.dtype
+        pos_dec = sinusoid_encoding_table(
+            model.num_patches, model.decoder_embed_dim,
+            device=x1n.device)[0].to(dtype)
+        with profiling.span('cf.suffix.encoder'):
+            z1 = _encode_suffix(model, fp, cache, x1n, vis1_idx, pos_dec,
+                                gelu)
+        with profiling.span('cf.suffix.decoder'):
+            dec_kvs, pw = cache.dec_kvs, 1.0
+            ph, pw_ = model.full_patch_size[-2:]
+            gh, gw = x1n.shape[-2] // ph, x1n.shape[-1] // pw_
+            if prefix_pool > 1:
+                dec_kvs = pool_dec_prefix(dec_kvs, prefix_pool, gh, gw)
+                pw = float(prefix_pool * prefix_pool)
+            y1 = _suffix_blocks(fp.dec_blocks, dec_kvs, z1,
+                                model.decoder_num_heads, use_flash,
+                                two_source, pw, suffix_pool, (gh, gw), gelu)
+            y1 = _ln(y1, fp.dec_norm)
+            return (torch.matmul(y1, fp.head_kernel).to(dtype)
+                    + fp.head_bias)
+
+
+def _encode_suffix(model: PretrainVisionTransformer, fp: FastParams,
+                   cache: PrefixCache, x1n, vis1_idx, pos_dec, gelu: str):
+    """The decoder's frame-1 input rows [S, N1, Cd]: the visible frame-1
+    tokens encoded against the cached encoder prefix, at their slots among
+    mask tokens. pos_dec: the decoder's position table [N, Cd]."""
     n0 = model.num_patches_per_frame
     n1 = model.num_patches - n0
     dtype = fp.patch_kernel.dtype
-    dev = x1n.device
     s = x1n.shape[0]
     n_sfx = vis1_idx.shape[1]
-
-    pos_dec = sinusoid_encoding_table(
-        model.num_patches, model.decoder_embed_dim, device=dev)[0].to(dtype)
     cd = pos_dec.shape[-1]
     base = (fp.mask_token.to(dtype) + pos_dec[n0:]).expand(s, n1, cd)
     if n_sfx == 0:
         # frame 1 fully masked: no suffix tokens, the decoder rows are pure
         # mask tokens (exact, not an approximation)
-        z1 = base
-    else:
-        # pad slots carry the sentinel n1: gather them at slot 0, mask
-        # their keys out of attention, drop them at the scatter
-        valid = vis1_idx < n1
-        idx_safe = torch.where(valid, vis1_idx, torch.zeros_like(vis1_idx))
-        p1 = patch_ops.patchify(x1n[:, :, None], model.full_patch_size,
-                                temporal_dim=2, squeeze_channel_dim=True)
-        p1v = torch.gather(
-            p1, 1, idx_safe[..., None].expand(-1, -1, p1.shape[-1]))
-        tok = (torch.matmul(p1v.to(dtype), fp.patch_kernel).to(dtype)
-               + fp.patch_bias)
-        pos_enc = sinusoid_encoding_table(
-            model.num_patches, model.encoder_embed_dim,
-            device=dev)[0].to(dtype)
-        tok = tok + pos_enc[n0 + idx_safe]
+        return base
+    # pad slots carry the sentinel n1: gather them at slot 0, mask their
+    # keys out of attention, drop them at the scatter
+    valid = vis1_idx < n1
+    idx_safe = torch.where(valid, vis1_idx, torch.zeros_like(vis1_idx))
+    p1 = patch_ops.patchify(x1n[:, :, None], model.full_patch_size,
+                            temporal_dim=2, squeeze_channel_dim=True)
+    p1v = torch.gather(
+        p1, 1, idx_safe[..., None].expand(-1, -1, p1.shape[-1]))
+    tok = (torch.matmul(p1v.to(dtype), fp.patch_kernel).to(dtype)
+           + fp.patch_bias)
+    pos_enc = sinusoid_encoding_table(
+        model.num_patches, model.encoder_embed_dim,
+        device=x1n.device)[0].to(dtype)
+    tok = tok + pos_enc[n0 + idx_safe]
 
-        # encoder suffix: ~n_sfx queries per sample, dense two-source
-        hs = _suffix_blocks(fp.enc_blocks, cache.enc_kvs, tok,
-                            model.encoder_num_heads, False, True, gelu=gelu,
-                            key_valid=valid)
-        hs = _ln(hs, fp.enc_norm)
-        zs = torch.matmul(hs, fp.e2d_kernel).to(dtype)
+    # encoder suffix: ~n_sfx queries per sample, dense two-source
+    hs = _suffix_blocks(fp.enc_blocks, cache.enc_kvs, tok,
+                        model.encoder_num_heads, False, True, gelu=gelu,
+                        key_valid=valid)
+    hs = _ln(hs, fp.enc_norm)
+    zs = torch.matmul(hs, fp.e2d_kernel).to(dtype)
 
-        # decoder frame-1 rows: mask tokens everywhere, encoded tokens at the
-        # visible slots; the scatter goes into an [n1 + 1]-row buffer whose
-        # last (sentinel) row takes the pad slots and is dropped
-        vals = zs + pos_dec[n0 + idx_safe]
-        buf = torch.cat([base, base.new_zeros(s, 1, cd)], dim=1)
-        buf.scatter_(1, vis1_idx[..., None].expand(-1, -1, cd), vals)
-        z1 = buf[:, :n1]
-
-    dec_kvs, pw = cache.dec_kvs, 1.0
-    ph, pw_ = model.full_patch_size[-2:]
-    gh, gw = x1n.shape[-2] // ph, x1n.shape[-1] // pw_
-    if prefix_pool > 1:
-        dec_kvs = pool_dec_prefix(dec_kvs, prefix_pool, gh, gw)
-        pw = float(prefix_pool * prefix_pool)
-    y1 = _suffix_blocks(fp.dec_blocks, dec_kvs, z1, model.decoder_num_heads,
-                        use_flash, two_source, pw, suffix_pool, (gh, gw),
-                        gelu)
-    y1 = _ln(y1, fp.dec_norm)
-    return torch.matmul(y1, fp.head_kernel).to(dtype) + fp.head_bias
+    # decoder frame-1 rows: mask tokens everywhere, encoded tokens at the
+    # visible slots; the scatter goes into an [n1 + 1]-row buffer whose
+    # last (sentinel) row takes the pad slots and is dropped
+    vals = zs + pos_dec[n0 + idx_safe]
+    buf = torch.cat([base, base.new_zeros(s, 1, cd)], dim=1)
+    buf.scatter_(1, vis1_idx[..., None].expand(-1, -1, cd), vals)
+    return buf[:, :n1]
 
 
 def stack_prefix_caches(caches) -> PrefixCache:
@@ -574,6 +587,7 @@ class HashLru:
     def _key(*arrays):
         hsh = hashlib.sha1()
         for arr in arrays:
+            profiling.count('host_sync.lru_key')
             a = torch.as_tensor(arr).detach().cpu().contiguous()
             hsh.update(repr((tuple(a.shape), str(a.dtype))).encode())
             hsh.update(a.reshape(-1).view(torch.uint8).numpy().tobytes())
@@ -584,18 +598,19 @@ class HashLru:
 
     def get(self, *arrays):
         """-> (entry, hit: bool)."""
-        key = self._key(*self._key_arrays(*arrays))
-        with self._lock:
-            if key in self._entries:
-                self._entries.move_to_end(key)
-                self.hits += 1
-                return self._entries[key], True
-            entry = self._build(*arrays)
-            self._entries[key] = entry
-            if len(self._entries) > self.size:
-                self._entries.popitem(last=False)
-            self.misses += 1
-        return entry, False
+        with profiling.span('cf.prefix_lookup'):
+            key = self._key(*self._key_arrays(*arrays))
+            with self._lock:
+                if key in self._entries:
+                    self._entries.move_to_end(key)
+                    self.hits += 1
+                    return self._entries[key], True
+                entry = self._build(*arrays)
+                self._entries[key] = entry
+                if len(self._entries) > self.size:
+                    self._entries.popitem(last=False)
+                self.misses += 1
+            return entry, False
 
 
 class PrefixLru(HashLru):
@@ -662,19 +677,20 @@ def _predict_videos_core(model: PretrainVisionTransformer, fp: FastParams,
     s, t, c, h, w = x_mocos.shape
     n0 = model.num_patches_per_frame
 
-    xm = imagenet_normalize(x_mocos, temporal_dim=1) if normalize else x_mocos
+    with profiling.span('cf.assemble'):
+        xm = (imagenet_normalize(x_mocos, temporal_dim=1) if normalize
+              else x_mocos)
+        mask1 = mask_mocos[:, n0:]
+        vis1_idx = pad_vis1_idx(mask1, n_sfx_pad)
     if cache is None:
         cache = encode_prefix(model, fp, use_flash, xm[0:1, 0])
-
-    mask1 = mask_mocos[:, n0:]
-    vis1_idx = pad_vis1_idx(mask1, n_sfx_pad)
     y1 = _predict_frame1_core(model, fp, use_flash, two_source, cache,
                               xm[:, 1], vis1_idx, prefix_pool, suffix_pool,
                               gelu)
-
-    raw1 = patch_ops.patchify(x_mocos[:, 1:2], model.full_patch_size,
-                              temporal_dim=1)
-    full1 = torch.where(mask1[..., None], y1.to(raw1.dtype), raw1)
-    frame1 = patch_ops.unpatchify(full1, model.full_patch_size,
-                                  (s, 1, c, h, w), temporal_dim=1)
-    return torch.cat([x_mocos[:, 0:1], frame1], dim=1)
+    with profiling.span('cf.assemble'):
+        raw1 = patch_ops.patchify(x_mocos[:, 1:2], model.full_patch_size,
+                                  temporal_dim=1)
+        full1 = torch.where(mask1[..., None], y1.to(raw1.dtype), raw1)
+        frame1 = patch_ops.unpatchify(full1, model.full_patch_size,
+                                      (s, 1, c, h, w), temporal_dim=1)
+        return torch.cat([x_mocos[:, 0:1], frame1], dim=1)

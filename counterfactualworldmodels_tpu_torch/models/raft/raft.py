@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..._device import resolve_device
+from ...utils import profiling
 from .corr import IMPLS, all_pairs_correlation, build_pyramid, lookup_pyramid
 from .layers import (BasicEncoder, BasicUpdateBlock, Conv2d, FrozenBatchNorm,
                      SmallEncoder, SmallUpdateBlock)
@@ -138,48 +139,50 @@ class RAFT(nn.Module):
         x1 = 2 * (image1 / 255.0) - 1.0
         x2 = 2 * (image2 / 255.0) - 1.0
 
-        if x1.shape[0] == x2.shape[0]:
-            fmap1, fmap2 = self.fnet(torch.cat([x1, x2])).float().chunk(2)
-        else:
-            # shared frame 0: every norm in the encoders is frozen or
-            # per-sample, so encoding it once equals encoding it S times
-            if x1.shape[0] != 1:
-                raise ValueError(f'image1 batch {x1.shape[0]} must be 1 or '
-                                 f'match image2 batch {x2.shape[0]}')
-            fmap2 = self.fnet(x2).float()
-            fmap1 = self.fnet(x1).float().expand_as(fmap2)
-        corr = all_pairs_correlation(fmap1.permute(0, 2, 3, 1),
-                                     fmap2.permute(0, 2, 3, 1))
-        pyramid = build_pyramid(corr, self.corr_levels)
+        with profiling.span('raft.encoders'):
+            if x1.shape[0] == x2.shape[0]:
+                fmap1, fmap2 = self.fnet(torch.cat([x1, x2])).float().chunk(2)
+            else:
+                # shared frame 0: every norm in the encoders is frozen or
+                # per-sample, so encoding it once equals encoding it S times
+                if x1.shape[0] != 1:
+                    raise ValueError(f'image1 batch {x1.shape[0]} must be 1 '
+                                     f'or match image2 batch {x2.shape[0]}')
+                fmap2 = self.fnet(x2).float()
+                fmap1 = self.fnet(x1).float().expand_as(fmap2)
+            c = self.cnet(x1)
+            net = torch.tanh(c[:, :hdim])
+            inp = torch.relu(c[:, hdim:])
+            if net.shape[0] != x2.shape[0]:
+                net = net.expand(x2.shape[0], *net.shape[1:])
+                inp = inp.expand(x2.shape[0], *inp.shape[1:])
+        with profiling.span('raft.corr_pyramid'):
+            corr = all_pairs_correlation(fmap1.permute(0, 2, 3, 1),
+                                         fmap2.permute(0, 2, 3, 1))
+            pyramid = build_pyramid(corr, self.corr_levels)
 
-        c = self.cnet(x1)
-        net = torch.tanh(c[:, :hdim])
-        inp = torch.relu(c[:, hdim:])
-        if net.shape[0] != x2.shape[0]:
-            net = net.expand(x2.shape[0], *net.shape[1:])
-            inp = inp.expand(x2.shape[0], *inp.shape[1:])
-
-        b, _, h8, w8 = net.shape
-        coords0 = coords_grid(b, h8, w8, device=net.device)
-        coords1 = coords0.clone()
-        up_mask = None
-        if not self.small:
-            up_mask = torch.zeros(b, h8, w8, 9 * 64, dtype=self.dtype,
-                                  device=net.device)
-        seq = []
-        for _ in range(iters):
-            # positional arguments: spies that wrap lookup_pyramid take *a
-            corr_feat = lookup_pyramid(pyramid, coords1, self.radius,
-                                       self.dtype, self.corr_lookup)
-            flow = coords1 - coords0
-            net, mask, delta = self.update_block(
-                net, inp, corr_feat.permute(0, 3, 1, 2),
-                flow.permute(0, 3, 1, 2))
-            coords1 = coords1 + delta.permute(0, 2, 3, 1)
-            if mask is not None:
-                up_mask = mask.permute(0, 2, 3, 1)
-            if with_sequence:
-                seq.append(self._upsample(coords1 - coords0, up_mask))
+        with profiling.span('raft.iterations'):
+            b, _, h8, w8 = net.shape
+            coords0 = coords_grid(b, h8, w8, device=net.device)
+            coords1 = coords0.clone()
+            up_mask = None
+            if not self.small:
+                up_mask = torch.zeros(b, h8, w8, 9 * 64, dtype=self.dtype,
+                                      device=net.device)
+            seq = []
+            for _ in range(iters):
+                # positional arguments: spies that wrap lookup_pyramid take *a
+                corr_feat = lookup_pyramid(pyramid, coords1, self.radius,
+                                           self.dtype, self.corr_lookup)
+                flow = coords1 - coords0
+                net, mask, delta = self.update_block(
+                    net, inp, corr_feat.permute(0, 3, 1, 2),
+                    flow.permute(0, 3, 1, 2))
+                coords1 = coords1 + delta.permute(0, 2, 3, 1)
+                if mask is not None:
+                    up_mask = mask.permute(0, 2, 3, 1)
+                if with_sequence:
+                    seq.append(self._upsample(coords1 - coords0, up_mask))
 
         flow_lr = coords1 - coords0
         out = flow_lr
@@ -229,9 +232,10 @@ def apply_raft_shared0(model: RAFT, video, iters: Optional[int] = None,
     frame 0 is the same scene in every sample. The feature and context
     encoders run once on frame 0 instead of S times. Returns flows
     [S, 1, 2 (or the model's output_dim), H, W]."""
-    x = video * 255.0 if scale_inputs else video
-    flow = model(x[0:1, 0], x[:, 1], iters)[1]
-    return flow[:, None]
+    with profiling.span('cf.raft'):
+        x = video * 255.0 if scale_inputs else video
+        flow = model(x[0:1, 0], x[:, 1], iters)[1]
+        return flow[:, None]
 
 
 class RaftKeypointPredictor:

@@ -16,6 +16,11 @@ def _mean_std(x: torch.Tensor, temporal_dim: int):
     if x.dim() == 4:  # [B,C,H,W]
         channel_dim = 1
     shape[channel_dim] = 3
+    # imported here: the utils package imports the models, which import
+    # this module
+    from ..utils import profiling
+    # each table's copy to the device waits for the device's queue
+    profiling.count('host_sync.normalize', 2)
     mean = torch.tensor(IMAGENET_DEFAULT_MEAN, dtype=x.dtype,
                         device=x.device).reshape(shape)
     std = torch.tensor(IMAGENET_DEFAULT_STD, dtype=x.dtype,

@@ -22,6 +22,7 @@ import torch
 
 from ..masking.mask_ops import upsample_masks
 from ..ops.patches import canonical_patch_size
+from ..utils import profiling
 
 
 def translate2d(img: torch.Tensor, shift: torch.Tensor, fill) -> torch.Tensor:
@@ -67,6 +68,7 @@ def shift_frame_and_mask(x: torch.Tensor, mask_frame: torch.Tensor,
                                         shift_patches[None], patch_size, frame)
         return x_out[0], m[0]
     _, ph, pw = canonical_patch_size(patch_size)
+    profiling.count('host_sync.shift_scale')
     scale = torch.tensor([ph, pw], device=shift_patches.device)
     x_f = x[:, frame]
     x_shifted = translate2d(x_f, shift_patches * scale, fill=0.0)

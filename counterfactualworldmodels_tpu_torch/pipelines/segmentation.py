@@ -26,6 +26,7 @@ from ..models import fast_vmae
 from ..models.fast_vmae import _predict_videos_core
 from ..models.raft.raft import RAFT, apply_raft_shared0, apply_raft_video
 from ..ops.sampling import boltzmann
+from ..utils import profiling
 from . import perturbation as perturb
 from .filters import FlowSampleFilter
 from .prediction import (PredictorBasedGenerator, load_raft_checkpoint,
@@ -386,6 +387,7 @@ class FlowGenerator(PredictorBasedGenerator):
         # single [dy, dx] pair)
         is_array = hasattr(shifts, 'shape')
         if isinstance(shifts, torch.Tensor):
+            profiling.count('host_sync.shifts_arg')
             shifts = shifts.cpu().numpy()
         shifts = np.asarray(shifts)
         if is_array and shifts.ndim == 2:
@@ -400,6 +402,7 @@ class FlowGenerator(PredictorBasedGenerator):
         if shifts.shape != (num_samples, 2):
             raise ValueError(f'shifts of shape {shifts.shape} for '
                              f'{num_samples} samples')
+        profiling.count('host_sync.shifts_upload')
         return self._tensor(shifts.astype(np.int64))
 
     def _n_vis_target(self, passive, active):
@@ -410,6 +413,7 @@ class FlowGenerator(PredictorBasedGenerator):
         vis_f0 = (~passive[:, :npf] | ~active[:, :npf]).sum(1)
         vis_f1 = ((~passive[:, npf:] & active[:, npf:])
                   | ~active[:, npf:]).sum(1)
+        profiling.count('host_sync.n_vis')
         return int((vis_f0 + vis_f1).max())
 
     def create_motion_counterfactuals(self, x, masks, active_patches=None,
@@ -513,9 +517,11 @@ class FlowGenerator(PredictorBasedGenerator):
         fix_passive, time at dim 2, and no frame-0 token masked in both
         prompt sets (the combined mask is passive & active)."""
         n0 = self.predictor.num_patches_per_frame
-        return (self.engine == 'fast' and self.temporal_dim == 2
-                and x.shape[0] == 1 and fix_passive
-                and not bool((passive[:, :n0] & active[:, :n0]).any()))
+        if not (self.engine == 'fast' and self.temporal_dim == 2
+                and x.shape[0] == 1 and fix_passive):
+            return False
+        profiling.count('host_sync.fast_ok')
+        return not bool((passive[:, :n0] & active[:, :n0]).any())
 
     def _counterfactual_chunk(self, x, passive, active, shifts, noise,
                               n_vis, iters, fix_passive):
@@ -548,6 +554,21 @@ class FlowGenerator(PredictorBasedGenerator):
             backward=False, **kwargs):
         """The central API. Returns (videos [B*S, 2, C, H, W], flows
         [B*S, 1, 2, H, W])."""
+        with profiling.span('cf.dispatch', request=True):
+            with profiling.span('cf.prompts'):
+                x, active_patches, passive_patches, shifts, fix_passive, \
+                    n_vis = self._prepare_prompts(
+                        x, active_patches, passive_patches, shifts,
+                        num_samples, fix_passive, max_shift_fraction)
+            return self._dispatch_chunks(
+                x, active_patches, passive_patches, shifts, n_vis,
+                sample_batch_size, fix_passive, raft_iters, backward)
+
+    def _prepare_prompts(self, x, active_patches, passive_patches, shifts,
+                         num_samples, fix_passive, max_shift_fraction):
+        """The dispatch's inputs on the device: (x [B, 2, C, H, W], active
+        and passive [B, N, S], shifts [S, 2], fix_passive, the visible-count
+        target)."""
         x = self._tensor(x)
         if x.dim() == 3:
             x = x[None, None].expand(1, 2, *x.shape)
@@ -579,6 +600,7 @@ class FlowGenerator(PredictorBasedGenerator):
             s = (len(shifts) if not hasattr(shifts, 'shape')
                  else int(np.prod(tuple(shifts.shape))) // 2)
         shifts = self._prep_shifts(shifts, s)
+        profiling.count('host_sync.shifts')
         self.shifts.extend(list(shifts.cpu().numpy()))
 
         if active_patches.shape[-1] == 1 and s > 1:
@@ -590,11 +612,19 @@ class FlowGenerator(PredictorBasedGenerator):
                 f'{active_patches.shape[-1]} active and '
                 f'{passive_patches.shape[-1]} passive samples for {s} shifts')
 
-        b, n = x.shape[0], active_patches.shape[1]
-        npf = n // self.sequence_length
+        n = active_patches.shape[1]
         n_vis = self._n_vis_target(
             passive_patches.transpose(1, 2).reshape(-1, n),
             active_patches.transpose(1, 2).reshape(-1, n))
+        return x, active_patches, passive_patches, shifts, fix_passive, n_vis
+
+    def _dispatch_chunks(self, x, active_patches, passive_patches, shifts,
+                         n_vis, sample_batch_size, fix_passive, raft_iters,
+                         backward):
+        """The prepared prompts through the engine, ``sample_batch_size``
+        samples a chunk."""
+        b, n, s = x.shape[0], active_patches.shape[1], shifts.shape[0]
+        npf = n // self.sequence_length
         iters = raft_iters if raft_iters is not None else self.raft_iters
 
         # microbatch over samples
@@ -605,17 +635,19 @@ class FlowGenerator(PredictorBasedGenerator):
         ys, flows = [], []
         for i in range(int(np.ceil(s / chunk))):
             s0, s1 = i * chunk, min((i + 1) * chunk, s)
-            noise = self._draw_prompt_noise(b * (s1 - s0), npf).reshape(
-                b, s1 - s0, npf)
-            sh = shifts[None, s0:s1].expand(b, s1 - s0, 2)
+            with profiling.span('cf.prompts'):
+                noise = self._draw_prompt_noise(b * (s1 - s0), npf).reshape(
+                    b, s1 - s0, npf)
+                sh = shifts[None, s0:s1].expand(b, s1 - s0, 2)
             y, fl, _ = self._counterfactual_chunk(
                 x, passive_patches[..., s0:s1], active_patches[..., s0:s1],
                 sh, noise, n_vis, chunk_iters, fix_passive)
             ys.append(y.reshape(b, s1 - s0, *y.shape[1:]))
             flows.append(fl.reshape(b, s1 - s0, *fl.shape[1:]))
-        y = torch.cat(ys, 1).reshape(b * s, 2, *x.shape[2:])
-        fl = torch.cat(flows, 1)
-        fl = fl.reshape(b * s, *fl.shape[2:])
+        with profiling.span('cf.assemble'):
+            y = torch.cat(ys, 1).reshape(b * s, 2, *x.shape[2:])
+            fl = torch.cat(flows, 1)
+            fl = fl.reshape(b * s, *fl.shape[2:])
         if backward:
             fl = self.predict_flow(y, backward=True, iters=iters)
         return y, fl
@@ -722,12 +754,12 @@ def counterfactual_videos_and_flows_fast(
     s = passive.shape[-1]
     n0 = vmae_model.num_patches_per_frame
     n1 = vmae_model.num_patches - n0
-    noise = _rect_noise(noise, s, n1, x.device)
-
-    x_mocos, mask_mocos = perturb.make_motion_counterfactual(
-        x[0], passive[0].T, active[0].T, shifts[0], noise,
-        vmae_model.full_patch_size, n_vis_target=n_vis,
-        fix_passive=fix_passive)
+    with profiling.span('cf.prompts'):
+        noise = _rect_noise(noise, s, n1, x.device)
+        x_mocos, mask_mocos = perturb.make_motion_counterfactual(
+            x[0], passive[0].T, active[0].T, shifts[0], noise,
+            vmae_model.full_patch_size, n_vis_target=n_vis,
+            fix_passive=fix_passive)
 
     y = _predict_videos_core(vmae_model, fast_params, use_flash, two_source,
                              n_sfx_pad, normalize, x_mocos, mask_mocos,

@@ -92,7 +92,8 @@ MODULES = [
     ('utils.weights', 'Reference-layout state dicts: seeded weights and the '
                       'bridge from JAX params.'),
     ('utils.checkpoint', 'Checkpointing with rolling resume.'),
-    ('utils.profiling', 'Trace capture and timers.'),
+    ('utils.profiling', 'Trace capture, the span registry and the '
+                        'metrics log.'),
     ('utils.batching', 'Leader-follower micro-batching (serving).'),
     ('utils.backend_guard', 'Device liveness probe.'),
     ('utils.cache', 'Kernel build cache.'),

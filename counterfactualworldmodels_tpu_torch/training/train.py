@@ -50,6 +50,7 @@ from ..parallel.mesh import (CONJOINED_PARTITION_RULES, VMAE_PARTITION_RULES,
                              BatchSharding, replicate, replicate_tensors_,
                              shard_params)
 from ..parallel.tensor import shard_optimizer_state_, tp_global_norm
+from ..utils import profiling
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -279,9 +280,12 @@ def accumulated_grads(loss_fn: Callable, model: nn.Module, accum_steps: int,
     _zero_grads(params)
     loss_sum, aux_sum = 0.0, 0.0
     for i in range(accum_steps):
-        out = loss_fn(model, *(a[i * mb:(i + 1) * mb] for a in batch_args))
+        with profiling.span('train.forward'):
+            out = loss_fn(model, *(a[i * mb:(i + 1) * mb]
+                                   for a in batch_args))
         loss, aux = out if has_aux else (out, None)
-        loss.backward()
+        with profiling.span('train.backward'):
+            loss.backward()
         loss_sum = loss_sum + loss.detach()
         if has_aux:
             aux_sum = aux_sum + aux.detach()
@@ -311,25 +315,29 @@ def _update(state: TrainState, optimizer: Optimizer, loss_fn: Callable,
     update and the step count. With ``aux_name`` loss_fn returns (loss,
     aux) and the metrics carry aux under that name. Returns (state,
     {'loss', 'grad_norm'[, aux_name]})."""
-    params = list(state.model.parameters())
-    has_aux = aux_name is not None
-    if accum_steps > 1:
-        out = accumulated_grads(loss_fn, state.model, accum_steps, *batch,
-                                has_aux=has_aux)
-        loss, aux = out[:2] if has_aux else (out, None)
-    else:
-        _zero_grads(params)
-        out = loss_fn(state.model, *batch)
-        loss, aux = out if has_aux else (out, None)
-        loss.backward()
-        loss = loss.detach()
-        _fill_grads(params)
-    gnorm = optimizer.update(state.opt_state, params, state.step)
-    state.step += 1
-    metrics = {'loss': loss, 'grad_norm': gnorm}
-    if has_aux:
-        metrics[aux_name] = aux.detach()
-    return state, metrics
+    with profiling.span('train.step', request=True):
+        params = list(state.model.parameters())
+        has_aux = aux_name is not None
+        if accum_steps > 1:
+            out = accumulated_grads(loss_fn, state.model, accum_steps, *batch,
+                                    has_aux=has_aux)
+            loss, aux = out[:2] if has_aux else (out, None)
+        else:
+            _zero_grads(params)
+            with profiling.span('train.forward'):
+                out = loss_fn(state.model, *batch)
+            loss, aux = out if has_aux else (out, None)
+            with profiling.span('train.backward'):
+                loss.backward()
+            loss = loss.detach()
+            _fill_grads(params)
+        with profiling.span('train.update'):
+            gnorm = optimizer.update(state.opt_state, params, state.step)
+        state.step += 1
+        metrics = {'loss': loss, 'grad_norm': gnorm}
+        if has_aux:
+            metrics[aux_name] = aux.detach()
+        return state, metrics
 
 
 def make_train_step(model: PretrainVisionTransformer, optimizer: Optimizer,

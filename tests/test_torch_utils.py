@@ -152,21 +152,19 @@ def test_pad_to_bucket_matches_jax():
     assert tbatching.pad_to_bucket(9, (1, 2, 4, 8)) == 8
 
 
-def test_stage_timer_and_metrics_logger(tmp_path):
-    t = profiling.StageTimer()
+def test_span_registry_and_metrics_logger(tmp_path):
     x = torch.ones(4)
-    with t.stage('a', sync_on=x):
-        (x * 2).sum()
-    with t.stage('a'):
-        pass
-    with t.stage('b', sync_on={'y': [x]}):
-        time.sleep(0.01)
-    s = t.summary()
+    with profiling.collect() as col:
+        with profiling.span('a'):
+            (x * 2).sum()
+        with profiling.span('a'):
+            pass
+        with profiling.span('b'):
+            time.sleep(0.01)
+    s = col.totals()
     assert s['a']['count'] == 2 and s['b']['count'] == 1
-    assert s['b']['total_s'] >= 0.01
-    report = t.report().splitlines()
-    assert report[0].split() == ['stage', 'count', 'total(s)', 'mean(s)']
-    assert report[1].split()[0] == 'b'          # sorted by total time
+    assert s['b']['host_s'] >= 0.01 and s['b']['device_s'] >= 0.01
+    assert [r.name for r in col.records] == ['a', 'a', 'b']
     path = tmp_path / 'm.jsonl'
     log = profiling.MetricsLogger(str(path))
     log.log(1, loss=torch.tensor(0.5), note='warm')
