@@ -45,7 +45,9 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    heads and K1 at an sp = 2 rank's queries (phase 9's shapes); phase
    10's: K5 and K6 in f32 at the Soft ChannelMAE's structure-extraction
    shapes, K1 and K2 at the fidelity report's S = 8 legs (f32 and bf16)
-   and at the demo's ViT-B 8x8;
+   and at the demo's ViT-B 8x8; the residual add + LayerNorm pass at the
+   benchmark dispatch's suffix rows (the sum bitwise, the rows within one
+   bf16 ulp), against ``x + r`` then ``F.layer_norm``;
 4. both paths at the tests' small configurations on the card and on the
    CPU (f32, TF32 off): masks equal, videos and flows within tolerance;
    three train steps with equal losses and gradient norms; FlowGenerator
@@ -63,7 +65,10 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    tiny ChannelMAE's ``channel_mae_predict_image`` within 1e-4 (K1);
 5. the full-width dispatch at the library-default rung and the exact rung:
    shapes, finite flows, visible frame-1 pixels pasted unchanged, and the
-   launch counts that show every kernel of the path ran; then (5b)
+   launch counts that show every kernel of the path ran (the LayerNorm
+   pass 147 a dispatch; the later phases through the shared-prefix
+   engines count the attention kernels and the lookup only, and phase 11
+   the LayerNorm pass too); then (5b)
    ``pipelines.segmentation.FlowGenerator`` on the same weights: (a) a cold
    scene's motion map (K1 36, K2 12, lookup 24, one LRU miss), held against
    the direct dispatch on its prompts and draws, (b) the same scene again
@@ -276,6 +281,31 @@ SOURCES = {
 
 def log(phase, msg):
     print(f'[{phase}] {msg}', flush=True)
+
+
+# The residual add + LayerNorm pass runs once per norm of the shared-prefix
+# engines. Phases that run those engines compare the other kernels'
+# launches by path and leave this counter out (strip_norm); phases 5 and 11
+# hold it to the engine's count (norm_launches); every other phase expects
+# it at 0 with the rest.
+NORM = 'add_layer_norm'
+
+
+def strip_norm(launches):
+    return {k: v for k, v in launches.items() if k != NORM}
+
+
+def engine_launches(port):
+    """The launch counts, the LayerNorm pass's left out."""
+    return strip_norm(port.kernels.LAUNCHES)
+
+
+def norm_launches(enc_depth, dec_depth, prefix):
+    """The LayerNorm pass's launches in one suffix pass of the VMAE engine
+    (two a block, enc_norm, dec_norm), plus the scene's prefix where it is
+    built (two a block, enc_norm): 74 and 147 at ViT-L."""
+    suffix = 2 * enc_depth + 2 * dec_depth + 2
+    return suffix + (2 * enc_depth + 2 * dec_depth + 1 if prefix else 0)
 
 
 def time_ms(torch, fn, target_ms=150.0):
@@ -728,6 +758,68 @@ def fused_lookup_cases(torch, F, corr, rec, r):
                              f'{per_call}')
 
 
+# the residual add + LayerNorm pass at the benchmark's counterfactual cell
+# (256 prompts a dispatch): the decoder suffix's frame-1 rows and the
+# encoder suffix's visible rows (33 a prompt, bucketed to 40)
+LN_CASES = (('decoder suffix', 256 * 3136, 512),
+            ('encoder suffix', 256 * 40, 1024))
+
+
+def layer_norm_cases(torch, F, rec):
+    """add_layer_norm (bf16 rows, a residual, bf16 scale and bias) against
+    its plain version at LN_CASES: the sum bitwise, the normalised rows in
+    bf16 ulps of each row's largest magnitude; times of the kernel, the
+    plain version and the library's ``x + r`` then ``F.layer_norm``
+    (never called by the port); the bound is the bytes it must move,
+    x and r read, the sum and the rows written."""
+    from counterfactualworldmodels_tpu_torch.ops import layer_norm as ln
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(19)
+    bf16 = torch.bfloat16
+    bad = []
+    for case, rows, d in LN_CASES:
+        x, r = (torch.randn(rows, d, device=dev, generator=g).to(bf16)
+                for _ in range(2))
+        scale = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(bf16)
+        bias = (0.1 * torch.randn(d, device=dev, generator=g)).to(bf16)
+        before = ln.kernels.LAUNCHES[NORM]
+        h, y = ln.add_layer_norm(x, r, scale, bias)
+        per_call = ln.kernels.LAUNCHES[NORM] - before
+        ph, py = ln._add_layer_norm_plain(x, r, scale, bias, 1e-6)
+        sum_equal = bool(torch.equal(h, ph))
+        top = py.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        ulps = float(((y.float() - py.float()).abs()
+                      / torch.exp2(torch.floor(torch.log2(top)) - 7)).max())
+        del h, y, ph, py, top
+
+        def kernel():
+            return ln.add_layer_norm(x, r, scale, bias)
+
+        def library():
+            return F.layer_norm(x + r, (d,), scale, bias, 1e-6)
+
+        bms, by = bound(8 * rows * d, 4 * rows * d * x.element_size(),
+                        'bfloat16')
+        row = dict(kernel='add_layer_norm', case=case, dtype='bfloat16',
+                   shape=[rows, d], residual=True, sum_bitwise=sum_equal,
+                   max_ulps=ulps, launches_per_call=per_call,
+                   ms=time_ms(torch, kernel),
+                   plain_ms=time_ms(torch, lambda: ln._add_layer_norm_plain(
+                       x, r, scale, bias, 1e-6)),
+                   library_ms=library_ms(torch, library), bound_ms=bms,
+                   bound_by=by)
+        add_graph_ms(torch, row, kernel, library)
+        rec['phase3'].append(with_ratios(row))
+        log('3 kernels', json.dumps(row))
+        if not (sum_equal and ulps <= 1.0 and per_call == 1):
+            bad.append(case)
+        del x, r
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f'add_layer_norm against its plain version: '
+                             f'{bad}')
+
+
 def _close(torch, a, ref):
     """f32: atol 2e-4 / rtol 1e-4; bf16: within 2e-2 of max|ref|."""
     if a.dtype == torch.float32:
@@ -918,7 +1010,7 @@ def small_slice(torch, port, rec):
                                    (x, p, a, shifts, noise)),
                 pad, True, 2, True, True, True, None, *rung, n_vis=n_vis)
             outs[dev] = (y.cpu(), f.cpu(), m.cpu(),
-                         dict(port.kernels.LAUNCHES))
+                         engine_launches(port))
         (yc, fc, mc, lc), (yg, fg, mg, lg) = outs['cpu'], outs['cuda']
         r = dict(rung=list(rung), masks_equal=bool(torch.equal(mc, mg)),
                  video_err=max_err(yc, yg), flow_err=max_err(fc, fg),
@@ -1023,7 +1115,9 @@ def full_width(torch, port, rec, smi):
     expect = {name: 0 for name in port.kernels.LAUNCHES}
     expect.update(flash_attention=model.encoder_depth + model.decoder_depth,
                   flash_attention_prefix=model.decoder_depth,
-                  window_lookup=24)
+                  window_lookup=24,
+                  add_layer_norm=norm_launches(model.encoder_depth,
+                                               model.decoder_depth, True))
 
     def dispatch(rung):
         return counterfactual_videos_and_flows_fast(
@@ -1141,7 +1235,7 @@ def small_generator(torch, port, rec):
             y, f = gen.predict_counterfactual_videos_and_flows(
                 x, active, num_samples=4, sample_batch_size=4)
             outs[dev] = ([v.cpu() for v in (fl, act, y, f)],
-                         dict(port.kernels.LAUNCHES))
+                         engine_launches(port))
         (c, lc), (g, lg) = outs['cpu'], outs['cuda']
         r = dict(case=f'generator {engine}', masks_equal=bool(
             torch.equal(c[1], g[1])), video_err=max_err(c[2], g[2]),
@@ -1250,7 +1344,7 @@ def small_movability(torch, port, rec):
         outs[dev] = (out.cpu(), [m.cpu() for m in gen.movability_maps],
                      [a.cpu() for a in gen.active_patches_per_iter],
                      [p.cpu() for p in gen.passive_patches_per_iter],
-                     dict(port.kernels.LAUNCHES))
+                     engine_launches(port))
     (c, cm, ca, cp, lc), (g, gm, ga, gp, lg) = outs['cpu'], outs['cuda']
     depth = model.encoder_depth + model.decoder_depth
     # two motion maps of 2 chunks each, every chunk a RAFT-2; the keypoint
@@ -1377,7 +1471,7 @@ def small_imu(torch, port, rec):
             port.kernels.reset_launches()
             y, f = gen.predict_counterfactual_videos_and_flows(
                 x, active, num_samples=4, sample_batch_size=2)
-            out[engine] = ([y.cpu(), f.cpu()], dict(port.kernels.LAUNCHES))
+            out[engine] = ([y.cpu(), f.cpu()], engine_launches(port))
         gen = fixed_draws(torch, ImuConditionedMovabilityPredictor(
             engine='fast', **common, **mov_kw), 10)
         port.kernels.reset_launches()
@@ -1386,7 +1480,7 @@ def small_imu(torch, port, rec):
             [m.cpu(), *[v.cpu() for v in gen.movability_maps],
              *[v.cpu() for v in gen.active_patches_per_iter],
              *[v.cpu() for v in gen.passive_patches_per_iter]],
-            dict(port.kernels.LAUNCHES))
+            engine_launches(port))
         runs[dev] = out
     want = {
         'fast': imu_launches(imu, f2i, 2, 1, 2, 1),
@@ -1425,7 +1519,7 @@ def timed_runs(torch, port, fn, check, reps=4):
         out = fn(i)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        check(i, dict(port.kernels.LAUNCHES), out)
+        check(i, engine_launches(port), out)
         if i:
             times.append(ms)
     return float(np.median(times)), times
@@ -1448,7 +1542,7 @@ def generator_phase(torch, port, rec, smi, ctx):
     n1 = n - n0
     raft, sd = ctx['raft'], ctx['sd']
     depth = cfg.encoder_depth + cfg.decoder_depth
-    zeros = {name: 0 for name in port.kernels.LAUNCHES}
+    zeros = {name: 0 for name in engine_launches(port)}
     t0 = time.perf_counter()
     gen = segmentation.FlowGenerator(
         predictor=cfg, params=sd, flow_model=raft, raft_iters=24,
@@ -1729,7 +1823,7 @@ def movability_phase(torch, port, rec, smi, ctx):
     # prefix (K1 in every block) on the first chunk only, an LRU miss
     chunks = (1 + gen.num_iters) * (gen.num_initial_samples
                                     // gen.sample_batch_size)
-    want = dict({k: 0 for k in port.kernels.LAUNCHES},
+    want = dict({k: 0 for k in engine_launches(port)},
                 flash_attention=cfg.encoder_depth + cfg.decoder_depth,
                 flash_attention_prefix=chunks * cfg.decoder_depth,
                 window_lookup=24 * (chunks + 1))
@@ -1828,7 +1922,7 @@ def movability_phase(torch, port, rec, smi, ctx):
     torch.cuda.synchronize()
     unfiltered = dict(
         ms=(time.perf_counter() - t1) * 1e3,
-        launches=dict(port.kernels.LAUNCHES), map_max=float(m_u.max()),
+        launches=engine_launches(port), map_max=float(m_u.max()),
         map_min=float(m_u.min()), finite=bool(torch.isfinite(m_u).all()),
         flow_abs_max=max(float(f.abs().max())
                          for f in gen.flow_samples_per_iter))
@@ -1899,7 +1993,7 @@ def imu_phase(torch, port, rec, smi, ctx):
     ctx['imu'] = dict(common, models=(imu, f2i))
     torch.cuda.synchronize()
     log('5d imu', f'weights ready in {time.perf_counter() - t0:.1f}s')
-    zero = {k: 0 for k in port.kernels.LAUNCHES}
+    zero = {k: 0 for k in engine_launches(port)}
     want = dict(
         a=dict(zero, **imu_launches(imu, f2i, 24, 1, 1, 1)),
         b=dict(zero, **imu_launches(imu, f2i, 24, 1, 1, 0)),
@@ -2059,7 +2153,7 @@ def imu_phase(torch, port, rec, smi, ctx):
     torch.cuda.synchronize()
     unfiltered = dict(
         ms=(time.perf_counter() - t1) * 1e3,
-        launches=dict(port.kernels.LAUNCHES), map_max=float(m_u.max()),
+        launches=engine_launches(port), map_max=float(m_u.max()),
         map_min=float(m_u.min()), finite=bool(torch.isfinite(m_u).all()),
         flow_abs_max=max(float(f.abs().max())
                          for f in mov.flow_samples_per_iter))
@@ -2177,7 +2271,7 @@ def serving_phase(torch, port, rec, smi, ctx):
     raft, sd = ctx['raft'], ctx['sd']
     depth = cfg.encoder_depth + cfg.decoder_depth
     dec = cfg.decoder_depth
-    zero = {k: 0 for k in port.kernels.LAUNCHES}
+    zero = {k: 0 for k in engine_launches(port)}
     failures = []
     out = {'config': 'large_4x4patch_2frames_1tube bf16 + RAFT-24 bf16; '
                      'IMU: imu400_base_4x4patch_2frames_1tube + '
@@ -2235,7 +2329,7 @@ def serving_phase(torch, port, rec, smi, ctx):
         port.kernels.reset_launches()
         res = fn()
         torch.cuda.synchronize()
-        return res, dict(port.kernels.LAUNCHES)
+        return res, engine_launches(port)
 
     def concurrent(base, service, bodies):
         """POST the bodies from threads, each sent once the previous one
@@ -3394,8 +3488,8 @@ def world_one(torch, port, rec, smi, ctx):
             24, True, True, None, *rung)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3
-        launches = dict(port.kernels.LAUNCHES)
-        want = dict({k: 0 for k in port.kernels.LAUNCHES},
+        launches = engine_launches(port)
+        want = dict({k: 0 for k in engine_launches(port)},
                     flash_attention=model.encoder_depth + model.decoder_depth,
                     flash_attention_prefix=model.decoder_depth,
                     window_lookup=24)
@@ -4171,7 +4265,7 @@ def _launch_delta(port, fn):
     """(fn(), the kernel launches it made)."""
     port.kernels.reset_launches()
     result = fn()
-    return result, dict(port.kernels.LAUNCHES)
+    return result, engine_launches(port)
 
 
 def structure_phase(torch, port, rec, smi):
@@ -4201,7 +4295,7 @@ def structure_phase(torch, port, rec, smi):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     depth = len(model.encoder.blocks) + len(model.decoder.blocks)
-    want = {k: 0 for k in port.kernels.LAUNCHES}
+    want = {k: 0 for k in engine_launches(port)}
     want.update(flash_attention_lse=depth * steps,
                 flash_attention_bwd=depth * steps)
     a = dict(config='SoftInputChannelMae paper (768d x 12 / 384d x 4), '
@@ -4359,7 +4453,7 @@ def fidelity_phase(torch, port, rec, smi):
          '--raft-iters', '24', '--conjoined', 'flagship', '--out',
          out_json]))
     sec = time.perf_counter() - t0
-    zero = {k: 0 for k in port.kernels.LAUNCHES}
+    zero = {k: 0 for k in engine_launches(port)}
     exact = dict(zero, flash_attention=36, window_lookup=24)
     fast = dict(zero, flash_attention=36, flash_attention_prefix=12,
                 window_lookup=24)
@@ -4370,7 +4464,7 @@ def fidelity_phase(torch, port, rec, smi):
             'conjoined fast': dict(zero, **imu_launches(imu, imu, 24, 0, 1,
                                                         1))}
     bad = [g['name'] for g in report['legs']
-           if g['launches'] != want.get(g['name'], fast)]
+           if strip_norm(g['launches']) != want.get(g['name'], fast)]
     summed = {k: sum(g['launches'][k] for g in report['legs'])
               for k in zero}
     rungs = [k for k in report['per_image'][0]
@@ -4431,7 +4525,7 @@ def demo_phase(torch, port, rec, smi):
     from counterfactualworldmodels_tpu_torch.scripts import (
         demo_counterfactuals as dm)
     dev = torch.device('cuda')
-    zero = {k: 0 for k in port.kernels.LAUNCHES}
+    zero = {k: 0 for k in engine_launches(port)}
     out = dict(card=smi)
     tmp = tempfile.mkdtemp(prefix='cwm_demo_')
     try:
@@ -4456,7 +4550,8 @@ def demo_phase(torch, port, rec, smi):
                         zero, flash_attention_prefix=m.decoder_depth,
                         window_lookup=12)}
             bad = [s['name'] for s in steps
-                   if s['name'] in want and s['launches'] != want[s['name']]]
+                   if s['name'] in want
+                   and strip_norm(s['launches']) != want[s['name']]]
             for s in steps:
                 if s['name'] == 'movability':
                     lm = s['launches']
@@ -4601,7 +4696,7 @@ def measurement_phase(torch, port, rec, smi):
     # the dispatch: the library-default rung at ViT-L
     b, _ = run('bench', bench.main, [], {'CWM_BENCH_SBIG': '64'})
     want = dict(zero, flash_attention=36, flash_attention_prefix=12,
-                window_lookup=24)
+                window_lookup=24, add_layer_norm=norm_launches(24, 12, True))
     check('bench', b['value'] > 0 and b['launches_per_dispatch'] == want
           and b['config']['engine']
           == 'shared-prefix/default:pooled4+suffix4+tanh'
@@ -4622,17 +4717,20 @@ def measurement_phase(torch, port, rec, smi):
     check('latency_bench', lat['p50_ms'] > 0
           and lat['launches_per_call'] == dict(zero, flash_attention=36)
           and lat['warm_prefix']['launches_per_call']
-          == dict(zero, flash_attention_prefix=12)
+          == dict(zero, flash_attention_prefix=12,
+                  add_layer_norm=norm_launches(24, 12, False))
           and lat['warm_prefix_imu']['launches_per_call'][
               'flash_attention_prefix'] == 4, json.dumps(lat))
     out['latency_bench'] = lat
 
     sl, _ = run('serve_latency', serve_latency.main, ['--max-prompt', '16'])
     s = sl['serve_first_request_by_prompt_size']
-    warm = dict(zero, flash_attention_prefix=12, window_lookup=24)
+    warm = dict(zero, flash_attention_prefix=12, window_lookup=24,
+                add_layer_norm=norm_launches(24, 12, False))
     check('serve_latency', s['worst_first_request_sec'] > 0
           and s['launches_by_prompt_size'][1]
-          == dict(warm, flash_attention=36)
+          == dict(warm, flash_attention=36,
+                  add_layer_norm=norm_launches(24, 12, True))
           and all(s['launches_by_prompt_size'][k] == warm
                   for k in range(2, 17)), json.dumps(s))
     out['serve_latency'] = s
@@ -4879,6 +4977,7 @@ def main():
         phase('3 kernels', attention_cases, torch, F, fa, rec)
         phase('3 kernels', lookup_cases, torch, F, corr, rec)
         phase('3 kernels', training_kernel_cases, torch, F, fa, rec)
+        phase('3 kernels', layer_norm_cases, torch, F, rec)
         phase('4 small slice', small_slice, torch, port, rec)
         phase('4 small train', small_train, torch, port, rec)
         phase('4 small generator', small_generator, torch, port, rec)

@@ -9,6 +9,12 @@ source, of every header in ``csrc/`` and of the flags, so an edited source
 or header is never served from a stale build.
 ``load(name)`` builds on first use and returns the ``ctypes`` library.
 
+The sources: ``attention`` (K1, K2, K5: ``ops.flash_attention``),
+``attention_bwd`` (K6), ``window_lookup`` (K3/K4: ``models.raft.corr``) and
+``layer_norm``, the one-pass residual add + LayerNorm of the shared-prefix
+engines (``ops.layer_norm.add_layer_norm``): a block hands its MLP output
+pending to the next norm, which returns the sum beside the normalised rows.
+
 ``LAUNCHES`` counts kernel launches by wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a caller can show that a run
 went through the kernels (``reset_launches()`` sets every count to 0).
@@ -24,14 +30,15 @@ import subprocess
 import threading
 from typing import Dict, Iterable
 
-SOURCES = ('attention', 'attention_bwd', 'window_lookup')
+SOURCES = ('attention', 'attention_bwd', 'window_lookup', 'layer_norm')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 LAUNCHES: Dict[str, int] = {'flash_attention': 0, 'flash_attention_prefix': 0,
                             'flash_attention_lse': 0,
-                            'flash_attention_bwd': 0, 'window_lookup': 0}
+                            'flash_attention_bwd': 0, 'window_lookup': 0,
+                            'add_layer_norm': 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')

@@ -18,10 +18,11 @@ across the cross-attention coupling:
 
 The deviation from the exact model is the frozen main prefix only, as in
 the plain engine. The main blocks are fast_vmae's ``prefix_block_one`` /
-``suffix_block_one`` (one block body for both engines): on the card K1
-runs the prefix blocks, K2 the suffix decoder blocks (the exact rung: no
-pooling), and the encoder suffix and the tiny context stream run the
-plain dense attention, as in the JAX engine.
+``suffix_block_one`` (one block body for both engines, each handing its
+MLP output pending to the next norm, a cross block's norm1_cross
+included): on the card K1 runs the prefix blocks, K2 the suffix decoder
+blocks (the exact rung: no pooling), and the encoder suffix and the tiny
+context stream run the plain dense attention, as in the JAX engine.
 
 The engine reads its weights from ``cast_params``: the reference-layout
 state dict re-laid-out (kernels [in, out], blocks as fast_vmae's dicts) and
@@ -38,7 +39,7 @@ from ..ops import patches as patch_ops
 from ..ops.normalization import imagenet_normalize
 from ..ops.pos_embed import sinusoid_encoding_table
 from .conjoined import ConjoinedVMAE
-from .fast_vmae import (HashLru, _block_params, _ln, pad_vis1_idx,
+from .fast_vmae import (HashLru, _add_ln, _block_params, _ln, pad_vis1_idx,
                         prefix_block_one, resolve_two_source, sfx_bucket,
                         suffix_block_one)
 
@@ -200,15 +201,16 @@ def _merge(y, b, n, inner):
     return y.transpose(1, 2).reshape(b, n, inner)
 
 
-def _cross_full(pc, x, src, num_heads: int):
+def _cross_full(pc, x, src, num_heads: int, r=None):
     """The bidirectional cross block (no self-attention) over prefix main
-    tokens and the scene-level context stream. Returns (x, src,
-    (k_pre, v_pre)): the prefix rows' context-direction keys/values,
-    cached so a per-sample context can attend the full key set later."""
+    tokens x + r (r: the main block's pending MLP output, or None) and the
+    scene-level context stream. Returns (x, src, (k_pre, v_pre)): the
+    prefix rows' context-direction keys/values, cached so a per-sample
+    context can attend the full key set later."""
     inner, d, scale = _cross_dims(pc, num_heads)
     b, n, _ = x.shape
     m = src.shape[1]
-    lx = _ln(x, pc['norm1_cross'])
+    x, lx = _add_ln(x, r, pc['norm1_cross'])
     ls = _ln(src, pc['norm1_src_cross'])
     qk_x = _proj_heads(lx, pc['qk'], num_heads, 2 * d)
     qk_s = _proj_heads(ls, pc['qk_src'], num_heads, 2 * d)
@@ -236,11 +238,13 @@ def _cross_full(pc, x, src, num_heads: int):
     return x, src, (qk_x[..., d:].contiguous(), v_x.contiguous())
 
 
-def _cross_suffix(pc, h, src, ckv, num_heads: int, suffix_valid=None):
-    """The cross block for the per-sample suffix: suffix main tokens read
-    the PER-SAMPLE context, and the context attends the full main key set,
-    the cached prefix (k_pre, v_pre) [1 or S, H, N0, d] from _cross_full
-    and the suffix's own keys. suffix_valid: optional bool [S, n]; False
+def _cross_suffix(pc, h, src, ckv, num_heads: int, suffix_valid=None,
+                  r=None):
+    """The cross block for the per-sample suffix: suffix main tokens h + r
+    (r pending, as in _cross_full) read the PER-SAMPLE context, and the
+    context attends the full main key set, the cached prefix (k_pre,
+    v_pre) [1 or S, H, N0, d] from _cross_full and the suffix's own keys.
+    suffix_valid: optional bool [S, n]; False
     marks bucketing pad rows of h, whose keys score -inf in the
     context <- main softmax (a context row always keeps the prefix keys,
     so no row is left without one)."""
@@ -248,7 +252,7 @@ def _cross_suffix(pc, h, src, ckv, num_heads: int, suffix_valid=None):
     s, n, _ = h.shape
     m = src.shape[1]
     k_pre, v_pre = ckv
-    lh = _ln(h, pc['norm1_cross'])
+    h, lh = _add_ln(h, r, pc['norm1_cross'])
     ls = _ln(src, pc['norm1_src_cross'])
     qk_x = _proj_heads(lh, pc['qk'], num_heads, 2 * d)
     qk_s = _proj_heads(ls, pc['qk_src'], num_heads, 2 * d)
@@ -320,7 +324,8 @@ def _ctx_tokens(model: ConjoinedVMAE, params, x_c):
 
 
 def _ctx_block(p, z, heads):
-    return prefix_block_one(p, z, heads, False)[0]
+    z, r, _ = prefix_block_one(p, z, heads, False)
+    return z + r
 
 
 def _ctx_dec_tokens(model, params, ctx, dtype):
@@ -362,25 +367,27 @@ def encode_conjoined_prefix(model: ConjoinedVMAE, params, x0, x_c,
 
     enc_kvs, enc_cross_kv = [], []
     i = j = 0
+    r = None
     for idx, (pi, pj) in enumerate(model.enc_pairs):
         while i < pi:
-            h, kv = prefix_block_one(enc['blocks'][i], h, m.encoder_num_heads,
-                                     use_flash)
+            h, r, kv = prefix_block_one(enc['blocks'][i], h,
+                                        m.encoder_num_heads, use_flash, r)
             enc_kvs.append(kv)
             i += 1
         while j < pj:
             s_ctx = _ctx_block(ce['blocks'][j], s_ctx, c.encoder_num_heads)
             j += 1
         h, s_ctx, ckv = _cross_full(params['encoder_cross'][idx], h, s_ctx,
-                                    model.cross_num_heads)
+                                    model.cross_num_heads, r)
+        r = None
         enc_cross_kv.append(ckv)
     for k in range(i, m.encoder_depth):
-        h, kv = prefix_block_one(enc['blocks'][k], h, m.encoder_num_heads,
-                                 use_flash)
+        h, r, kv = prefix_block_one(enc['blocks'][k], h, m.encoder_num_heads,
+                                    use_flash, r)
         enc_kvs.append(kv)
     for k in range(j, c.encoder_depth):
         s_ctx = _ctx_block(ce['blocks'][k], s_ctx, c.encoder_num_heads)
-    h = _ln(h, enc['norm'])
+    _, h = _add_ln(h, r, enc['norm'])
     s_ctx = _ln(s_ctx, ce['norm'])
 
     z0 = torch.matmul(h, params['main_e2d']).to(dtype)
@@ -392,21 +399,23 @@ def encode_conjoined_prefix(model: ConjoinedVMAE, params, x0, x_c,
     cd = params['context_decoder']
     dec_kvs, dec_cross_kv = [], []
     i = j = 0
+    r = None
     for idx, (pi, pj) in enumerate(model.dec_pairs):
         while i <= pi:
-            z0, kv = prefix_block_one(dec['blocks'][i], z0,
-                                      m.decoder_num_heads, use_flash)
+            z0, r, kv = prefix_block_one(dec['blocks'][i], z0,
+                                         m.decoder_num_heads, use_flash, r)
             dec_kvs.append(kv)
             i += 1
         while j <= pj:
             zc = _ctx_block(cd['blocks'][j], zc, c.decoder_num_heads)
             j += 1
         z0, zc, ckv = _cross_full(params['decoder_cross'][idx], z0, zc,
-                                  model.cross_num_heads)
+                                  model.cross_num_heads, r)
+        r = None
         dec_cross_kv.append(ckv)
     for k in range(i, m.decoder_depth):
-        z0, kv = prefix_block_one(dec['blocks'][k], z0, m.decoder_num_heads,
-                                  use_flash)
+        z0, r, kv = prefix_block_one(dec['blocks'][k], z0,
+                                     m.decoder_num_heads, use_flash, r)
         dec_kvs.append(kv)
     return ConjoinedPrefixCache(
         ctx_tokens=ctx0, enc_kvs=tuple(enc_kvs),
@@ -457,25 +466,27 @@ def predict_frame1_conjoined(model: ConjoinedVMAE, params,
 
     # encoder suffix: a few queries per sample, dense two-source attention
     i = j = 0
+    r = None
     for idx, (pi, pj) in enumerate(model.enc_pairs):
         while i < pi:
-            h = suffix_block_one(enc['blocks'][i], cache.enc_kvs[i], h,
-                                 m.encoder_num_heads, False, False,
-                                 key_valid=key_valid)
+            h, r = suffix_block_one(enc['blocks'][i], cache.enc_kvs[i], h,
+                                    m.encoder_num_heads, False, False,
+                                    key_valid=key_valid, r=r)
             i += 1
         while j < pj:
             ctx = _ctx_block(ce['blocks'][j], ctx, c.encoder_num_heads)
             j += 1
         h, ctx = _cross_suffix(params['encoder_cross'][idx], h, ctx,
                                cache.enc_cross_kv[idx], model.cross_num_heads,
-                               suffix_valid=key_valid)
+                               suffix_valid=key_valid, r=r)
+        r = None
     for k in range(i, m.encoder_depth):
-        h = suffix_block_one(enc['blocks'][k], cache.enc_kvs[k], h,
-                             m.encoder_num_heads, False, False,
-                             key_valid=key_valid)
+        h, r = suffix_block_one(enc['blocks'][k], cache.enc_kvs[k], h,
+                                m.encoder_num_heads, False, False,
+                                key_valid=key_valid, r=r)
     for k in range(j, c.encoder_depth):
         ctx = _ctx_block(ce['blocks'][k], ctx, c.encoder_num_heads)
-    h = _ln(h, enc['norm'])
+    _, h = _add_ln(h, r, enc['norm'])
     ctx = _ln(ctx, ce['norm'])
     zs = torch.matmul(h, params['main_e2d']).to(dtype)
 
@@ -500,20 +511,26 @@ def predict_frame1_conjoined(model: ConjoinedVMAE, params,
     dec = params['main_decoder']
     cd = params['context_decoder']
     i = j = 0
+    r = None
     for idx, (pi, pj) in enumerate(model.dec_pairs):
         while i <= pi:
-            z1 = suffix_block_one(dec['blocks'][i], cache.dec_kvs[i], z1,
-                                  m.decoder_num_heads, use_flash, two_source)
+            z1, r = suffix_block_one(dec['blocks'][i], cache.dec_kvs[i], z1,
+                                     m.decoder_num_heads, use_flash,
+                                     two_source, r=r)
             i += 1
         while j <= pj:
             zc = _ctx_block(cd['blocks'][j], zc, c.decoder_num_heads)
             j += 1
         z1, zc = _cross_suffix(params['decoder_cross'][idx], z1, zc,
-                               cache.dec_cross_kv[idx], model.cross_num_heads)
+                               cache.dec_cross_kv[idx], model.cross_num_heads,
+                               r=r)
+        r = None
     for k in range(i, m.decoder_depth):
-        z1 = suffix_block_one(dec['blocks'][k], cache.dec_kvs[k], z1,
-                              m.decoder_num_heads, use_flash, two_source)
-    y1 = _ln(z1[:, :n1], dec['norm'])
+        z1, r = suffix_block_one(dec['blocks'][k], cache.dec_kvs[k], z1,
+                                 m.decoder_num_heads, use_flash, two_source,
+                                 r=r)
+    # LayerNorm is per row: the null-padding rows are normalised and dropped
+    y1 = _add_ln(z1, r, dec['norm'])[1][:, :n1]
     return _dense_b(dec['head'], y1)
 
 

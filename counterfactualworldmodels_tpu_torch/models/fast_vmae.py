@@ -10,11 +10,17 @@ per-layer keys/values; per-sample (suffix) tokens then attend
 
 Attention on the path goes to the hand-written kernels on CUDA
 (ops/flash_attention: K1 for the prefix blocks, K2 for the suffix decoder)
-and to their plain versions on the CPU. The layer loop is a Python loop
-over parameters stacked [L, ...] (``jax.lax.scan`` in the JAX engine);
-bf16 cast points mirror the JAX engine's: projections accumulate in f32
-and cast back, ``q * scale`` comes after that cast, pooled means are f32
-and then cast.
+and to their plain versions on the CPU. Every LayerNorm goes through
+``ops.layer_norm.add_layer_norm`` (the one-pass kernel of
+``csrc/layer_norm.cu`` on CUDA) with the residual add before it folded in:
+a block returns its stream h and its MLP output m pending, and the next
+block's norm1 (or the final norm) takes (h, m) and returns h + m beside
+the normalised rows; inside a block norm2 takes (h, o) likewise. The layer
+loop is a Python loop over parameters stacked [L, ...] (``jax.lax.scan``
+in the JAX engine); bf16 cast points mirror the JAX engine's: projections
+accumulate in f32 and cast back, ``q * scale`` comes after that cast,
+residual sums round to the compute dtype and the norms take their f32
+statistics of the rounded sum, pooled means are f32 and then cast.
 """
 from __future__ import annotations
 
@@ -31,10 +37,11 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..ops import patches as patch_ops
 from ..ops.flash_attention import flash_attention, flash_attention_prefix
+from ..ops.layer_norm import add_layer_norm
 from ..ops.normalization import imagenet_normalize
 from ..ops.pos_embed import sinusoid_encoding_table
 from ..utils import profiling
-from .layers import dense_attention, layer_norm
+from .layers import dense_attention
 from .vmae import PretrainVisionTransformer, mask_order
 
 
@@ -132,8 +139,14 @@ def stack_vmae_params(model: PretrainVisionTransformer, state_dict,
     )
 
 
+def _add_ln(h, r, p, eps=1e-6):
+    """(h + r, LayerNorm(h + r)) with the norm's parameters p; r None:
+    (h, LayerNorm(h))."""
+    return add_layer_norm(h, r, p['scale'], p['bias'], eps)
+
+
 def _ln(x, p, eps=1e-6):
-    return layer_norm(x, p['scale'], p['bias'], eps)
+    return _add_ln(x, None, p, eps)[1]
 
 
 def _qkv(p_attn, h, num_heads: int):
@@ -275,11 +288,13 @@ def _dense_attention_prefix(q, k0, v0, k1, v1, weight0: float = 1.0,
     return (o / l).to(v1.dtype)
 
 
-def prefix_block_one(p, h, num_heads: int, use_flash: bool):
-    """One pre-norm ViT block over prefix tokens; returns (h, (k, v))."""
+def prefix_block_one(p, h, num_heads: int, use_flash: bool, r=None):
+    """One pre-norm ViT block over prefix tokens whose stream is h + r (r:
+    the previous block's pending MLP output, or None). Returns (h, m,
+    (k, v)): the block's output stream is h + m, m left pending."""
     scale = (h.shape[-1] // num_heads) ** -0.5
     b, n, _ = h.shape
-    ln = _ln(h, p['norm1'])
+    h, ln = _add_ln(h, r, p['norm1'])
     q, k, v = _qkv(p['attn'], ln, num_heads)
     if use_flash:
         o = flash_attention(q * scale, k, v)
@@ -288,11 +303,11 @@ def prefix_block_one(p, h, num_heads: int, use_flash: bool):
     o = _proj(p['attn'], o, b, n)
     if 'gamma_1' in p:
         o = p['gamma_1'] * o
-    h = h + o
-    m = _mlp(p['mlp'], _ln(h, p['norm2']))
+    h, ln = _add_ln(h, o, p['norm2'])
+    m = _mlp(p['mlp'], ln)
     if 'gamma_2' in p:
         m = p['gamma_2'] * m
-    return h + m, (k, v)
+    return h, m, (k, v)
 
 
 def _pool_kv_grid(x, pool: int, grid):
@@ -308,9 +323,11 @@ def _pool_kv_grid(x, pool: int, grid):
 def suffix_block_one(p, kv0, h, num_heads: int, use_flash: bool,
                      two_source: bool, prefix_weight: float = 1.0,
                      suffix_pool: int = 1, grid=None, gelu: str = 'erf',
-                     key_valid=None):
+                     key_valid=None, r=None):
     """One pre-norm ViT block: per-sample tokens attend [cached prefix kv0 ;
-    own kv].
+    own kv]. The stream is h + r (r: the previous block's pending MLP
+    output, or None); returns (h, m), the output stream h + m with m
+    pending.
 
     prefix_weight: key multiplicity of the prefix panel (pooled prefix).
     suffix_pool: >1 pools the per-sample keys/values pool x pool over the
@@ -320,7 +337,7 @@ def suffix_block_one(p, kv0, h, num_heads: int, use_flash: bool,
     scale = (h.shape[-1] // num_heads) ** -0.5
     s, n, _ = h.shape
     k0, v0 = kv0
-    ln = _ln(h, p['norm1'])
+    h, ln = _add_ln(h, r, p['norm1'])
     q, k, v = _qkv(p['attn'], ln, num_heads)
     suffix_weight = 1.0
     if suffix_pool > 1:
@@ -349,11 +366,11 @@ def suffix_block_one(p, kv0, h, num_heads: int, use_flash: bool,
     o = _proj(p['attn'], o, s, n)
     if 'gamma_1' in p:
         o = p['gamma_1'] * o
-    h = h + o
-    m = _mlp(p['mlp'], _ln(h, p['norm2']), gelu)
+    h, ln = _add_ln(h, o, p['norm2'])
+    m = _mlp(p['mlp'], ln, gelu)
     if 'gamma_2' in p:
         m = p['gamma_2'] * m
-    return h + m
+    return h, m
 
 
 def _num_layers(stacked) -> int:
@@ -361,16 +378,17 @@ def _num_layers(stacked) -> int:
 
 
 def _prefix_blocks(stacked, h0, num_heads: int, use_flash: bool):
-    """Full self-attention over the prefix; returns (h, (k, v)) with the
+    """Full self-attention over the prefix; returns (h, m, (k, v)): the
+    output stream h + m (m the last block's pending MLP output) and the
     per-layer keys/values stacked [L, B, H, N, d]."""
     ks, vs = [], []
-    h = h0
+    h, m = h0, None
     for i in range(_num_layers(stacked)):
-        h, (k, v) = prefix_block_one(_layer(stacked, i), h, num_heads,
-                                     use_flash)
+        h, m, (k, v) = prefix_block_one(_layer(stacked, i), h, num_heads,
+                                        use_flash, m)
         ks.append(k)
         vs.append(v)
-    return h, (torch.stack(ks), torch.stack(vs))
+    return h, m, (torch.stack(ks), torch.stack(vs))
 
 
 def resolve_two_source(use_flash: bool, two_source=None) -> bool:
@@ -384,13 +402,16 @@ def _suffix_blocks(stacked, kvs, hs, num_heads: int, use_flash: bool,
                    two_source: bool, prefix_weight: float = 1.0,
                    suffix_pool: int = 1, grid=None, gelu: str = 'erf',
                    key_valid=None):
-    """Per-sample tokens attending to [cached prefix kv ; own kv]."""
+    """Per-sample tokens attending to [cached prefix kv ; own kv]; returns
+    (hs, m), the output stream hs + m with m pending."""
     k0s, v0s = kvs
+    m = None
     for i in range(_num_layers(stacked)):
-        hs = suffix_block_one(_layer(stacked, i), (k0s[i], v0s[i]), hs,
-                              num_heads, use_flash, two_source, prefix_weight,
-                              suffix_pool, grid, gelu, key_valid)
-    return hs
+        hs, m = suffix_block_one(_layer(stacked, i), (k0s[i], v0s[i]), hs,
+                                 num_heads, use_flash, two_source,
+                                 prefix_weight, suffix_pool, grid, gelu,
+                                 key_valid, m)
+    return hs, m
 
 
 def _pool_panel(panel, pool: int, gh: int, gw: int):
@@ -439,16 +460,16 @@ def encode_prefix(model: PretrainVisionTransformer, fp: FastParams,
             model.num_patches, model.encoder_embed_dim, device=dev)[:, :n0]
         tokens0 = tokens0 + pos_enc.to(dtype)
 
-        h0, enc_kvs = _prefix_blocks(fp.enc_blocks, tokens0,
-                                     model.encoder_num_heads, use_flash)
-        h0 = _ln(h0, fp.enc_norm)
+        h0, m0, enc_kvs = _prefix_blocks(fp.enc_blocks, tokens0,
+                                         model.encoder_num_heads, use_flash)
+        _, h0 = _add_ln(h0, m0, fp.enc_norm)
 
         z0 = torch.matmul(h0, fp.e2d_kernel).to(dtype)
         pos_dec = sinusoid_encoding_table(
             model.num_patches, model.decoder_embed_dim, device=dev).to(dtype)
         z0 = z0 + pos_dec[:, :n0]
-        _, dec_kvs = _prefix_blocks(fp.dec_blocks, z0,
-                                    model.decoder_num_heads, use_flash)
+        _, _, dec_kvs = _prefix_blocks(fp.dec_blocks, z0,
+                                       model.decoder_num_heads, use_flash)
         return PrefixCache(enc_kvs=enc_kvs, dec_kvs=dec_kvs)
 
 
@@ -488,10 +509,11 @@ def _predict_frame1_core(model: PretrainVisionTransformer, fp: FastParams,
             if prefix_pool > 1:
                 dec_kvs = pool_dec_prefix(dec_kvs, prefix_pool, gh, gw)
                 pw = float(prefix_pool * prefix_pool)
-            y1 = _suffix_blocks(fp.dec_blocks, dec_kvs, z1,
-                                model.decoder_num_heads, use_flash,
-                                two_source, pw, suffix_pool, (gh, gw), gelu)
-            y1 = _ln(y1, fp.dec_norm)
+            y1, m1 = _suffix_blocks(fp.dec_blocks, dec_kvs, z1,
+                                    model.decoder_num_heads, use_flash,
+                                    two_source, pw, suffix_pool, (gh, gw),
+                                    gelu)
+            _, y1 = _add_ln(y1, m1, fp.dec_norm)
             return (torch.matmul(y1, fp.head_kernel).to(dtype)
                     + fp.head_bias)
 
@@ -528,10 +550,10 @@ def _encode_suffix(model: PretrainVisionTransformer, fp: FastParams,
     tok = tok + pos_enc[n0 + idx_safe]
 
     # encoder suffix: ~n_sfx queries per sample, dense two-source
-    hs = _suffix_blocks(fp.enc_blocks, cache.enc_kvs, tok,
-                        model.encoder_num_heads, False, True, gelu=gelu,
-                        key_valid=valid)
-    hs = _ln(hs, fp.enc_norm)
+    hs, ms = _suffix_blocks(fp.enc_blocks, cache.enc_kvs, tok,
+                            model.encoder_num_heads, False, True, gelu=gelu,
+                            key_valid=valid)
+    _, hs = _add_ln(hs, ms, fp.enc_norm)
     zs = torch.matmul(hs, fp.e2d_kernel).to(dtype)
 
     # decoder frame-1 rows: mask tokens everywhere, encoded tokens at the

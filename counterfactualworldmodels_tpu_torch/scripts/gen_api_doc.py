@@ -81,6 +81,8 @@ MODULES = [
     ('kernels', 'Build, load and count the hand-written CUDA kernels.'),
     ('ops.flash_attention', 'Attention through the CUDA kernels (single and '
                             'two-source prefix), with plain versions.'),
+    ('ops.layer_norm', 'The residual add + LayerNorm pass through its CUDA '
+                       'kernel.'),
     ('ops.patches', 'Patchify / unpatchify.'),
     ('ops.pos_embed', 'Sin-cos positional embeddings.'),
     ('ops.flow_viz', 'Optical-flow color wheel rendering.'),

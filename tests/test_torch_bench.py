@@ -256,7 +256,7 @@ def test_bench_main_on_cpu(monkeypatch, capsys):
     assert len(rec['window_ms']) == 3
     assert set(rec['launches_per_dispatch']) == {
         'flash_attention', 'flash_attention_prefix', 'flash_attention_lse',
-        'flash_attention_bwd', 'window_lookup'}
+        'flash_attention_bwd', 'window_lookup', 'add_layer_norm'}
 
 
 def test_bench_sweep_one_size(monkeypatch, capsys):

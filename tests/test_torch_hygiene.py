@@ -154,7 +154,7 @@ def test_new_modules_import_in_a_fresh_process_without_jax():
             'models.fast_vmae', 'ops.coords', 'ops.flow_viz', 'vis_utils',
             'pipelines.movability', 'models.transformer',
             'models.preprocessor', 'models.conjoined',
-            'models.fast_conjoined', 'pipelines.imu')
+            'models.fast_conjoined', 'pipelines.imu', 'ops.layer_norm')
     code = ('import importlib, sys; '
             'pkg = "counterfactualworldmodels_tpu_torch."; '
             f'[importlib.import_module(pkg + m) for m in {mods!r}]; '
@@ -224,11 +224,13 @@ def test_kernel_sources_and_counters():
     kernel wrapper has its launch counter."""
     for name in kernels.SOURCES:
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, name + '.cu'))
+    assert set(kernels.SOURCES) == {'attention', 'attention_bwd',
+                                    'window_lookup', 'layer_norm'}
     assert set(kernels.LAUNCHES) == {'flash_attention',
                                      'flash_attention_prefix',
                                      'flash_attention_lse',
                                      'flash_attention_bwd',
-                                     'window_lookup'}
+                                     'window_lookup', 'add_layer_norm'}
 
 
 def test_library_path_covers_the_headers(tmp_path, monkeypatch):

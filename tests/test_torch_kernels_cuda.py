@@ -20,7 +20,10 @@ the JAX kernel does, where the plain version rounds the normalised ones);
 the lookup 1e-5 (sums in another order), and its bf16 output bitwise
 the f32 output cast. The training pair: the lse at 1e-4 and the f32 gradients
 at atol 2e-4 / rtol 1e-4 (tests/test_flash_attention.py's bounds); bf16
-gradients within 2e-2 of their largest magnitude.
+gradients within 2e-2 of their largest magnitude. The residual add +
+LayerNorm: the sum bitwise, the normalised rows within one bf16 ulp of the
+row's largest magnitude (f32: 1e-5), the row sums being taken in another
+order.
 """
 import os
 import re
@@ -34,6 +37,7 @@ import torch
 from counterfactualworldmodels_tpu_torch import kernels
 from counterfactualworldmodels_tpu_torch.models.raft import corr
 from counterfactualworldmodels_tpu_torch.ops import flash_attention as fa
+from counterfactualworldmodels_tpu_torch.ops import layer_norm as ln
 
 pytestmark = pytest.mark.cuda
 
@@ -420,6 +424,140 @@ def test_flash_attention_gradients_come_from_k6(dev):
     assert kernels.LAUNCHES['flash_attention'] == 1
 
 
+# the widths the port normalises (ViT-L 1024, its decoder 512, ViT-B 768,
+# the conjoined models' 192 and 384, the tiny models' 32 and 48), a ragged
+# one and the widest the kernel takes; row counts that are not a multiple
+# of the kernel's 8 rows a block
+_LN_WIDTHS = (32, 48, 100, 192, 384, 512, 768, 1024, 4096)
+
+
+def _cold_norms(le, ld):
+    """LayerNorm launches of one shared-prefix dispatch on a new scene: the
+    prefix (two a block, enc_norm; the decoder prefix needs no dec_norm),
+    then the suffix (two a block, enc_norm, dec_norm)."""
+    return 4 * le + 4 * ld + 3
+
+
+def _warm_norms(le, ld):
+    """The same on a cached prefix: the suffix alone."""
+    return 2 * le + 2 * ld + 2
+
+
+def _bf16_ulp(a):
+    """One bf16 ulp at each row's largest magnitude, [..., 1]."""
+    m = a.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+@pytest.mark.parametrize('residual', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_add_layer_norm_kernel_matches_plain(dev, dtype, residual):
+    """Rows of every width in _LN_WIDTHS, scale and bias in the rows' dtype
+    and in f32: the sum bitwise the plain version's, the normalised rows
+    within the module's tolerance."""
+    rng = np.random.RandomState(9)
+    for d in _LN_WIDTHS:
+        for rows in (1, 37, 1001):
+            x = (_rand(rng, rows, d, scale=3.0) + 1.0).to(dev, dtype)
+            r = _rand(rng, rows, d).to(dev, dtype) if residual else None
+            scale = (1 + 0.1 * _rand(rng, d)).to(dev)
+            bias = (0.1 * _rand(rng, d)).to(dev)
+            for p, b in ((scale, bias), (scale.to(dtype), bias.to(dtype))):
+                before = kernels.LAUNCHES['add_layer_norm']
+                h, y = ln.add_layer_norm(x, r, p, b, 1e-6)
+                assert kernels.LAUNCHES['add_layer_norm'] == before + 1
+                ph, py = ln._add_layer_norm_plain(x, r, p, b, 1e-6)
+                assert h.dtype == y.dtype == dtype
+                assert torch.equal(h, ph), (d, rows)
+                tol = 1e-5 if dtype == torch.float32 else _bf16_ulp(py)
+                assert ((y.float() - py.float()).abs() <= tol).all(), (
+                    d, rows, _err(y, py))
+
+
+def test_add_layer_norm_takes_views_and_refuses_what_it_does_not_take(dev):
+    """A strided view (the decoder's frame-1 rows are a slice of a buffer)
+    and an unaligned one run the kernel; zero rows launch nothing; other
+    dtypes, mixed dtypes and widths over 4096 raise; a gradient asked for
+    raises, as the kernel has no backward."""
+    rng = np.random.RandomState(10)
+    buf = _rand(rng, 3, 50, 512).to(dev, torch.bfloat16)
+    res = _rand(rng, 3, 49, 512).to(dev, torch.bfloat16)
+    p = (1 + 0.1 * _rand(rng, 512)).to(dev, torch.bfloat16)
+    b = (0.1 * _rand(rng, 512)).to(dev, torch.bfloat16)
+    for x, r in ((buf[:, :49], res), (buf[:, :49], None),
+                 (buf.reshape(-1)[3:3 + 49 * 511].reshape(49, 511), None)):
+        pp, bb = p[:x.shape[-1]], b[:x.shape[-1]]
+        h, y = ln.add_layer_norm(x, r, pp, bb)
+        ph, py = ln._add_layer_norm_plain(x, r, pp, bb, 1e-6)
+        assert torch.equal(h, ph)
+        assert ((y.float() - py.float()).abs() <= _bf16_ulp(py)).all()
+    before = kernels.LAUNCHES['add_layer_norm']
+    h, y = ln.add_layer_norm(buf[:0], None, p, b)
+    assert y.shape == (0, 50, 512)
+    assert kernels.LAUNCHES['add_layer_norm'] == before
+    with pytest.raises(ValueError, match='not supported'):
+        ln.add_layer_norm(buf.half(), None, p, b)
+    with pytest.raises(ValueError, match='residual'):
+        ln.add_layer_norm(buf[:, :49], res.float(), p, b)
+    with pytest.raises(ValueError, match='dtypes differ'):
+        ln.add_layer_norm(buf, None, p, b.float())
+    wide = torch.zeros(2, 4097, device=dev)
+    with pytest.raises(ValueError, match='width'):
+        ln.add_layer_norm(wide, None, wide[0], wide[0])
+    x = torch.zeros(4, 64, device=dev, requires_grad=True)
+    one, zero = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(RuntimeError, match='no backward'):
+        ln.add_layer_norm(x, None, one, zero)
+    with pytest.raises(RuntimeError, match='no backward'):
+        ln.add_layer_norm(x.detach(), None, one.requires_grad_(), zero)
+    with torch.no_grad():
+        assert ln.add_layer_norm(x, x, one, zero)[1].shape == x.shape
+
+
+def test_engine_norms_run_the_kernel(dev):
+    """The shared-prefix engine at the tiny configuration in f32 (TF32
+    off), card against CPU: frame-1 predictions within 1e-4; one LayerNorm
+    launch per norm, the residual add before it folded in: 4 Le + 4 Ld + 3
+    for a new scene, 2 Le + 2 Ld + 2 on a cached prefix (147 and 74 at
+    ViT-L, Le 24 and Ld 12)."""
+    from counterfactualworldmodels_tpu_torch.models import fast_vmae, vmae
+    from counterfactualworldmodels_tpu_torch.utils import weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = vmae.PretrainVisionTransformer(
+        img_size=(32, 32), patch_size=(4, 4), encoder_embed_dim=64,
+        encoder_depth=3, encoder_num_heads=4, decoder_embed_dim=32,
+        decoder_depth=2, decoder_num_heads=2, num_frames=2, qkv_bias=True,
+        init_values=0.5)
+    sd = weights.init_vmae_state_dict(model, torch.Generator().manual_seed(2))
+    rng = np.random.RandomState(12)
+    x0 = _rand(rng, 1, 3, 32, 32)
+    x1 = _rand(rng, 3, 3, 32, 32)
+    mask1 = torch.from_numpy(rng.rand(3, 64) > 0.1)
+    vis = fast_vmae.pad_vis1_idx(mask1, fast_vmae.sfx_bucket(
+        int((~mask1).sum(-1).max()), 64))
+    le, ld = model.encoder_depth, model.decoder_depth
+    outs = {}
+    for d in ('cpu', dev):
+        fp = fast_vmae.stack_vmae_params(model, sd, dtype=torch.float32,
+                                         device=d)
+        kernels.reset_launches()
+        cache = fast_vmae.encode_prefix(model, fp, True, x0.to(d))
+        cold = fast_vmae.predict_frame1_from_prefix(
+            model, fp, True, cache, x1.to(d), vis.to(d), prefix_pool=2,
+            suffix_pool=2, gelu='tanh')
+        n_cold = kernels.LAUNCHES['add_layer_norm']
+        warm = fast_vmae.predict_frame1_from_prefix(
+            model, fp, True, cache, x1.to(d), vis.to(d))
+        outs[str(d)] = (cold.cpu(), warm.cpu(), n_cold,
+                        kernels.LAUNCHES['add_layer_norm'] - n_cold)
+    (cc, cw, cn, cwn), (gc, gw, gn, gwn) = outs['cpu'], outs['cuda']
+    assert cn == cwn == 0
+    assert (gn, gwn) == (_cold_norms(le, ld), _warm_norms(le, ld))
+    assert _cold_norms(24, 12) == 147 and _warm_norms(24, 12) == 74
+    assert max(_err(cc, gc), _err(cw, gw)) <= 1e-4
+
+
 def test_flash_attention_prefix_refuses_a_gradient_on_the_card(dev):
     z = torch.zeros
     q = z(2, 2, 8, 64, device=dev, requires_grad=True)
@@ -490,14 +628,18 @@ def test_flow_generator_on_the_card_matches_the_cpu(dev, engine):
     assert max(_err(c[0], g[0]), _err(c[3], g[3])) <= 1e-3
     assert not any(lc.values())
     depth = model.encoder_depth + model.decoder_depth
+    le, ld = model.encoder_depth, model.decoder_depth
     # three chunks of prompts (two of the motion map, one of the call after
     # it), each with a 2-iteration RAFT: 2 lookups per chunk
     if engine == 'fast':
         # one scene: its prefix once (K1 in every block), then the suffix
-        # decoder (K2 in every decoder block) per chunk
+        # decoder (K2 in every decoder block) per chunk; the LayerNorms of
+        # the cold chunk and of the two on the cached prefix
         want = dict(flash_attention=depth,
                     flash_attention_prefix=3 * model.decoder_depth,
-                    window_lookup=3 * 2)
+                    window_lookup=3 * 2,
+                    add_layer_norm=_cold_norms(le, ld)
+                    + 2 * _warm_norms(le, ld))
     else:
         # apply_vmae per chunk (K1 in every block)
         want = dict(flash_attention=3 * depth, window_lookup=3 * 2)
@@ -638,14 +780,24 @@ def _small_imu(d):
 
 
 @pytest.mark.parametrize('engine', ['fast', 'exact'])
-def test_imu_generator_on_the_card_matches_the_cpu(dev, engine):
+def test_imu_generator_on_the_card_matches_the_cpu(dev, engine,
+                                                   monkeypatch):
     """ImuConditionedFlowGenerator at the small configuration in f32 (TF32
     off), the static-scene IMU from flow2imu, from the same weights and
     draws on the card and on the CPU: videos and flows within 1e-3; on the
-    card the path's kernels ran the counts the code gives, on the CPU
-    none."""
+    card the path's kernels ran the counts the code gives (a LayerNorm
+    launch for each of the engine's norm calls, as many as on the CPU), on
+    the CPU none."""
+    from counterfactualworldmodels_tpu_torch.models import fast_vmae
     from counterfactualworldmodels_tpu_torch.pipelines.imu import (
         ImuConditionedFlowGenerator)
+    norm_calls = []
+    real_norm = fast_vmae.add_layer_norm
+
+    def counted_norm(*args, **kwargs):
+        norm_calls.append(args[0].device.type)
+        return real_norm(*args, **kwargs)
+    monkeypatch.setattr(fast_vmae, 'add_layer_norm', counted_norm)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(4)
@@ -671,8 +823,12 @@ def test_imu_generator_on_the_card_matches_the_cpu(dev, engine):
     # flow2imu once (K1 in its 8 blocks, RAFT-2 forward and backward), two
     # chunks: fast, the prefix once (4 main blocks) and K2 in both decoder
     # blocks per chunk; exact, the predictor's 8 blocks per chunk
+    norms = norm_calls.count('cuda')
+    assert norms == norm_calls.count('cpu')
+    assert (norms > 0) == (engine == 'fast')
     want = (dict(flash_attention=8 + 4, flash_attention_prefix=4,
-                 window_lookup=4 + 4) if engine == 'fast' else
+                 window_lookup=4 + 4, add_layer_norm=norms)
+            if engine == 'fast' else
             dict(flash_attention=8 + 16, window_lookup=4 + 4))
     assert lg == dict({k: 0 for k in lg}, **want), lg
 
@@ -781,11 +937,16 @@ def test_service_fast_route_on_the_card_matches_the_cpu(dev, monkeypatch):
     assert gres['two'][0]['scene_batched'] == 2
     assert not any(lc.values())
     depth = model.encoder_depth + model.decoder_depth
+    le, ld = model.encoder_depth, model.decoder_depth
     # the first scene's prefix, the second scene's (the first is a hit),
-    # the suffix decoder in both dispatches, a RAFT-2 in each
+    # the suffix decoder in both dispatches, a RAFT-2 in each; the
+    # LayerNorms: a cold dispatch, then the second scene's prefix (its
+    # blocks' 2 Le + 2 Ld and enc_norm) and one suffix pass over both
     assert lg == dict({k: 0 for k in lg}, flash_attention=2 * depth,
                       flash_attention_prefix=2 * model.decoder_depth,
-                      window_lookup=2 * 2), lg
+                      window_lookup=2 * 2,
+                      add_layer_norm=_cold_norms(le, ld)
+                      + (2 * le + 2 * ld + 1) + _warm_norms(le, ld)), lg
 
 
 # head dims the kernels run padded (zero columns up to 16, 32 or 64): the
