@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from ..ops import patches as patch_ops
 from ..ops.normalization import imagenet_normalize
 from ..ops.pos_embed import sinusoid_encoding_table
+from ..utils import profiling
 from .conjoined import ConjoinedVMAE
 from .fast_vmae import (HashLru, _add_ln, _block_params, _ln, pad_vis1_idx,
                         prefix_block_one, resolve_two_source, sfx_bucket,
@@ -349,7 +350,14 @@ def encode_conjoined_prefix(model: ConjoinedVMAE, params, x0, x_c,
     """The shared (frame 0 + context) conjoined pass of one scene.
 
     x0: [1, C, H, W] preprocessed main frame 0; x_c: [1, C, L] raw IMU
-    (before the dummy token), all visible."""
+    (before the dummy token), all visible. The pass is the span
+    ``cf.prefix_build``."""
+    with profiling.span('cf.prefix_build'):
+        return _encode_prefix(model, params, x0, x_c, use_flash)
+
+
+def _encode_prefix(model: ConjoinedVMAE, params, x0, x_c,
+                   use_flash: bool) -> ConjoinedPrefixCache:
     m, c = model.main, model.context
     n0 = m.num_patches // m.num_frames
     enc = params['main_encoder']
@@ -441,7 +449,37 @@ def predict_frame1_conjoined(model: ConjoinedVMAE, params,
     [S, n_sfx]; False marks bucketing pad slots (sentinel index N1,
     fast_vmae.pad_vis1_idx): they gather at 0, their keys are masked out of
     the main self-attention and the context <- main direction, and their
-    rows drop at the decoder scatter. Returns [S, N1, out_dim]."""
+    rows drop at the decoder scatter. Returns [S, N1, out_dim].
+
+    Spans: ``cf.suffix`` > ``cf.suffix.encoder``, ``cf.suffix.decoder``
+    (the plain engine's stages), and inside them ``cf.suffix.cross``
+    around each cross block and ``cf.suffix.context`` around the
+    per-sample context stream's blocks."""
+    with profiling.span('cf.suffix'):
+        with profiling.span('cf.suffix.encoder'):
+            z1, ctx = _suffix_encoder(model, params, cache, x1n, vis1_idx,
+                                      key_valid)
+        with profiling.span('cf.suffix.decoder'):
+            return _suffix_decoder(model, params, cache, z1, ctx, use_flash,
+                                   two_source)
+
+
+def _ctx_blocks(blocks, ctx, heads: int, lo: int, hi: int):
+    """The per-sample context stream through its blocks [lo, hi)."""
+    if lo >= hi:
+        return ctx
+    with profiling.span('cf.suffix.context'):
+        for k in range(lo, hi):
+            ctx = _ctx_block(blocks[k], ctx, heads)
+    return ctx
+
+
+def _suffix_encoder(model: ConjoinedVMAE, params,
+                    cache: ConjoinedPrefixCache, x1n, vis1_idx, key_valid):
+    """The encoder suffix: the visible frame-1 tokens against the cached
+    prefix beside the per-sample context stream. Returns (the main
+    decoder's frame-1 rows and null-padding rows [S, N1 (+ pads), Cd], the
+    encoded context [S, M, Ec])."""
     m, c = model.main, model.context
     n0 = m.num_patches // m.num_frames
     n1 = m.num_patches - n0
@@ -473,19 +511,20 @@ def predict_frame1_conjoined(model: ConjoinedVMAE, params,
                                     m.encoder_num_heads, False, False,
                                     key_valid=key_valid, r=r)
             i += 1
-        while j < pj:
-            ctx = _ctx_block(ce['blocks'][j], ctx, c.encoder_num_heads)
-            j += 1
-        h, ctx = _cross_suffix(params['encoder_cross'][idx], h, ctx,
-                               cache.enc_cross_kv[idx], model.cross_num_heads,
-                               suffix_valid=key_valid, r=r)
+        ctx = _ctx_blocks(ce['blocks'], ctx, c.encoder_num_heads, j, pj)
+        j = max(j, pj)
+        with profiling.span('cf.suffix.cross'):
+            h, ctx = _cross_suffix(params['encoder_cross'][idx], h, ctx,
+                                   cache.enc_cross_kv[idx],
+                                   model.cross_num_heads,
+                                   suffix_valid=key_valid, r=r)
         r = None
     for k in range(i, m.encoder_depth):
         h, r = suffix_block_one(enc['blocks'][k], cache.enc_kvs[k], h,
                                 m.encoder_num_heads, False, False,
                                 key_valid=key_valid, r=r)
-    for k in range(j, c.encoder_depth):
-        ctx = _ctx_block(ce['blocks'][k], ctx, c.encoder_num_heads)
+    ctx = _ctx_blocks(ce['blocks'], ctx, c.encoder_num_heads, j,
+                      c.encoder_depth)
     _, h = _add_ln(h, r, enc['norm'])
     ctx = _ln(ctx, ce['norm'])
     zs = torch.matmul(h, params['main_e2d']).to(dtype)
@@ -506,8 +545,20 @@ def predict_frame1_conjoined(model: ConjoinedVMAE, params,
     if m.padded and m.max_padding_tokens:
         nulls = mt + params['main_null_dec'].to(dtype)
         z1 = torch.cat([z1, nulls.expand(s, m.max_padding_tokens, cd_)], 1)
+    return z1, ctx
 
-    zc = _ctx_dec_tokens(model, params, ctx, dtype)
+
+def _suffix_decoder(model: ConjoinedVMAE, params,
+                    cache: ConjoinedPrefixCache, z1, ctx, use_flash: bool,
+                    two_source: bool):
+    """Every frame-1 row through the decoder against the cached prefix
+    (the exact rung: no pooling) beside the per-sample context decoder;
+    the head's output [S, N1, out_dim]."""
+    m, c = model.main, model.context
+    n1 = m.num_patches - m.num_patches // m.num_frames
+    dtype = z1.dtype
+    with profiling.span('cf.suffix.context'):
+        zc = _ctx_dec_tokens(model, params, ctx, dtype)
     dec = params['main_decoder']
     cd = params['context_decoder']
     i = j = 0
@@ -518,12 +569,12 @@ def predict_frame1_conjoined(model: ConjoinedVMAE, params,
                                      m.decoder_num_heads, use_flash,
                                      two_source, r=r)
             i += 1
-        while j <= pj:
-            zc = _ctx_block(cd['blocks'][j], zc, c.decoder_num_heads)
-            j += 1
-        z1, zc = _cross_suffix(params['decoder_cross'][idx], z1, zc,
-                               cache.dec_cross_kv[idx], model.cross_num_heads,
-                               r=r)
+        zc = _ctx_blocks(cd['blocks'], zc, c.decoder_num_heads, j, pj + 1)
+        j = max(j, pj + 1)
+        with profiling.span('cf.suffix.cross'):
+            z1, zc = _cross_suffix(params['decoder_cross'][idx], z1, zc,
+                                   cache.dec_cross_kv[idx],
+                                   model.cross_num_heads, r=r)
         r = None
     for k in range(i, m.decoder_depth):
         z1, r = suffix_block_one(dec['blocks'][k], cache.dec_kvs[k], z1,
@@ -586,24 +637,27 @@ def _conjoined_videos_core(wrapper, params, x_mocos, mask_mocos, x_context,
     s, _, ch, hh, ww = x_mocos.shape
     n0 = m.num_patches // m.num_frames
 
-    xm = imagenet_normalize(x_mocos, temporal_dim=1) if normalize else x_mocos
-    (x_m, mask_m), (x_c, _) = wrapper.get_stream_inputs(
-        xm.transpose(1, 2), mask_mocos, x_context, mask_context)
-    x_c = x_c[..., 0, 0]  # [1 or S, C, L]
+    with profiling.span('cf.assemble'):
+        xm = (imagenet_normalize(x_mocos, temporal_dim=1) if normalize
+              else x_mocos)
+        (x_m, mask_m), (x_c, _) = wrapper.get_stream_inputs(
+            xm.transpose(1, 2), mask_mocos, x_context, mask_context)
+        x_c = x_c[..., 0, 0]  # [1 or S, C, L]
+        mask1 = mask_m[:, n0:]
+        vis1_idx = pad_vis1_idx(mask1, n_sfx_pad)
     if cache is None:
         cache = encode_conjoined_prefix(model, params, x_m[0:1, :, 0], x_c,
                                         use_flash)
-    mask1 = mask_m[:, n0:]
-    vis1_idx = pad_vis1_idx(mask1, n_sfx_pad)
     y1 = predict_frame1_conjoined(model, params, cache, x_m[:, :, 1],
                                   vis1_idx, use_flash, two_source,
                                   key_valid=vis1_idx < mask1.shape[-1])
-    patch = (m.tubelet_size,) + m.patch_size
-    raw1 = patch_ops.patchify(x_mocos[:, 1:2], patch, temporal_dim=1)
-    full1 = torch.where(mask1[..., None], y1.to(raw1.dtype), raw1)
-    frame1 = patch_ops.unpatchify(full1, patch, (s, 1, ch, hh, ww),
-                                  temporal_dim=1)
-    return torch.cat([x_mocos[:, 0:1], frame1], dim=1)
+    with profiling.span('cf.assemble'):
+        patch = (m.tubelet_size,) + m.patch_size
+        raw1 = patch_ops.patchify(x_mocos[:, 1:2], patch, temporal_dim=1)
+        full1 = torch.where(mask1[..., None], y1.to(raw1.dtype), raw1)
+        frame1 = patch_ops.unpatchify(full1, patch, (s, 1, ch, hh, ww),
+                                      temporal_dim=1)
+        return torch.cat([x_mocos[:, 0:1], frame1], dim=1)
 
 
 @torch.no_grad()

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from ..ops.normalization import imagenet_normalize, imagenet_unnormalize
+from ..utils import profiling
 
 
 class Preprocessor:
@@ -53,6 +54,7 @@ class Preprocessor:
         frames = frames if frames is not None else self.frames_list
         dim = temporal_dim if temporal_dim is not None else self.t_dim
         t = x.shape[dim]
+        profiling.count('host_sync.frames')
         idx = torch.tensor([f % t for f in frames], device=x.device)
         return torch.index_select(x, dim, idx)
 

@@ -35,6 +35,7 @@ from ..models.conjoined import ConjoinedPredictorWrapper
 from ..models.fast_vmae import resolve_two_source, sfx_bucket
 from ..models.raft.raft import apply_raft_shared0, apply_raft_video
 from ..ops.normalization import imagenet_normalize, imagenet_unnormalize
+from ..utils import profiling
 from . import perturbation as perturb
 from .prediction import make_counterfactuals, scatter_pred_patches
 from .segmentation import FlowGenerator, _rect_noise
@@ -523,9 +524,13 @@ class ImuConditionedFlowGenerator(FlowGenerator):
         w = self.predictor
         s = passive.shape[-1]
         n0 = w.model.main.num_patches // w.model.main.num_frames
+        profiling.count('host_sync.frame0_clear')
         frame0_clear = not bool((passive[:, :n0] & active[:, :n0]).any())
-        if self._conj_fast_ok(x.shape[0] == 1 and fix_passive and frame0_clear
-                              and not bool(self._mask_context.any())):
+        prompt_ok = x.shape[0] == 1 and fix_passive and frame0_clear
+        if prompt_ok:
+            profiling.count('host_sync.ctx_visible')
+            prompt_ok = not bool(self._mask_context.any())
+        if self._conj_fast_ok(prompt_ok):
             self._ensure_conj_fast()
             cache, _ = self._conj_prefix_lru.get(x, self._x_context)
             return _imu_counterfactual_step_fast(
@@ -561,10 +566,11 @@ def _imu_counterfactual_step_fast(wrapper, params, raft_model, x, passive,
     m = wrapper.model.main
     n0 = m.num_patches // m.num_frames
     s = passive.shape[-1]
-    noise = _rect_noise(noise, s, m.num_patches - n0, x.device)
-    x_mocos, mask_mocos = perturb.make_motion_counterfactual(
-        x[0], passive[0].T, active[0].T, shifts[0], noise, wrapper.patch_size,
-        n_vis_target=n_vis, fix_passive=True)
+    with profiling.span('cf.prompts'):
+        noise = _rect_noise(noise, s, m.num_patches - n0, x.device)
+        x_mocos, mask_mocos = perturb.make_motion_counterfactual(
+            x[0], passive[0].T, active[0].T, shifts[0], noise,
+            wrapper.patch_size, n_vis_target=n_vis, fix_passive=True)
     y = fast_conjoined._conjoined_videos_core(
         wrapper, params, x_mocos, mask_mocos, x_context, mask_context,
         _imu_sfx_pad(wrapper, n_vis), normalize, use_flash, two_source,

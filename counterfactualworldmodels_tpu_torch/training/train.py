@@ -518,8 +518,9 @@ def data_parallel(mesh) -> BatchSharding:
 class _ShardedOptimizer:
     """``optimizer`` with the gradients averaged over the dp axis first
     (one all_reduce of the gradients flattened, within the dp group of this
-    rank's tp coordinate) and, under tensor parallelism, the clipping norm
-    of the whole model: the same bits on every rank of a tp group."""
+    rank's tp coordinate, as the span ``train.allreduce``) and, under
+    tensor parallelism, the clipping norm of the whole model: the same bits
+    on every rank of a tp group."""
 
     def __init__(self, optimizer: Optimizer, dp: BatchSharding):
         self.optimizer, self.dp = optimizer, dp
@@ -527,7 +528,8 @@ class _ShardedOptimizer:
 
     def update(self, opt, params, step: int):
         grads = [p.grad for p in params]
-        self.dp.mean_(grads)
+        with profiling.span('train.allreduce'):
+            self.dp.mean_(grads)
         gnorm = None if self.plan is None else tp_global_norm(
             grads, [getattr(p, 'tp_split', None) for p in params], self.plan)
         return self.optimizer.update(opt, params, step, gnorm)

@@ -189,3 +189,42 @@ def test_tiny_train_step_spans(accum):
     assert all(r.request == root.id for r in col.records)
     assert all(r.parent == root.id for r in col.records if r is not root)
 
+
+def test_dp_train_step_spans_the_allreduce():
+    """The data-parallel step over a one-rank gloo group: the gradients'
+    all-reduce is the span ``train.allreduce`` inside ``train.update``."""
+    import socket
+
+    import torch.distributed as dist
+
+    from counterfactualworldmodels_tpu_torch.parallel import mesh as pmesh
+    from counterfactualworldmodels_tpu_torch.parallel import multihost
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    multihost.initialize_distributed(f'tcp://localhost:{port}', 1, 0,
+                                     device='cpu')
+    try:
+        cfg = vmae.PretrainVisionTransformer(**TINY)
+        opt = TT.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                                total_steps=10)
+        state = TT.init_train_state(cfg, opt, seed=1, device='cpu')
+        masks, n_vis = TT.make_batch_masks(
+            torch.Generator().manual_seed(0), cfg, 2, 0.75)
+        step, shard_state, _ = TT.make_sharded_train_step(
+            cfg, opt, pmesh.make_mesh({'dp': 1}), n_vis, remat=False,
+            device='cpu')
+        state = shard_state(state)
+        with profiling.collect() as col:
+            state, met = step(state, torch.rand(2, 2, 3, 32, 32), masks)
+    finally:
+        dist.destroy_process_group()
+    assert torch.isfinite(met['loss']) and state.step == 1
+    counts = {k: v['count'] for k, v in col.totals().items()}
+    assert counts == {'train.step': 1, 'train.forward': 1,
+                      'train.backward': 1, 'train.update': 1,
+                      'train.allreduce': 1}
+    (red,) = [r for r in col.records if r.name == 'train.allreduce']
+    (upd,) = [r for r in col.records if r.name == 'train.update']
+    assert red.parent == upd.id
+
