@@ -38,7 +38,9 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    and decoder training shapes, in bf16 and f32, with K6's determinism
    check; the IMU
    path's shapes: K1 at the ViT-B 4x4 prefix and at the IMU stream's head
-   dim 32, K2 at the conjoined decoder suffix; K1, K5 and K6 at head dims
+   dim 32, K2 at the conjoined decoder suffix; K2 with own-key lengths at
+   the cf and imu encoder suffixes (3 samples a block in bf16), against
+   the dense route it replaced; K1, K5 and K6 at head dims
    8, 24 and 48 (run padded to 16, 32 and 64) in f32 and bf16; K5 and K6
    at the ChannelMAE trainer's shapes (with and without the flow group)
    and at the imu400 main stream's; K1, K5 and K6 at one tp = 2 rank's
@@ -70,12 +72,13 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    engines count the attention kernels and the lookup only, and phase 11
    the LayerNorm pass too); then (5b)
    ``pipelines.segmentation.FlowGenerator`` on the same weights: (a) a cold
-   scene's motion map (K1 36, K2 12, lookup 24, one LRU miss), held against
-   the direct dispatch on its prompts and draws, (b) the same scene again
-   (K1 0, K2 12, lookup 24, one hit), (c) a per-click predict on the warm
-   scene (K2 12 only), (d) the exact engine on 4 prompts (K1 36, lookup
-   24), (e) the multi-scene dispatch over 4 scenes' stacked prefix caches
-   (K2 12, each with s0 = 4, lookup 24); each timed, median of 3 after a
+   scene's motion map (K1 36, K2 36 of which the encoder's 24 packed,
+   lookup 24, one LRU miss), held against the direct dispatch on its
+   prompts and draws, (b) the same scene again (K1 0, K2 36, lookup 24,
+   one hit), (c) a per-click predict on the warm scene (K2 36 only), (d)
+   the exact engine on 4 prompts (K1 36, lookup 24), (e) the multi-scene
+   dispatch over 4 scenes' stacked prefix caches (K2 36, each with s0 =
+   4, none packed, lookup 24); each timed, median of 3 after a
    warm-up, with the generator's overhead over the direct dispatch, (a)'s
    time split within a call (sampler, chunk, filter, the rest) on 3 more
    cold scenes, and the LRU key's host time; then (5c)
@@ -83,27 +86,28 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    initialisation, 16 initial samples, 2 iterations of 16, chunks of 4)
    with a RAFT-24 keypoint predictor: ms per call (median of 3 after a
    warm-up, a new image each call), the keypoint predictor's ms within a
-   call, the launches per call (K1 36, K2 144, lookup 312), the outputs'
+   call, the launches per call (K1 36, K2 432, lookup 312), the outputs'
    checks, flow_to_rgb on the card against the CPU, one more call's split
    (keypoints, samplers, chunks, filters) and one timed call without the
    flow-sample filter (its later iterations sample from a real map); then
    (5d) the IMU-conditioned path at full width: (a) a cold motion map of
    16 prompts in one chunk with the static-scene IMU (K1 48: flow2imu's
-   32 and the prefix's 16; K2 4; lookup 72: FramePairFlow's forward and
-   backward RAFT-24 and the probe), (b) the same scene again (an LRU hit:
-   K1 32, K2 4, lookup 72), (c) the exact engine on 4 prompts (K1 64,
-   lookup 72), (d) ``ImuConditionedMovabilityPredictor(...)(x)`` at the
-   library defaults with a RAFT-24 keypoint predictor (K1 112, K2 48,
+   32 and the prefix's 16; K2 16, the encoder's 12 packed; lookup 72:
+   FramePairFlow's forward and backward RAFT-24 and the probe), (b) the
+   same scene again (an LRU hit: K1 32, K2 16, lookup 72), (c) the exact
+   engine on 4 prompts (K1 64, lookup 72), (d)
+   ``ImuConditionedMovabilityPredictor(...)(x)`` at the library defaults
+   with a RAFT-24 keypoint predictor (K1 112, K2 192,
    lookup 456 per call) and one unfiltered call, each the median of 3
    after a warm-up, with peak memory and the split of one more cold map
    (flow2imu, sampler, chunk, filter, the rest); then (5e) the HTTP
    server ``serve.CwmService`` on phase 5's weights behind a
    ThreadingHTTPServer after its warmup: /health, /predict (K1 36, K2
-   12), a cold /counterfactual of 16 samples (K1 36, K2 12, lookup 24, one
-   service-LRU miss), the same again (K2 12, lookup 24), 4 concurrent
-   same-scene requests in one dispatch (K2 12, lookup 24) and 4
+   36), a cold /counterfactual of 16 samples (K1 36, K2 36, lookup 24, one
+   service-LRU miss), the same again (K2 36, lookup 24), 4 concurrent
+   same-scene requests in one dispatch (K2 36, lookup 24) and 4
    concurrent requests on new scenes in one mixed-scene dispatch (K1 144,
-   K2 12 with s0 = 4, lookup 24), /stats; each route timed over HTTP
+   K2 36 with s0 = 4, lookup 24), /stats; each route timed over HTTP
    (median of 3 after a warm-up) and one warm request split (JSON, image
    parse, dispatch, PNGs, the rest); ``serve.ImuCwmService`` on phase
    5d's models (/counterfactual cold and warm, /movability at the
@@ -144,7 +148,7 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    ``make_sharded_train_step`` at phase 6's configuration, three steps
    bitwise ``make_train_step``'s (K5 72 / K6 36 a step), and
    ``parallel.sharded_counterfactuals_fast`` on phase 5's dispatch (K1 36,
-   K2 12, lookup 24; masks bitwise, videos within phase 5b's bar); (e) two
+   K2 36, lookup 24; masks bitwise, videos within phase 5b's bar); (e) two
    gloo ranks sharing the card (spawned processes): three dp steps of the
    tests' small VMAE against the single-process step on the global batch
    and the tiny sample-sharded dispatch against the direct one, within the
@@ -182,7 +186,7 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    decoded here;
 11. the measurement entry points (after phase 10): each script's
    ``main(argv)`` at full width: ``bench`` (ViT-L 4x4 + RAFT-24, bf16, S =
-   16, the S probe at 64, the rung ladder, the stages; K1 36, K2 12, lookup
+   16, the S probe at 64, the rung ladder, the stages; K1 36, K2 36, lookup
    24 a dispatch), ``bench_sweep --sizes 16``, ``latency_bench --model
    large`` (the cold prediction, the warm click, the imu400 click),
    ``serve_latency`` to prompt 16, ``loadgen`` at base 224,
@@ -202,6 +206,7 @@ result line.
 errors, the profile of a dispatch) as JSON to PATH.
 """
 import argparse
+import itertools
 import json
 import math
 import os
@@ -246,6 +251,9 @@ REL_BF16 = 2e-2
 SM90_KERNELS = {'attention': ('attention_fwd_sm90', 'attention_fwd_tf32'),
                 'attention_bwd': ('dkdv_sm90', 'dq_sm90', 'dkdv_tf32',
                                   'dq_tf32')}
+# the template arguments after the head dim of a kernel built more than
+# once a head dim: attention_fwd_sm90<D, PACK> (PACK: the packed K2)
+SM90_VARIANTS = {'attention_fwd_sm90': ('Lb0E', 'Lb1E')}
 HEAD_DIMS = (16, 32, 64, 128)
 S_FULL = 16
 # the tests' small VMAE (tests/torch_port_common.SMALL_VMAE)
@@ -298,6 +306,17 @@ def strip_norm(launches):
 def engine_launches(port):
     """The launch counts, the LayerNorm pass's left out."""
     return strip_norm(port.kernels.LAUNCHES)
+
+
+def suffix_k2(enc, dec, passes=1, packed=False):
+    """K2's launches in `passes` suffix passes of a shared-prefix engine
+    with `enc` encoder and `dec` decoder blocks over prompts with visible
+    frame-1 tokens: every encoder block (those tokens against the encoder
+    prefix) and every decoder block. packed: bf16 with a shared prefix,
+    where the encoder blocks' launches pack samples (Nq, the bucket of the
+    visible count, is at most 64)."""
+    return dict(flash_attention_prefix=passes * (enc + dec),
+                flash_attention_prefix_packed=passes * enc if packed else 0)
 
 
 def norm_launches(enc_depth, dec_depth, prefix):
@@ -574,6 +593,62 @@ def attention_cases(torch, F, fa, rec):
             log('3 kernels', json.dumps(r))
             if not err <= tol:
                 raise AssertionError(f'K2 {label} {dn}: err {err} > {tol}')
+
+    # the encoder suffix: each sample's 33 visible frame-1 tokens, bucketed
+    # to 40, against the encoder prefix and its own tokens, the 7 pad keys
+    # masked by an own-key length (K2 with own_len; bf16 packs 3 samples a
+    # block) at ViT-L's (cf) and ViT-B's (imu) heads. plain: the dense
+    # route it replaces; library: SDPA over the concatenated keys with the
+    # pad-key mask
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split('.')[1]
+        for label, s, h in (('cf encoder suffix', 256, 16),
+                            ('imu encoder suffix', 256, 12)):
+            nq, n0, live = 40, 3136, 33
+            q = rnd(s, h, nq, 64, dtype=dtype, scale=0.125)
+            k0, v0 = (rnd(1, h, n0, 64, dtype=dtype) for _ in range(2))
+            k1, v1 = (rnd(s, h, nq, 64, dtype=dtype) for _ in range(2))
+            own_len = torch.full((s,), live, dtype=torch.int32, device=dev)
+            valid = torch.arange(nq, device=dev) < own_len[:, None]
+            packed0 = fa.kernels.LAUNCHES['flash_attention_prefix_packed']
+            out = fa.flash_attention_prefix(q, k0, v0, k1, v1,
+                                            own_len=own_len)
+            packs = (fa.kernels.LAUNCHES['flash_attention_prefix_packed']
+                     - packed0)
+            ref = fa._dense_attention_prefix(q, k0, v0, k1, v1,
+                                             own_valid=valid)
+            err = max_err(out, ref)
+            tol = attention_tol(dn, ref, TOL_K2_F32)
+            ms = time_ms(torch, lambda: fa.flash_attention_prefix(
+                q, k0, v0, k1, v1, own_len=own_len))
+            plain_ms = time_ms(torch, lambda: fa._dense_attention_prefix(
+                q, k0, v0, k1, v1, own_valid=valid))
+            kc = torch.cat([k0.expand(s, -1, -1, -1), k1], 2)
+            vc = torch.cat([v0.expand(s, -1, -1, -1), v1], 2)
+            keys = torch.cat([torch.ones(s, n0, dtype=torch.bool,
+                                         device=dev), valid], 1)
+            mask = keys[:, None, None]
+            lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, kc, vc, attn_mask=mask, scale=1.0))
+            item = q.element_size()
+            flops = 4 * s * h * nq * (n0 + live) * 64
+            nbytes = item * 64 * h * (2 * s * nq + 2 * n0 + 2 * s * live)
+            r = dict(kernel='flash_attention_prefix', case=label, dtype=dn,
+                     shape=[s, h, nq, n0, nq, 64, 1], own_len=live,
+                     samples_per_block=128 // nq if packs else 1,
+                     max_abs_err=err, tol=tol,
+                     max_abs_plain=float(ref.float().abs().max()),
+                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     **attention_bound(flops, nbytes, dn),
+                     tflops=flops / ms / 1e9)
+            del kc, vc, ref
+            rec['phase3'].append(with_ratios(r))
+            log('3 kernels', json.dumps(r))
+            if not err <= tol:
+                raise AssertionError(f'K2 {label} {dn}: err {err} > {tol}')
+            if packs != (dtype == torch.bfloat16):
+                raise AssertionError(f'K2 {label} {dn}: {packs} packed '
+                                     'launches')
 
     z = torch.zeros
     for bad, what in (((z(3, 2, 64, 64, device=dev), z(2, 2, 8, 64, device=dev),
@@ -1114,7 +1189,8 @@ def full_width(torch, port, rec, smi):
         n_vis_target=n_vis)
     expect = {name: 0 for name in port.kernels.LAUNCHES}
     expect.update(flash_attention=model.encoder_depth + model.decoder_depth,
-                  flash_attention_prefix=model.decoder_depth,
+                  **suffix_k2(model.encoder_depth, model.decoder_depth,
+                              packed=True),
                   window_lookup=24,
                   add_layer_norm=norm_launches(model.encoder_depth,
                                                model.decoder_depth, True))
@@ -1350,7 +1426,7 @@ def small_movability(torch, port, rec):
     # two motion maps of 2 chunks each, every chunk a RAFT-2; the keypoint
     # RAFT-2 once
     want = dict({k: 0 for k in lg}, flash_attention=depth,
-                flash_attention_prefix=4 * model.decoder_depth,
+                **suffix_k2(model.encoder_depth, model.decoder_depth, 4),
                 window_lookup=4 * 2 + 2)
     r = dict(case='movability small, num_iters 1, S 4',
              masks_equal=all(torch.equal(a, b) for a, b in zip(ca + cp,
@@ -1401,13 +1477,13 @@ def small_imu_models(torch, dev):
 
 
 def imu_launches(imu, f2i, raft_iters, maps, chunks, prefixes,
-                 exact_chunks=0):
+                 exact_chunks=0, packed=False):
     """The launches the IMU-conditioned path's code gives: per motion map
     flow2imu's exact forward (K1 in every block of both streams; its
     FramePairFlow runs RAFT forward and backward); per fast chunk the
-    suffix decoder (K2 in every main decoder block) and the RAFT probe;
-    per exact chunk the exact predictor (K1 in every block) and the probe;
-    per LRU miss the prefix (K1 in every main block)."""
+    suffix (K2 in every main encoder and decoder block, suffix_k2) and the
+    RAFT probe; per exact chunk the exact predictor (K1 in every block) and
+    the probe; per LRU miss the prefix (K1 in every main block)."""
     def blocks(m):
         return (m.main.encoder_depth + m.main.decoder_depth
                 + m.context.encoder_depth + m.context.decoder_depth)
@@ -1415,7 +1491,8 @@ def imu_launches(imu, f2i, raft_iters, maps, chunks, prefixes,
         flash_attention=(maps * blocks(f2i) + exact_chunks * blocks(imu)
                          + prefixes * (imu.main.encoder_depth
                                        + imu.main.decoder_depth)),
-        flash_attention_prefix=chunks * imu.main.decoder_depth,
+        **suffix_k2(imu.main.encoder_depth, imu.main.decoder_depth, chunks,
+                    packed),
         window_lookup=raft_iters * (2 * maps + chunks + exact_chunks))
 
 
@@ -1558,7 +1635,10 @@ def generator_phase(torch, port, rec, smi, ctx):
         if got != dict(zeros, **want) or not extra:
             failures.append(f'{name}: launches {got}, want {want}')
 
-    # (a) a cold scene per run: 36 K1 (the prefix), 12 K2, 24 lookups, one
+    # K2 of a suffix pass over a shared prefix: 24 encoder blocks (packed)
+    # and 12 decoder blocks
+    k2 = suffix_k2(cfg.encoder_depth, cfg.decoder_depth, packed=True)
+    # (a) a cold scene per run: 36 K1 (the prefix), 36 K2, 24 lookups, one
     # LRU miss. The warm-up run is held against the direct dispatch.
     seen = {}
     real_chunk = gen._counterfactual_chunk
@@ -1581,8 +1661,7 @@ def generator_phase(torch, port, rec, smi, ctx):
 
     def check_a(i, launches, res):
         (flows, act, pas), new_misses = res
-        expect('(a)', dict(flash_attention=depth,
-                           flash_attention_prefix=cfg.decoder_depth,
+        expect('(a)', dict(flash_attention=depth, **k2,
                            window_lookup=24), launches,
                new_misses == 1 and tuple(flows.shape) == (1, 2, 224, 224,
                                                           S_FULL)
@@ -1624,8 +1703,7 @@ def generator_phase(torch, port, rec, smi, ctx):
         return res, gen._prefix_lru.hits - hits
 
     def check_b(i, launches, res):
-        expect('(b)', dict(flash_attention_prefix=cfg.decoder_depth,
-                           window_lookup=24), launches, res[1] == 1)
+        expect('(b)', dict(k2, window_lookup=24), launches, res[1] == 1)
 
     out['b_warm_scene'] = timed_runs(torch, port, run_b, check_b)
 
@@ -1644,8 +1722,8 @@ def generator_phase(torch, port, rec, smi, ctx):
 
     def check_c(i, launches, res):
         vid, hit = res
-        expect('(c)', dict(flash_attention_prefix=cfg.decoder_depth),
-               launches, hit == 1 and tuple(vid.shape) == (1, 2, 3, 224, 224)
+        expect('(c)', k2, launches,
+               hit == 1 and tuple(vid.shape) == (1, 2, 3, 224, 224)
                and bool(torch.isfinite(vid).all()))
 
     out['c_click_predict'] = timed_runs(torch, port, run_c, check_c)
@@ -1705,14 +1783,14 @@ def generator_phase(torch, port, rec, smi, ctx):
 
     def check_e(i, launches, res):
         y, f, m = res
-        expect('(e)', dict(flash_attention_prefix=cfg.decoder_depth,
+        expect('(e)', dict(suffix_k2(cfg.encoder_depth, cfg.decoder_depth),
                            window_lookup=24), launches,
                tuple(f.shape) == (4, 1, 2, 224, 224)
                and bool(torch.isfinite(f).all()))
 
     out['e_multi_scene'] = timed_runs(torch, port, run_e, check_e)
     out['e_k2_prefix_batch'] = s0_seen
-    if s0_seen != [4] * cfg.decoder_depth:
+    if s0_seen != [4] * (cfg.encoder_depth + cfg.decoder_depth):
         failures.append(f'(e): K2 prefix batch dims {s0_seen}')
 
     # the LRU key: sha1 over frame 0 copied from the card
@@ -1819,13 +1897,15 @@ def movability_phase(torch, port, rec, smi, ctx):
                     sample_batch_size=gen.sample_batch_size)
     # the counts the code gives: the keypoint RAFT once (24 lookups); three
     # motion maps of 16 samples in chunks of 4, each chunk a suffix pass (K2
-    # in every decoder block) and a RAFT-24 (24 lookups); the scene's
-    # prefix (K1 in every block) on the first chunk only, an LRU miss
+    # in every encoder block, packed, and every decoder block) and a
+    # RAFT-24 (24 lookups); the scene's prefix (K1 in every block) on the
+    # first chunk only, an LRU miss
     chunks = (1 + gen.num_iters) * (gen.num_initial_samples
                                     // gen.sample_batch_size)
     want = dict({k: 0 for k in engine_launches(port)},
                 flash_attention=cfg.encoder_depth + cfg.decoder_depth,
-                flash_attention_prefix=chunks * cfg.decoder_depth,
+                **suffix_k2(cfg.encoder_depth, cfg.decoder_depth, chunks,
+                            packed=True),
                 window_lookup=24 * (chunks + 1))
     kp_ms = []
     real_kp = gen.keypoint_predictor
@@ -1995,8 +2075,8 @@ def imu_phase(torch, port, rec, smi, ctx):
     log('5d imu', f'weights ready in {time.perf_counter() - t0:.1f}s')
     zero = {k: 0 for k in engine_launches(port)}
     want = dict(
-        a=dict(zero, **imu_launches(imu, f2i, 24, 1, 1, 1)),
-        b=dict(zero, **imu_launches(imu, f2i, 24, 1, 1, 0)),
+        a=dict(zero, **imu_launches(imu, f2i, 24, 1, 1, 1, packed=True)),
+        b=dict(zero, **imu_launches(imu, f2i, 24, 1, 1, 0, packed=True)),
         c=dict(zero, **imu_launches(imu, f2i, 24, 1, 0, 0, exact_chunks=1)))
     rng = np.random.RandomState(41)
     failures, out = [], dict(
@@ -2123,7 +2203,8 @@ def imu_phase(torch, port, rec, smi, ctx):
         engine='fast', **common)
     maps = 1 + mov.num_iters
     chunks = maps * (mov.num_initial_samples // mov.sample_batch_size)
-    want['d'] = dict(zero, **imu_launches(imu, f2i, 24, maps, chunks, 1))
+    want['d'] = dict(zero, **imu_launches(imu, f2i, 24, maps, chunks, 1,
+                                          packed=True))
     want['d']['window_lookup'] += 24        # the keypoint RAFT-24
 
     def run_d(i, **kw):
@@ -2270,7 +2351,10 @@ def serving_phase(torch, port, rec, smi, ctx):
     cfg = dataclasses.replace(ctx['model'], dtype=torch.bfloat16)
     raft, sd = ctx['raft'], ctx['sd']
     depth = cfg.encoder_depth + cfg.decoder_depth
-    dec = cfg.decoder_depth
+    # K2 of one suffix pass over a shared prefix (the encoder's packed) and
+    # over stacked prefixes (s0 = S: none packed)
+    k2 = suffix_k2(cfg.encoder_depth, cfg.decoder_depth, packed=True)
+    k2_stacked = suffix_k2(cfg.encoder_depth, cfg.decoder_depth)
     zero = {k: 0 for k in engine_launches(port)}
     failures = []
     out = {'config': 'large_4x4patch_2frames_1tube bf16 + RAFT-24 bf16; '
@@ -2391,8 +2475,7 @@ def serving_phase(torch, port, rec, smi, ctx):
         (resp, l_) = counted(lambda: call(base, '/predict', enc(
             {'image': scene, 'active': active})))
         launches['predict'] = l_
-        expect('/predict (cold)', l_, flash_attention=depth,
-               flash_attention_prefix=dec)
+        expect('/predict (cold)', l_, flash_attention=depth, **k2)
         if not (resp[0] == 200 and png_decode(base64.b64decode(
                 resp[1]['prediction'])).shape == (224, 224, 3)):
             failures.append('/predict response')
@@ -2401,14 +2484,13 @@ def serving_phase(torch, port, rec, smi, ctx):
         before = stats(base)
         (resp, l_) = counted(lambda: call(base, '/counterfactual', enc(cf)))
         launches['counterfactual_cold'] = l_
-        expect('/counterfactual (cold)', l_, flash_attention=depth,
-               flash_attention_prefix=dec, window_lookup=24)
+        expect('/counterfactual (cold)', l_, flash_attention=depth, **k2,
+               window_lookup=24)
         check_cf('/counterfactual (cold)', resp, prefix_cache_hit=False,
                  engine='fast', batched_samples=S_FULL)
         (resp, l_) = counted(lambda: call(base, '/counterfactual', enc(cf)))
         launches['counterfactual_warm'] = l_
-        expect('/counterfactual (warm)', l_, flash_attention_prefix=dec,
-               window_lookup=24)
+        expect('/counterfactual (warm)', l_, **k2, window_lookup=24)
         check_cf('/counterfactual (warm)', resp, prefix_cache_hit=True)
         after = stats(base)
         if (after['prefix_cache']['misses'] - before['prefix_cache']['misses'],
@@ -2427,8 +2509,7 @@ def serving_phase(torch, port, rec, smi, ctx):
         launches['same_scene_batch'] = l_
         after = stats(base)
         mb0, mb1 = before['micro_batching'], after['micro_batching']
-        expect('4 same-scene requests', l_, flash_attention_prefix=dec,
-               window_lookup=24)
+        expect('4 same-scene requests', l_, **k2, window_lookup=24)
         for r in res:
             check_cf('same-scene batch', r, prefix_cache_hit=True,
                      batched_samples=S_FULL)
@@ -2444,7 +2525,7 @@ def serving_phase(torch, port, rec, smi, ctx):
         after = stats(base)
         mb0, mb1 = before['micro_batching'], after['micro_batching']
         expect('4 mixed-scene requests', l_, flash_attention=4 * depth,
-               flash_attention_prefix=dec, window_lookup=24)
+               **k2_stacked, window_lookup=24)
         for r in res:
             check_cf('mixed-scene batch', r, prefix_cache_hit=False,
                      batched_samples=4, scene_batched=4)
@@ -2569,7 +2650,8 @@ def serving_phase(torch, port, rec, smi, ctx):
         f2i_blocks = (f2i.main.encoder_depth + f2i.main.decoder_depth
                       + f2i.context.encoder_depth + f2i.context.decoder_depth)
         prefix = imu.main.encoder_depth + imu.main.decoder_depth
-        idec = imu.main.decoder_depth
+        ik2 = suffix_k2(imu.main.encoder_depth, imu.main.decoder_depth,
+                        packed=True)
         imu_out = {}
         maps = 1 + args.movability_iters
         icf = dict(cf, image=image())
@@ -2579,18 +2661,18 @@ def serving_phase(torch, port, rec, smi, ctx):
         for name, path, body, want in (
                 ('counterfactual_cold', '/counterfactual',
                  lambda: enc(dict(cf, image=image())),
-                 dict(flash_attention=f2i_blocks + prefix,
-                      flash_attention_prefix=idec, window_lookup=3 * 24)),
+                 dict(flash_attention=f2i_blocks + prefix, **ik2,
+                      window_lookup=3 * 24)),
                 ('counterfactual_warm', '/counterfactual',
-                 lambda: enc(icf),
-                 dict(flash_attention_prefix=idec, window_lookup=24)),
+                 lambda: enc(icf), dict(ik2, window_lookup=24)),
                 # flow2imu once (the service's static IMU, cached: the
                 # loop's maps take it as head_motion), the prefix once,
                 # one chunk of 16 per map
                 ('movability', '/movability',
                  lambda: enc({'image': image()}),
                  dict(flash_attention=f2i_blocks + prefix,
-                      flash_attention_prefix=maps * idec,
+                      **suffix_k2(imu.main.encoder_depth,
+                                  imu.main.decoder_depth, maps, packed=True),
                       window_lookup=2 * 24 + maps * 24))):
             runs = []
             for i in range(4):
@@ -2640,10 +2722,8 @@ def serving_phase(torch, port, rec, smi, ctx):
     ui_out = {}
     for key, want, n_flows in (
             (None, {}, 0),
-            ('f', dict(flash_attention=depth, flash_attention_prefix=dec,
-                       window_lookup=24), 1),
-            ('b', dict(flash_attention_prefix=dec, window_lookup=24),
-             1 + ui.sample_batch_size),
+            ('f', dict(flash_attention=depth, **k2, window_lookup=24), 1),
+            ('b', dict(k2, window_lookup=24), 1 + ui.sample_batch_size),
             ('x', {}, 1 + ui.sample_batch_size)):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -3416,7 +3496,7 @@ def world_one(torch, port, rec, smi, ctx):
     three steps with losses bitwise make_train_step's on the same batches
     and masks and K5 72 / K6 36 a step; sharded_counterfactuals_fast on
     phase 5's weights, prompts and draws at the default rung (S = 16): the
-    direct dispatch's launches (K1 36, K2 12, lookup 24) and its outputs."""
+    direct dispatch's launches (K1 36, K2 36, lookup 24) and its outputs."""
     import tempfile
     import torch.distributed as dist
     from counterfactualworldmodels_tpu_torch import parallel
@@ -3491,7 +3571,8 @@ def world_one(torch, port, rec, smi, ctx):
         launches = engine_launches(port)
         want = dict({k: 0 for k in engine_launches(port)},
                     flash_attention=model.encoder_depth + model.decoder_depth,
-                    flash_attention_prefix=model.decoder_depth,
+                    **suffix_k2(model.encoder_depth, model.decoder_depth,
+                                packed=True),
                     window_lookup=24)
         # phase 5b's bar for another route to the same dispatch: masks
         # bitwise, videos within REL_BF16 of their largest magnitude
@@ -4441,7 +4522,8 @@ def fidelity_phase(torch, port, rec, smi):
     image and --conjoined flagship; the JSON copied under chiprun_out/.
     Each leg's ms and its K1 / K2 / lookup launches, asserted against the
     code's counts: an exact VMAE leg K1 36 / lookup 24, an engine leg K1
-    36 / K2 12 / lookup 24 (phase 5's counts; S sits in the batch), the
+    36 / K2 36 (24 of them packed in bf16) / lookup 24 (phase 5's counts;
+    S sits in the batch), the
     conjoined legs as phase 5d's code gives them with the IMU given."""
     from counterfactualworldmodels_tpu_torch.models import conjoined as C
     from counterfactualworldmodels_tpu_torch.scripts import (
@@ -4455,16 +4537,21 @@ def fidelity_phase(torch, port, rec, smi):
     sec = time.perf_counter() - t0
     zero = {k: 0 for k in engine_launches(port)}
     exact = dict(zero, flash_attention=36, window_lookup=24)
-    fast = dict(zero, flash_attention=36, flash_attention_prefix=12,
-                window_lookup=24)
+    # an engine leg: K2 in 24 encoder blocks (packed in bf16) and 12
+    # decoder blocks
+    fast = {dtype: dict(zero, flash_attention=36,
+                        **suffix_k2(24, 12, packed=dtype == 'bf16'),
+                        window_lookup=24) for dtype in ('bf16', 'f32')}
     imu = C.imu400_base_4x4patch_2frames_1tube(device='meta')
     want = {'exact': exact, 'exact f32': exact,
             'conjoined exact': dict(zero, **imu_launches(
                 imu, imu, 24, 0, 0, 0, exact_chunks=1)),
             'conjoined fast': dict(zero, **imu_launches(imu, imu, 24, 0, 1,
-                                                        1))}
+                                                        1, packed=True))}
     bad = [g['name'] for g in report['legs']
-           if strip_norm(g['launches']) != want.get(g['name'], fast)]
+           if strip_norm(g['launches']) != want.get(
+               g['name'], fast['f32' if g['name'].endswith(' f32')
+                               else 'bf16'])]
     summed = {k: sum(g['launches'][k] for g in report['legs'])
               for k in zero}
     rungs = [k for k in report['per_image'][0]
@@ -4541,14 +4628,10 @@ def demo_phase(torch, port, rec, smi):
             sec = time.perf_counter() - t0
             m = G.predictor
             prefix = m.encoder_depth + m.decoder_depth
-            want = {'factual': dict(zero, flash_attention=prefix,
-                                    flash_attention_prefix=m.decoder_depth),
-                    'counterfactual': dict(
-                        zero, flash_attention_prefix=m.decoder_depth,
-                        window_lookup=12),
-                    'motion map': dict(
-                        zero, flash_attention_prefix=m.decoder_depth,
-                        window_lookup=12)}
+            k2 = suffix_k2(m.encoder_depth, m.decoder_depth, packed=True)
+            want = {'factual': dict(zero, flash_attention=prefix, **k2),
+                    'counterfactual': dict(zero, **k2, window_lookup=12),
+                    'motion map': dict(zero, **k2, window_lookup=12)}
             bad = [s['name'] for s in steps
                    if s['name'] in want
                    and strip_norm(s['launches']) != want[s['name']]]
@@ -4556,8 +4639,7 @@ def demo_phase(torch, port, rec, smi):
                 if s['name'] == 'movability':
                     lm = s['launches']
                     if not (lm['flash_attention'] == prefix
-                            and lm['flash_attention_prefix']
-                            % m.decoder_depth == 0
+                            and lm['flash_attention_prefix'] % prefix == 0
                             and lm['window_lookup'] % 12 == 0
                             and lm['window_lookup'] > 0):
                         bad.append('movability')
@@ -4660,12 +4742,12 @@ def measurement_phase(torch, port, rec, smi):
     """11. The measurement entry points (``scripts/bench*``, the latency,
     first-request and load probes) through their ``main(argv)`` on the
     card at full width: the bench at ViT-L 4x4 + RAFT-24, S = 16, with the
-    S probe at 64 and the rung ladder (K1 36, K2 12, lookup 24 a dispatch,
+    S probe at 64 and the rung ladder (K1 36, K2 36, lookup 24 a dispatch,
     asserted); the sweep at S = 16 (a child process); latency_bench --model
-    large (the cold prediction K1 36, the warm click K2 12, the imu400
-    click K2 4); serve_latency to prompt 16 (the first request K1 36 / K2
-    12 / lookup 24, the rest K2 12 / lookup 24); loadgen at base 224;
-    bench_conjoined at imu400 on both engines (fast K2 4, lookup 24; exact
+    large (the cold prediction K1 36, the warm click K2 36, the imu400
+    click K2 16); serve_latency to prompt 16 (the first request K1 36 / K2
+    36 / lookup 24, the rest K2 36 / lookup 24); loadgen at base 224;
+    bench_conjoined at imu400 on both engines (fast K2 16, lookup 24; exact
     K2 0, lookup 24); bench_train's ten families (K5 / K6 a step: ViT-L
     72 / 36, accum 2 twice that, no remat 36 / 36, ChannelMAE 32 / 16,
     imu400 64 / 32, none for RAFT); bench_loader; bench_attention at S =
@@ -4695,8 +4777,10 @@ def measurement_phase(torch, port, rec, smi):
 
     # the dispatch: the library-default rung at ViT-L
     b, _ = run('bench', bench.main, [], {'CWM_BENCH_SBIG': '64'})
-    want = dict(zero, flash_attention=36, flash_attention_prefix=12,
-                window_lookup=24, add_layer_norm=norm_launches(24, 12, True))
+    # K2: 24 encoder blocks (packed) and 12 decoder blocks a suffix pass
+    k2 = suffix_k2(24, 12, packed=True)
+    want = dict(zero, flash_attention=36, **k2, window_lookup=24,
+                add_layer_norm=norm_launches(24, 12, True))
     check('bench', b['value'] > 0 and b['launches_per_dispatch'] == want
           and b['config']['engine']
           == 'shared-prefix/default:pooled4+suffix4+tanh'
@@ -4717,15 +4801,14 @@ def measurement_phase(torch, port, rec, smi):
     check('latency_bench', lat['p50_ms'] > 0
           and lat['launches_per_call'] == dict(zero, flash_attention=36)
           and lat['warm_prefix']['launches_per_call']
-          == dict(zero, flash_attention_prefix=12,
-                  add_layer_norm=norm_launches(24, 12, False))
+          == dict(zero, **k2, add_layer_norm=norm_launches(24, 12, False))
           and lat['warm_prefix_imu']['launches_per_call'][
-              'flash_attention_prefix'] == 4, json.dumps(lat))
+              'flash_attention_prefix'] == 12 + 4, json.dumps(lat))
     out['latency_bench'] = lat
 
     sl, _ = run('serve_latency', serve_latency.main, ['--max-prompt', '16'])
     s = sl['serve_first_request_by_prompt_size']
-    warm = dict(zero, flash_attention_prefix=12, window_lookup=24,
+    warm = dict(zero, **k2, window_lookup=24,
                 add_layer_norm=norm_launches(24, 12, False))
     check('serve_latency', s['worst_first_request_sec'] > 0
           and s['launches_by_prompt_size'][1]
@@ -4746,7 +4829,7 @@ def measurement_phase(torch, port, rec, smi):
     cj, _ = run('bench_conjoined', bench_conjoined.main, [])
     check('bench_conjoined', cj['value'] > 0 and cj['exact_sims_per_sec'] > 0
           and cj['config']['model'].startswith('imu400')
-          and cj['launches_fast']['flash_attention_prefix'] == 4
+          and cj['launches_fast']['flash_attention_prefix'] == 12 + 4
           and cj['launches_fast']['window_lookup'] == 24
           and cj['launches_fast']['flash_attention'] > 0
           and cj['launches_exact']['flash_attention'] > 0
@@ -4959,18 +5042,20 @@ def main():
                                'instructions in the library')
             rec['build'][name] = kernels
             for fn in SM90_KERNELS.get(name, ()):
-                for d in HEAD_DIMS:
-                    found = [v for k, v in kernels.items()
-                             if sm90_fragment(fn, d) in k]
+                for d, v in itertools.product(HEAD_DIMS,
+                                              SM90_VARIANTS.get(fn, ('',))):
+                    found = [i for k, i in kernels.items()
+                             if sm90_fragment(fn, d) + v in k]
+                    what = f'{fn}<{d}{v and ", " + v}>'
                     if len(found) != 1:
-                        raise AssertionError(f'{name}: {fn}<{d}> is not in '
+                        raise AssertionError(f'{name}: {what} is not in '
                                              'the ptxas report once')
                     info = found[0]
                     if hgmma is not None and not info['hgmma']:
-                        raise AssertionError(f'{name}: {fn}<{d}> has no HGMMA')
+                        raise AssertionError(f'{name}: {what} has no HGMMA')
                     if d == 64 and (info.get('spill_stores')
                                     or info.get('spill_loads')):
-                        raise AssertionError(f'{name}: {fn}<64> spills: {info}')
+                        raise AssertionError(f'{name}: {what} spills: {info}')
 
     phase('2 build', build)
     if not failed:
@@ -5109,8 +5194,14 @@ def main():
              'imu_motion_map', REPLACES['flash_attention']),
             ('K2', 'flash_attention_prefix', 'bfloat16', 'pool4 rung',
              'dispatch', REPLACES['flash_attention_prefix']),
+            # the encoder suffix: own-key lengths, 3 samples a block
+            ('K2', 'flash_attention_prefix', 'bfloat16', 'cf encoder suffix',
+             'dispatch', REPLACES['flash_attention_prefix']),
             ('K2', 'flash_attention_prefix', 'bfloat16',
              'conjoined decoder suffix', 'imu_motion_map',
+             REPLACES['flash_attention_prefix']),
+            ('K2', 'flash_attention_prefix', 'bfloat16',
+             'imu encoder suffix', 'imu_motion_map',
              REPLACES['flash_attention_prefix']),
             # the server's mixed-scene micro-batch: 4 scenes' prefixes
             ('K2', 'flash_attention_prefix', 'bfloat16',

@@ -19,6 +19,12 @@
 // are float32 or bfloat16; scores, softmax statistics and the accumulator
 // are float32; the output has q's type. Ragged Nq / Nk are masked by
 // bounds: padded keys score -inf, padded query rows are never stored.
+// K2 may take an own-key length per sample (own_len): the sample's own keys
+// at or past it are pad keys (the bucketed encoder suffix's, whose pads
+// trail) and score -inf, and own tiles wholly past it are skipped; a length
+// 0 attends the prefix alone. With a shared prefix and Nq <= 64 the bf16
+// route packs floor(128 / Nq) samples' queries into one block (PACK): at
+// the encoder suffix's Nq = 40, 120 of 128 rows are live instead of 40.
 // K5 is K1 with an lse pointer: it also stores each row's logsumexp
 // m + ln l in natural-log units of the raw scores ([BH, Nq] float32), the
 // residual the backward (attention_bwd.cu) rebuilds the probabilities from.
@@ -96,9 +102,10 @@ constexpr float LN2 = 0.6931471805599453f;
 // The online softmax of one key tile, shared by both routes: on the score
 // accumulator s (BK keys; the thread's two rows, h = 0 at acc_row(0) and
 // h = 1 8 rows below) of a tile whose first key is r0 in a panel of n
-// keys, in the exp2 domain. Masks keys at or past n, updates the running
-// max m and the thread's share of the sum l (the quad is summed at the
-// end), rescales the accumulator o, and leaves the probabilities in s.
+// keys, in the exp2 domain. Masks keys at or past n (a panel's end, or a
+// sample's own-key length), updates the running max m and the thread's
+// share of the sum l (the quad is summed at the end), rescales the
+// accumulator o, and leaves the probabilities in s.
 template <int BK, int D>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
                                              float (&o)[D / 2], float (&m)[2],
@@ -141,6 +148,27 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
   }
 }
 
+// The packed own panel's block-diagonal mask, before softmax_tile: keys of
+// the tile (first key r0 of the panel) outside [lo[h], hi[h]), the live own
+// keys of the sample that the thread's row h belongs to, score -inf.
+template <int BK>
+__device__ __forceinline__ void mask_spans(float (&s)[BK / 2], int r0,
+                                           const int (&lo)[2],
+                                           const int (&hi)[2]) {
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) {
+    const int c = r0 + sm90::acc_col(j), h = (j >> 1) & 1;
+    if (c < lo[h] || c >= hi[h]) s[j] = -INFINITY;
+  }
+}
+
+// The own keys that sample `sample` reads: own_len[sample] within [0, n1],
+// or all n1 without own_len.
+__device__ __forceinline__ int own_keys(const int* __restrict__ own_len,
+                                        int sample, int n1) {
+  return own_len == nullptr ? n1 : min(max(own_len[sample], 0), n1);
+}
+
 using sm90::bf16;
 using sm90::Tile;
 
@@ -164,7 +192,8 @@ attention_fwd_tf32(const float* __restrict__ q,
                    int n0, int shared0, float w0,
                    const float* __restrict__ k1, const float* __restrict__ v1,
                    int n1, float w1, float* __restrict__ out,
-                   float* __restrict__ lse, int nq, int heads) {
+                   float* __restrict__ lse, int nq, int heads,
+                   const int* __restrict__ own_len) {
   using namespace sm90;
   using C = Tf32<D>;
   constexpr int BK = C::BK, KT = C::KT, QT = C::QT, NT = C::NT;
@@ -186,14 +215,15 @@ attention_fwd_tf32(const float* __restrict__ q,
   const float* vb0 = v0 + row0 * n0 * D;
   const float* kb1 = k1 + (size_t)bh * n1 * D;
   const float* vb1 = v1 + (size_t)bh * n1 * D;
+  const int n1s = own_keys(own_len, bh / heads, n1);  // tiles past it skipped
   const int t0 = (n0 + BK - 1) / BK;         // tiles of panel 0
-  const int tiles = t0 + (n1 + BK - 1) / BK;
+  const int tiles = t0 + (n1s + BK - 1) / BK;
 
   auto load_kv = [&](int t) {
     if (t < tiles) {
       const bool p1 = t >= t0;
       const int r0 = (p1 ? t - t0 : t) * BK;
-      const int n = p1 ? n1 : n0;
+      const int n = p1 ? n1s : n0;
       load_tile_f32<D, BK, NT>(sb + stage_k(t), p1 ? kb1 : kb0, r0, n);
       load_stage<D, BK, NT>(sb + stage_v(t), p1 ? vb1 : vb0, r0, n);
     }
@@ -297,7 +327,7 @@ attention_fwd_tf32(const float* __restrict__ q,
     wgmma_wait<0>();
     keep(s);
 
-    softmax_tile<BK, D>(s, o, m, l, (p1 ? t - t0 : t) * BK, p1 ? n1 : n0);
+    softmax_tile<BK, D>(s, o, m, l, (p1 ? t - t0 : t) * BK, p1 ? n1s : n0);
     uint32_t ph[BK / 8][4], pl[BK / 8][4];  // P as tf32 A fragments
     to_a_tf32<BK>(s, ph, pl);
 
@@ -342,7 +372,8 @@ template <int D>
 cudaError_t launch_tf32(const void* q, const void* k0, const void* v0, int n0,
                         int shared0, float w0, const void* k1, const void* v1,
                         int n1, float w1, void* out, float* lse, int bh,
-                        int heads, int nq, cudaStream_t stream) {
+                        int heads, int nq, const int* own_len,
+                        cudaStream_t stream) {
   using C = Tf32<D>;
   static sm90::OncePerDevice smem_set;
   cudaError_t err = smem_set([] {
@@ -356,7 +387,7 @@ cudaError_t launch_tf32(const void* q, const void* k0, const void* v0, int n0,
       static_cast<const float*>(q), static_cast<const float*>(k0),
       static_cast<const float*>(v0), n0, shared0, w0,
       static_cast<const float*>(k1), static_cast<const float*>(v1), n1, w1,
-      static_cast<float*>(out), lse, nq, heads);
+      static_cast<float*>(out), lse, nq, heads, own_len);
   return cudaGetLastError();
 }
 
@@ -375,14 +406,21 @@ template <int D> __host__ __device__ constexpr int wg_smem() {
          WG_STAGES * 2 * Tile<D>::bytes(wg_bk<D>());
 }
 
-template <int D>
+// PACK: a block holds `pack` samples of one head (shared prefix, Nq <= 64):
+// block row r is query row r % nq of sample s_base + r / nq (rows from
+// pack * nq on are dead), and its own panel is the samples' own keys end to
+// end, n1 each, masked block-diagonally (mask_spans). The prefix panel is
+// read once for all of them. Without PACK a block holds 128 query rows of
+// one (sample, head), and its own panel stops at the sample's own length.
+template <int D, bool PACK>
 __global__ void __launch_bounds__(WG_NT, 1)
 attention_fwd_sm90(const bf16* __restrict__ q,
                    const bf16* __restrict__ k0, const bf16* __restrict__ v0,
                    int n0, int shared0, float w0,
                    const bf16* __restrict__ k1, const bf16* __restrict__ v1,
                    int n1, float w1, bf16* __restrict__ out,
-                   float* __restrict__ lse, int nq, int heads) {
+                   float* __restrict__ lse, int nq, int heads,
+                   const int* __restrict__ own_len, int pack, int batch) {
   using namespace sm90;
   constexpr int BK = wg_bk<D>();
   constexpr int QB = Tile<D>::bytes(WG_BQ);
@@ -400,20 +438,67 @@ attention_fwd_sm90(const bf16* __restrict__ q,
   const bf16* vb0 = v0 + row0 * n0 * D;
   const bf16* kb1 = k1 + (size_t)bh * n1 * D;
   const bf16* vb1 = v1 + (size_t)bh * n1 * D;
+
+  // PACK: sample p of the block is s_base + p; its row i of n rows per
+  // (sample, head) is row `at(p, i, n)` of q, k1, v1 or out
+  const int s_base = (bh / heads) * pack;
+  auto live = [&](int p) { return p < pack && s_base + p < batch; };
+  auto own = [&](int p) {
+    return live(p) ? own_keys(own_len, s_base + p, n1) : 0;
+  };
+  auto at = [&](int p, int i, int n) {
+    return ((size_t)(s_base + p) * heads + bh % heads) * n + i;
+  };
+  // own keys the block reads: tiles wholly past them are skipped
+  int n1s;
+  int lo[2] = {0, 0}, hi[2] = {0, 0};  // PACK: each row's live own keys
+  if constexpr (PACK) {
+    n1s = 0;
+    for (int p = 0; p < pack; ++p)
+      if (own(p) > 0) n1s = p * n1 + own(p);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (wg * 64 + acc_row(2 * h)) / nq;
+      lo[h] = p * n1;
+      hi[h] = lo[h] + own(p);
+    }
+  } else {
+    n1s = own_keys(own_len, bh / heads, n1);
+  }
   const int t0 = (n0 + BK - 1) / BK;         // tiles of panel 0
-  const int tiles = t0 + (n1 + BK - 1) / BK;
+  const int tiles = t0 + (n1s + BK - 1) / BK;
 
   auto load_kv = [&](int t) {
     if (t < tiles) {
       const bool p1 = t >= t0;
       const int r0 = (p1 ? t - t0 : t) * BK;
-      const int n = p1 ? n1 : n0;
-      sm90::load_tile<D, BK, WG_NT>(sk(t % WG_STAGES), p1 ? kb1 : kb0, r0, n);
-      sm90::load_tile<D, BK, WG_NT>(sv(t % WG_STAGES), p1 ? vb1 : vb0, r0, n);
+      const int st = t % WG_STAGES;
+      if (PACK && p1) {
+        auto own_row = [&](const bf16* base) {
+          return [=](int r, bool& ok) {
+            const int p = (r0 + r) / n1, i = r0 + r - p * n1;
+            ok = i < own(p);
+            return base + (ok ? at(p, i, n1) : 0) * D;
+          };
+        };
+        load_rows<D, BK, WG_NT>(sk(st), own_row(k1));
+        load_rows<D, BK, WG_NT>(sv(st), own_row(v1));
+      } else {
+        const int n = p1 ? n1s : n0;
+        load_tile<D, BK, WG_NT>(sk(st), p1 ? kb1 : kb0, r0, n);
+        load_tile<D, BK, WG_NT>(sv(st), p1 ? vb1 : vb0, r0, n);
+      }
     }
     cp_async_commit();  // one group per tile, empty past the end
   };
-  sm90::load_tile<D, WG_BQ, WG_NT>(sq, q + (size_t)bh * nq * D, q_start, nq);
+  if constexpr (PACK)
+    load_rows<D, WG_BQ, WG_NT>(sq, [&](int r, bool& ok) {
+      const int p = r / nq;
+      ok = live(p);
+      return q + (ok ? at(p, r - p * nq, nq) : 0) * D;
+    });
+  else
+    load_tile<D, WG_BQ, WG_NT>(sq, q + (size_t)bh * nq * D, q_start, nq);
 #pragma unroll
   for (int t = 0; t < WG_STAGES - 1; ++t) load_kv(t);  // Q rides in group 0
 
@@ -450,7 +535,9 @@ attention_fwd_sm90(const bf16* __restrict__ q,
     wgmma_wait<0>();
     keep(s);
 
-    softmax_tile<BK, D>(s, o, m, l, (p1 ? t - t0 : t) * BK, p1 ? n1 : n0);
+    const int r0 = (p1 ? t - t0 : t) * BK;
+    if (PACK && p1) mask_spans<BK>(s, r0, lo, hi);
+    softmax_tile<BK, D>(s, o, m, l, r0, p1 ? n1s : n0);
     to_a<BK>(s, pa);
 
     wgmma_fence();
@@ -470,37 +557,49 @@ attention_fwd_sm90(const bf16* __restrict__ q,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int gq = q_start + wg * 64 + acc_row(2 * h);
-    if (gq >= nq) continue;
+    bf16* orow;
+    if constexpr (PACK) {
+      const int p = gq / nq;
+      if (!live(p)) continue;
+      orow = out + at(p, gq - p * nq, nq) * D;
+    } else {
+      if (gq >= nq) continue;
+      orow = ob + (size_t)gq * D;
+    }
     const float inv = 1.f / l[h];
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)gq * D + acc_col(4 * i)) =
+      *reinterpret_cast<__nv_bfloat162*>(orow + acc_col(4 * i)) =
           __floats2bfloat162_rn(o[4 * i + 2 * h] * inv,
                                 o[4 * i + 2 * h + 1] * inv);
-    if (lse != nullptr && (threadIdx.x & 3) == 0)
+    if (!PACK && lse != nullptr && (threadIdx.x & 3) == 0)
       lse[(size_t)bh * nq + gq] = m[h] * LN2 + logf(l[h] * w_last);
   }
 }
 
-template <int D>
+template <int D, bool PACK>
 cudaError_t launch_sm90(const void* q, const void* k0, const void* v0, int n0,
                         int shared0, float w0, const void* k1, const void* v1,
                         int n1, float w1, void* out, float* lse, int bh,
-                        int heads, int nq, cudaStream_t stream) {
+                        int heads, int nq, const int* own_len, int pack,
+                        cudaStream_t stream) {
   const int smem = wg_smem<D>();
   static sm90::OncePerDevice smem_set;
   cudaError_t err = smem_set([&] {
-    return cudaFuncSetAttribute(attention_fwd_sm90<D>,
+    return cudaFuncSetAttribute(attention_fwd_sm90<D, PACK>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 smem);
   });
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + WG_BQ - 1) / WG_BQ, bh);
-  attention_fwd_sm90<D><<<grid, WG_NT, smem, stream>>>(
+  const int batch = bh / heads;
+  // PACK: one block for each `pack` samples of a head
+  const dim3 grid = PACK ? dim3(1, (batch + pack - 1) / pack * heads)
+                         : dim3((nq + WG_BQ - 1) / WG_BQ, bh);
+  attention_fwd_sm90<D, PACK><<<grid, WG_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k0),
       static_cast<const bf16*>(v0), n0, shared0, w0,
       static_cast<const bf16*>(k1), static_cast<const bf16*>(v1), n1, w1,
-      static_cast<bf16*>(out), lse, nq, heads);
+      static_cast<bf16*>(out), lse, nq, heads, own_len, pack, batch);
   return cudaGetLastError();
 }
 
@@ -509,22 +608,36 @@ cudaError_t launch_sm90(const void* q, const void* k0, const void* v0, int n0,
 // dtype: 0 = float32 (attention_fwd_tf32, tensor cores in split tf32),
 // 1 = bfloat16 (attention_fwd_sm90, tensor cores). Panel 1 is absent when n1 == 0 (K1).
 // lse: null, or [bh, nq] float32 for the row logsumexps (K5).
+// own_len: null, or [bh / heads] int32: sample s's own keys (panel 1) at or
+// past own_len[s] score -inf. pack: 1, or the samples a block packs (bf16,
+// shared panel 0, pack * nq <= 128, no lse).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int cwm_attention(const void* q, const void* k0, const void* v0,
                              int n0, int shared0, float w0, const void* k1,
                              const void* v1, int n1, float w1, void* out,
                              void* lse_, int bh, int heads, int nq, int d,
-                             int dtype, void* stream) {
+                             int dtype, const void* own_len_, int pack,
+                             void* stream) {
   float* lse = static_cast<float*>(lse_);
+  const int* own_len = static_cast<const int*>(own_len_);
   if (nq <= 0 || n0 <= 0 || n1 < 0 || bh <= 0 || bh > 65535 || heads <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (pack < 1 || (pack > 1 && (dtype != 1 || !shared0 || n1 == 0 ||
+                                lse != nullptr || pack * nq > WG_BQ)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)sm90::with_head_dim(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
-    return dtype == 0 ? launch_tf32<D>(q, k0, v0, n0, shared0, w0, k1, v1,
-                                       n1, w1, out, lse, bh, heads, nq, s)
-                      : launch_sm90<D>(q, k0, v0, n0, shared0, w0, k1, v1,
-                                       n1, w1, out, lse, bh, heads, nq, s);
+    if (dtype == 0)
+      return launch_tf32<D>(q, k0, v0, n0, shared0, w0, k1, v1, n1, w1, out,
+                            lse, bh, heads, nq, own_len, s);
+    return pack > 1
+               ? launch_sm90<D, true>(q, k0, v0, n0, shared0, w0, k1, v1, n1,
+                                      w1, out, lse, bh, heads, nq, own_len,
+                                      pack, s)
+               : launch_sm90<D, false>(q, k0, v0, n0, shared0, w0, k1, v1,
+                                       n1, w1, out, lse, bh, heads, nq,
+                                       own_len, 1, s);
   });
 }

@@ -139,13 +139,12 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Rows r0 .. r0+R-1 of a row-major [n][D] bf16 matrix into the swizzled
-// tile at shared address `tile`, by the NT threads of the block, 16 bytes
-// per copy; rows at or past n are zeros.
-template <int D, int R, int NT>
-__device__ __forceinline__ void load_tile(uint32_t tile,
-                                          const bf16* __restrict__ src,
-                                          int r0, int n) {
+// R rows of D bf16 values, gathered from anywhere, into the swizzled tile
+// at shared address `tile`, by the NT threads of the block, 16 bytes per
+// copy: row(r, ok) returns the address of row r and sets ok; a row with ok
+// false is zeros (its address must still be valid).
+template <int D, int R, int NT, typename Row>
+__device__ __forceinline__ void load_rows(uint32_t tile, Row row) {
   constexpr int W = Tile<D>::W;
   constexpr int CPR = D / 8;   // chunks per row
   constexpr int CPS = W / 16;  // chunks per slab row
@@ -154,11 +153,24 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
     const int e = threadIdx.x + i * NT;
     if ((R * CPR) % NT != 0 && e >= R * CPR) break;
     const int r = e / CPR, c = e % CPR;
-    const int g = r0 + r;
-    const bool ok = g < n;
+    bool ok;
+    const bf16* src = row(r, ok);
     const uint32_t off = (c / CPS) * (R * W) + swizzle<W>(r * W + (c % CPS) * 16);
-    cp_async16(tile + off, src + (size_t)(ok ? g : 0) * D + c * 8, ok);
+    cp_async16(tile + off, src + c * 8, ok);
   }
+}
+
+// Rows r0 .. r0+R-1 of a row-major [n][D] bf16 matrix into the swizzled
+// tile at shared address `tile`; rows at or past n are zeros.
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_tile(uint32_t tile,
+                                          const bf16* __restrict__ src,
+                                          int r0, int n) {
+  load_rows<D, R, NT>(tile, [&](int r, bool& ok) {
+    const int g = r0 + r;
+    ok = g < n;
+    return src + (size_t)(ok ? g : 0) * D;
+  });
 }
 
 // Rows r0 .. r0+R-1 of a row-major [n][D] float32 matrix into the f32

@@ -18,6 +18,9 @@ pending to the next norm, which returns the sum beside the normalised rows.
 ``LAUNCHES`` counts kernel launches by wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a caller can show that a run
 went through the kernels (``reset_launches()`` sets every count to 0).
+``flash_attention_prefix_packed`` counts the K2 launches that pack several
+samples' queries into a block, each also counted under
+``flash_attention_prefix``.
 Nothing here runs at import: importing works without CUDA or nvcc.
 """
 from __future__ import annotations
@@ -36,6 +39,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 LAUNCHES: Dict[str, int] = {'flash_attention': 0, 'flash_attention_prefix': 0,
+                            'flash_attention_prefix_packed': 0,
                             'flash_attention_lse': 0,
                             'flash_attention_bwd': 0, 'window_lookup': 0,
                             'add_layer_norm': 0}

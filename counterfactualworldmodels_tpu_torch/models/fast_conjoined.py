@@ -20,9 +20,10 @@ The deviation from the exact model is the frozen main prefix only, as in
 the plain engine. The main blocks are fast_vmae's ``prefix_block_one`` /
 ``suffix_block_one`` (one block body for both engines, each handing its
 MLP output pending to the next norm, a cross block's norm1_cross
-included): on the card K1 runs the prefix blocks, K2 the suffix decoder
-blocks (the exact rung: no pooling), and the encoder suffix and the tiny
-context stream run the plain dense attention, as in the JAX engine.
+included): on the card K1 runs the prefix blocks, K2 the suffix encoder
+blocks (the bucketing pads masked by own-key lengths) and the suffix
+decoder blocks (the exact rung: no pooling), and the tiny context stream
+runs the plain dense attention, as in the JAX engine.
 
 The engine reads its weights from ``cast_params``: the reference-layout
 state dict re-laid-out (kernels [in, out], blocks as fast_vmae's dicts) and
@@ -458,7 +459,7 @@ def predict_frame1_conjoined(model: ConjoinedVMAE, params,
     with profiling.span('cf.suffix'):
         with profiling.span('cf.suffix.encoder'):
             z1, ctx = _suffix_encoder(model, params, cache, x1n, vis1_idx,
-                                      key_valid)
+                                      use_flash, key_valid)
         with profiling.span('cf.suffix.decoder'):
             return _suffix_decoder(model, params, cache, z1, ctx, use_flash,
                                    two_source)
@@ -475,11 +476,13 @@ def _ctx_blocks(blocks, ctx, heads: int, lo: int, hi: int):
 
 
 def _suffix_encoder(model: ConjoinedVMAE, params,
-                    cache: ConjoinedPrefixCache, x1n, vis1_idx, key_valid):
+                    cache: ConjoinedPrefixCache, x1n, vis1_idx,
+                    use_flash: bool, key_valid):
     """The encoder suffix: the visible frame-1 tokens against the cached
-    prefix beside the per-sample context stream. Returns (the main
-    decoder's frame-1 rows and null-padding rows [S, N1 (+ pads), Cd], the
-    encoded context [S, M, Ec])."""
+    prefix beside the per-sample context stream; with use_flash its
+    self-attention runs on K2 (the pad keys masked by own-key lengths),
+    else dense. Returns (the main decoder's frame-1 rows and null-padding
+    rows [S, N1 (+ pads), Cd], the encoded context [S, M, Ec])."""
     m, c = model.main, model.context
     n0 = m.num_patches // m.num_frames
     n1 = m.num_patches - n0
@@ -502,14 +505,14 @@ def _suffix_encoder(model: ConjoinedVMAE, params,
     h = h + pos_enc[n0 + idx_safe]
     ctx = cache.ctx_tokens.expand(s, *cache.ctx_tokens.shape[1:])
 
-    # encoder suffix: a few queries per sample, dense two-source attention
+    # encoder suffix: a few queries per sample, two-source attention
     i = j = 0
     r = None
     for idx, (pi, pj) in enumerate(model.enc_pairs):
         while i < pi:
             h, r = suffix_block_one(enc['blocks'][i], cache.enc_kvs[i], h,
-                                    m.encoder_num_heads, False, False,
-                                    key_valid=key_valid, r=r)
+                                    m.encoder_num_heads, use_flash,
+                                    use_flash, key_valid=key_valid, r=r)
             i += 1
         ctx = _ctx_blocks(ce['blocks'], ctx, c.encoder_num_heads, j, pj)
         j = max(j, pj)
@@ -521,7 +524,7 @@ def _suffix_encoder(model: ConjoinedVMAE, params,
         r = None
     for k in range(i, m.encoder_depth):
         h, r = suffix_block_one(enc['blocks'][k], cache.enc_kvs[k], h,
-                                m.encoder_num_heads, False, False,
+                                m.encoder_num_heads, use_flash, use_flash,
                                 key_valid=key_valid, r=r)
     ctx = _ctx_blocks(ce['blocks'], ctx, c.encoder_num_heads, j,
                       c.encoder_depth)

@@ -9,8 +9,9 @@ per-layer keys/values; per-sample (suffix) tokens then attend
 [cached prefix K/V ; own K/V].
 
 Attention on the path goes to the hand-written kernels on CUDA
-(ops/flash_attention: K1 for the prefix blocks, K2 for the suffix decoder)
-and to their plain versions on the CPU. Every LayerNorm goes through
+(ops/flash_attention: K1 for the prefix blocks, K2 for the suffix encoder,
+its bucketing pads masked by own-key lengths, and the suffix decoder) and
+to their plain versions on the CPU. Every LayerNorm goes through
 ``ops.layer_norm.add_layer_norm`` (the one-pass kernel of
 ``csrc/layer_norm.cu`` on CUDA) with the residual add before it folded in:
 a block returns its stream h and its MLP output m pending, and the next
@@ -30,13 +31,13 @@ import os
 import threading
 from typing import Any, Dict, NamedTuple, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..ops import patches as patch_ops
-from ..ops.flash_attention import flash_attention, flash_attention_prefix
+from ..ops.flash_attention import (_dense_attention_prefix, flash_attention,
+                                   flash_attention_prefix, own_lengths)
 from ..ops.layer_norm import add_layer_norm
 from ..ops.normalization import imagenet_normalize
 from ..ops.pos_embed import sinusoid_encoding_table
@@ -252,42 +253,6 @@ def _dense_attention(q, k, v):
     return dense_attention(q, k, v, dtype=v.dtype)
 
 
-def _dense_attention_prefix(q, k0, v0, k1, v1, weight0: float = 1.0,
-                            weight1: float = 1.0, own_valid=None):
-    """Two-source dense attention without materializing broadcast+concat
-    K/V: softmax over [prefix scores ; own scores], f32. q [S, H, Nq, d];
-    k0/v0 [S0, H, N0, d] with S0 in {1, S}; k1/v1 [S, H, N1, d].
-
-    weight0/weight1: key multiplicity of each panel. own_valid: optional
-    bool [S, N1]; False marks pad keys of the own panel (sfx_bucket), which
-    score -inf, so a row with no valid own key falls back to prefix-only
-    attention. A zero-width own panel is single-source attention over the
-    prefix."""
-    qf = q.float()
-    sub0 = 'hkd' if k0.shape[0] == 1 else 'shkd'
-    k0f = (k0[0] if k0.shape[0] == 1 else k0).float()
-    v0f = (v0[0] if v0.shape[0] == 1 else v0).float()
-    s0 = torch.einsum(f'shqd,{sub0}->shqk', qf, k0f)
-    if k1.shape[2] == 0:
-        p0 = torch.softmax(s0, dim=-1)
-        o = torch.einsum(f'shqk,{sub0}->shqd', p0, v0f)
-        return o.to(v1.dtype)
-    s1 = torch.einsum('shqd,shkd->shqk', qf, k1.float())
-    if weight0 != 1.0:
-        s0 = s0 + float(np.log(weight0))
-    if weight1 != 1.0:
-        s1 = s1 + float(np.log(weight1))
-    if own_valid is not None:
-        s1 = s1.masked_fill(~own_valid[:, None, None, :], float('-inf'))
-    m = torch.maximum(s0.amax(-1, keepdim=True), s1.amax(-1, keepdim=True))
-    p0 = torch.exp(s0 - m)
-    p1 = torch.exp(s1 - m)
-    l = p0.sum(-1, keepdim=True) + p1.sum(-1, keepdim=True)
-    o = torch.einsum(f'shqk,{sub0}->shqd', p0, v0f)
-    o = o + torch.einsum('shqk,shkd->shqd', p1, v1.float())
-    return (o / l).to(v1.dtype)
-
-
 def prefix_block_one(p, h, num_heads: int, use_flash: bool, r=None):
     """One pre-norm ViT block over prefix tokens whose stream is h + r (r:
     the previous block's pending MLP output, or None). Returns (h, m,
@@ -332,8 +297,10 @@ def suffix_block_one(p, kv0, h, num_heads: int, use_flash: bool,
     prefix_weight: key multiplicity of the prefix panel (pooled prefix).
     suffix_pool: >1 pools the per-sample keys/values pool x pool over the
     token ``grid`` and weights them pool^2-fold (queries stay full-res).
-    key_valid: optional bool [S, N] pad-key mask (sfx_bucket); it forces
-    the dense two-source attention and cannot be combined with pooling."""
+    key_valid: optional bool [S, N] pad-key mask (sfx_bucket: the pads
+    trail); with use_flash it goes to K2 as own-key lengths (whatever
+    two_source says), else to the dense two-source attention. It cannot be
+    combined with pooling."""
     scale = (h.shape[-1] // num_heads) ** -0.5
     s, n, _ = h.shape
     k0, v0 = kv0
@@ -346,10 +313,13 @@ def suffix_block_one(p, kv0, h, num_heads: int, use_flash: bool,
         k = _pool_kv_grid(k, suffix_pool, grid)
         v = _pool_kv_grid(v, suffix_pool, grid)
         suffix_weight = float(suffix_pool * suffix_pool)
-    if two_source and use_flash and key_valid is None:
-        o = flash_attention_prefix(q * scale, k0, v0, k, v,
-                                   prefix_weight=prefix_weight,
-                                   suffix_weight=suffix_weight)
+    # no suffix tokens (frame 1 fully masked): the dense route takes the
+    # empty shapes, which the kernel refuses
+    if use_flash and (two_source or key_valid is not None) and n > 0:
+        o = flash_attention_prefix(
+            q * scale, k0, v0, k, v, prefix_weight=prefix_weight,
+            suffix_weight=suffix_weight,
+            own_len=None if key_valid is None else own_lengths(key_valid))
     elif (two_source or prefix_weight != 1.0 or suffix_weight != 1.0
           or key_valid is not None):
         o = _dense_attention_prefix(q * scale, k0, v0, k, v,
@@ -500,8 +470,8 @@ def _predict_frame1_core(model: PretrainVisionTransformer, fp: FastParams,
             model.num_patches, model.decoder_embed_dim,
             device=x1n.device)[0].to(dtype)
         with profiling.span('cf.suffix.encoder'):
-            z1 = _encode_suffix(model, fp, cache, x1n, vis1_idx, pos_dec,
-                                gelu)
+            z1 = _encode_suffix(model, fp, use_flash, cache, x1n, vis1_idx,
+                                pos_dec, gelu)
         with profiling.span('cf.suffix.decoder'):
             dec_kvs, pw = cache.dec_kvs, 1.0
             ph, pw_ = model.full_patch_size[-2:]
@@ -519,7 +489,8 @@ def _predict_frame1_core(model: PretrainVisionTransformer, fp: FastParams,
 
 
 def _encode_suffix(model: PretrainVisionTransformer, fp: FastParams,
-                   cache: PrefixCache, x1n, vis1_idx, pos_dec, gelu: str):
+                   use_flash: bool, cache: PrefixCache, x1n, vis1_idx,
+                   pos_dec, gelu: str):
     """The decoder's frame-1 input rows [S, N1, Cd]: the visible frame-1
     tokens encoded against the cached encoder prefix, at their slots among
     mask tokens. pos_dec: the decoder's position table [N, Cd]."""
@@ -549,10 +520,11 @@ def _encode_suffix(model: PretrainVisionTransformer, fp: FastParams,
         device=x1n.device)[0].to(dtype)
     tok = tok + pos_enc[n0 + idx_safe]
 
-    # encoder suffix: ~n_sfx queries per sample, dense two-source
+    # encoder suffix: ~n_sfx queries per sample, two-source (K2 on the
+    # card, its pad keys masked by own-key lengths)
     hs, ms = _suffix_blocks(fp.enc_blocks, cache.enc_kvs, tok,
-                            model.encoder_num_heads, False, True, gelu=gelu,
-                            key_valid=valid)
+                            model.encoder_num_heads, use_flash, True,
+                            gelu=gelu, key_valid=valid)
     _, hs = _add_ln(hs, ms, fp.enc_norm)
     zs = torch.matmul(hs, fp.e2d_kernel).to(dtype)
 

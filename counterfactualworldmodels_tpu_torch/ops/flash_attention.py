@@ -5,7 +5,8 @@ Port of counterfactualworldmodels_tpu/ops/flash_attention.py. On CUDA
 tensors the wrappers launch the hand-written kernels of ``csrc/attention.cu``
 (K1, K2, K5) and ``csrc/attention_bwd.cu`` (K6); on CPU tensors they run
 their plain versions, ``_chunked_dense_attention``, ``_dense_two_source``
-and ``_chunked_attention_bwd`` (the same math: f32 scores and softmax).
+(``_dense_attention_prefix`` for K2 with own-key lengths) and
+``_chunked_attention_bwd`` (the same math: f32 scores and softmax).
 Inside each kernel entry the dtype picks the route: bf16 runs on the
 tensor cores (wgmma); f32, forward and backward, on the tensor cores in
 tf32 with split products (lo.hi + hi.lo + hi.hi: f32 accuracy, whatever
@@ -30,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,7 +51,7 @@ def _lib(name):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == 'attention':
             lib.cwm_attention.argtypes = [vp, vp, vp, i, i, f, vp, vp, i, f,
-                                          vp, vp, i, i, i, i, i, vp]
+                                          vp, vp, i, i, i, i, i, vp, i, vp]
             lib.cwm_attention.restype = ctypes.c_int
         else:
             lib.cwm_attention_bwd.argtypes = [vp] * 9 + [i] * 5 + [vp]
@@ -134,6 +136,58 @@ def _dense_two_source(q, k0, v0, k1, v1, w0: float, w1: float):
     return _chunked_dense_attention(q, k, v, bias)
 
 
+def _dense_attention_prefix(q, k0, v0, k1, v1, weight0: float = 1.0,
+                            weight1: float = 1.0, own_valid=None):
+    """Two-source dense attention without materializing broadcast+concat
+    K/V: softmax over [prefix scores ; own scores], f32. q [S, H, Nq, d];
+    k0/v0 [S0, H, N0, d] with S0 in {1, S}; k1/v1 [S, H, N1, d].
+
+    weight0/weight1: key multiplicity of each panel. own_valid: optional
+    bool [S, N1]; False marks pad keys of the own panel (sfx_bucket), which
+    score -inf, so a row with no valid own key falls back to prefix-only
+    attention. A zero-width own panel is single-source attention over the
+    prefix. The shared-prefix engines' dense route, and the plain version
+    of K2 with own-key lengths."""
+    qf = q.float()
+    sub0 = 'hkd' if k0.shape[0] == 1 else 'shkd'
+    k0f = (k0[0] if k0.shape[0] == 1 else k0).float()
+    v0f = (v0[0] if v0.shape[0] == 1 else v0).float()
+    s0 = torch.einsum(f'shqd,{sub0}->shqk', qf, k0f)
+    if k1.shape[2] == 0:
+        p0 = torch.softmax(s0, dim=-1)
+        o = torch.einsum(f'shqk,{sub0}->shqd', p0, v0f)
+        return o.to(v1.dtype)
+    s1 = torch.einsum('shqd,shkd->shqk', qf, k1.float())
+    if weight0 != 1.0:
+        s0 = s0 + float(np.log(weight0))
+    if weight1 != 1.0:
+        s1 = s1 + float(np.log(weight1))
+    if own_valid is not None:
+        s1 = s1.masked_fill(~own_valid[:, None, None, :], float('-inf'))
+    m = torch.maximum(s0.amax(-1, keepdim=True), s1.amax(-1, keepdim=True))
+    p0 = torch.exp(s0 - m)
+    p1 = torch.exp(s1 - m)
+    l = p0.sum(-1, keepdim=True) + p1.sum(-1, keepdim=True)
+    o = torch.einsum(f'shqk,{sub0}->shqd', p0, v0f)
+    o = o + torch.einsum('shqk,shkd->shqd', p1, v1.float())
+    return (o / l).to(v1.dtype)
+
+
+def own_lengths(key_valid):
+    """The own_len of flash_attention_prefix for a pad-key mask key_valid
+    bool [S, N1] (True: a real key) whose pads trail the real keys, as
+    ``fast_vmae.pad_vis1_idx`` lays them: int32 [S], made on the mask's
+    device without a host wait. On the CPU a mask of another form
+    raises."""
+    own_len = key_valid.sum(-1, dtype=torch.int32)
+    if key_valid.device.type == 'cpu':
+        trailing = torch.arange(key_valid.shape[-1]) < own_len[:, None]
+        if not torch.equal(trailing, key_valid):
+            raise ValueError('own_lengths: pad keys must trail the real '
+                             'keys of each row')
+    return own_len
+
+
 def kernel_head_dim(d: int) -> int:
     """The kernel head dim that carries head dim d: the least of
     _HEAD_DIMS not below it."""
@@ -179,9 +233,10 @@ def _check_cuda(what, q, *kv):
 
 
 def _launch(q, k0, v0, shared0: bool, w0: float, k1, v1, w1: float,
-            lse=None):
+            lse=None, own_len=None, pack: int = 1):
     """One launch of csrc/attention.cu at the padded head dim; the output
-    sliced back to q's."""
+    sliced back to q's. own_len: None or int32 [B] on q's device; pack: the
+    samples one block packs (1: none)."""
     d_in = q.shape[3]
     q, k0, v0 = pad_head_dim(q, k0, v0)
     if k1 is not None:
@@ -198,7 +253,8 @@ def _launch(q, k0, v0, shared0: bool, w0: float, k1, v1, w1: float,
             None if k1 is None else k1.data_ptr(),
             None if v1 is None else v1.data_ptr(), n1, float(w1),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b * h, h, nq, d, _DTYPES[q.dtype], stream)
+            b * h, h, nq, d, _DTYPES[q.dtype],
+            None if own_len is None else own_len.data_ptr(), pack, stream)
     kernels.check(err, 'attention kernel')
     return out if d == d_in else out[..., :d_in]
 
@@ -302,17 +358,26 @@ def _refuse_grad(what, *tensors):
             'differentiable kernel)')
 
 
+_PACK_ROWS = 128   # query rows of a bf16 K2 block
+
+
 def flash_attention_prefix(q, k0, v0, k1, v1, prefix_weight: float = 1.0,
-                           suffix_weight: float = 1.0) -> torch.Tensor:
+                           suffix_weight: float = 1.0,
+                           own_len=None) -> torch.Tensor:
     """Attention over [prefix keys ; own keys] in ONE softmax without
     materializing the prefix per sample.
 
     q [S, H, Nq, D] pre-scaled; k0, v0 [1, H, N0, D] shared by every
     sample (read in place) or [S, H, N0, D] per sample; k1, v1
     [S, H, N1, D]. prefix_weight / suffix_weight: key multiplicity of each
-    panel (equal to a +ln w logit bias). CUDA: the K2 kernel, which has no
-    backward (RuntimeError when a gradient is asked for); CPU: the plain
-    version."""
+    panel (equal to a +ln w logit bias). own_len: optional int32 [S] on q's
+    device (``own_lengths``): sample s's own keys at or past own_len[s] are
+    pad keys and score -inf (0: the prefix alone). CUDA: the K2 kernel,
+    which has no backward (RuntimeError when a gradient is asked for); in
+    bf16 with a shared prefix and Nq <= 64 one block packs
+    floor(128 / Nq) samples' queries (also counted under
+    ``flash_attention_prefix_packed``). CPU: the plain version
+    (``_dense_attention_prefix`` with own_len)."""
     s = q.shape[0]
     s0 = k0.shape[0]
     if s0 not in (1, s):
@@ -326,14 +391,29 @@ def flash_attention_prefix(q, k0, v0, k1, v1, prefix_weight: float = 1.0,
         raise ValueError(
             f'flash_attention_prefix: empty panel (N0={n0}, N1={n1}); '
             'use flash_attention for single-source attention')
+    if own_len is not None and (
+            own_len.dtype != torch.int32 or tuple(own_len.shape) != (s,)
+            or own_len.device != q.device or not own_len.is_contiguous()):
+        raise ValueError('flash_attention_prefix: own_len must be a '
+                         f'contiguous int32 [{s}] on q\'s device')
     if q.device.type == 'cpu':
+        if own_len is not None:
+            own_valid = torch.arange(n1) < own_len[:, None]
+            return _dense_attention_prefix(q, k0, v0, k1, v1,
+                                           float(prefix_weight),
+                                           float(suffix_weight), own_valid)
         return _dense_two_source(q, k0, v0, k1, v1, float(prefix_weight),
                                  float(suffix_weight))
     _refuse_grad('flash_attention_prefix', q, k0, v0, k1, v1)
     _check_cuda('flash_attention_prefix', q, k0, v0, k1, v1)
     if k0.shape != v0.shape or k1.shape != v1.shape or k1.shape[0] != s:
         raise ValueError('flash_attention_prefix: k/v shape mismatch')
+    nq = q.shape[2]
+    pack = (_PACK_ROWS // nq if s0 == 1 and q.dtype == torch.bfloat16
+            and nq <= _PACK_ROWS // 2 else 1)
     out = _launch(q, k0, v0, s0 == 1, prefix_weight, k1, v1,
-                  suffix_weight)
+                  suffix_weight, own_len=own_len, pack=pack)
     kernels.LAUNCHES['flash_attention_prefix'] += 1
+    if pack > 1:
+        kernels.LAUNCHES['flash_attention_prefix_packed'] += 1
     return out

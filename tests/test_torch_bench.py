@@ -255,7 +255,8 @@ def test_bench_main_on_cpu(monkeypatch, capsys):
     assert rec['mfu_executed'] is None        # no card: no device metric
     assert len(rec['window_ms']) == 3
     assert set(rec['launches_per_dispatch']) == {
-        'flash_attention', 'flash_attention_prefix', 'flash_attention_lse',
+        'flash_attention', 'flash_attention_prefix',
+        'flash_attention_prefix_packed', 'flash_attention_lse',
         'flash_attention_bwd', 'window_lookup', 'add_layer_norm'}
 
 

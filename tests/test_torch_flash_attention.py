@@ -65,3 +65,36 @@ def test_flash_attention_prefix_rejections():
         tfa.flash_attention_prefix(q, z(1, 2, 4, 16), z(1, 2, 4, 16),
                                    z(3, 2, 0, 16), z(3, 2, 0, 16))
 
+
+
+@pytest.mark.parametrize('s0', [1, 4])
+def test_flash_attention_prefix_plain_with_own_lengths(s0):
+    """With own_len the plain branch is the engine's dense route
+    (_dense_attention_prefix with the pad-key mask), bitwise: lengths 0
+    (the prefix alone), 1, part of the panel and all of it. own_lengths
+    makes them from a mask whose pads trail, and refuses any other."""
+    rng = np.random.RandomState(2)
+    s, h, nq, n0, n1, d = 4, 2, 6, 9, 6, 16
+    q = t(rng.randn(s, h, nq, d).astype(np.float32) * 0.3)
+    k0, v0 = (t(rng.randn(s0, h, n0, d).astype(np.float32))
+              for _ in range(2))
+    k1, v1 = (t(rng.randn(s, h, n1, d).astype(np.float32))
+              for _ in range(2))
+    valid = torch.arange(n1)[None] < torch.tensor([0, 1, 4, 6])[:, None]
+    own_len = tfa.own_lengths(valid)
+    assert own_len.dtype == torch.int32
+    assert own_len.tolist() == [0, 1, 4, 6]
+    before = dict(kernels.LAUNCHES)
+    for w in ((1.0, 1.0), (4.0, 16.0)):
+        out = tfa.flash_attention_prefix(q, k0, v0, k1, v1, *w,
+                                         own_len=own_len)
+        assert torch.equal(out, tfa._dense_attention_prefix(
+            q, k0, v0, k1, v1, *w, own_valid=valid))
+    assert kernels.LAUNCHES == before
+    holes = valid.clone()
+    holes[2, 1] = False
+    with pytest.raises(ValueError, match='trail'):
+        tfa.own_lengths(holes)
+    with pytest.raises(ValueError, match='own_len'):
+        tfa.flash_attention_prefix(q, k0, v0, k1, v1,
+                                   own_len=own_len.long())

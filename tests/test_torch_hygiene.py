@@ -228,6 +228,7 @@ def test_kernel_sources_and_counters():
                                     'window_lookup', 'layer_norm'}
     assert set(kernels.LAUNCHES) == {'flash_attention',
                                      'flash_attention_prefix',
+                                     'flash_attention_prefix_packed',
                                      'flash_attention_lse',
                                      'flash_attention_bwd',
                                      'window_lookup', 'add_layer_norm'}

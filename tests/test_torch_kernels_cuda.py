@@ -100,6 +100,63 @@ def test_flash_attention_prefix_kernel_matches_plain(dev, dtype, atol):
         assert _err(out, ref) <= atol, (s0, n0, n1, w, d)
 
 
+# (S, H, Nq, N0, N1, S0, weights, D): the cf and imu encoder suffixes
+# (ViT-L, ViT-B; 33 visible frame-1 tokens bucketed to 40), Nq 33 and 64
+# (3 and 2 samples a block) with S not a multiple of them, Nq 65 (no
+# packing), N1 past Nq (the packed own panel over several key tiles), head
+# dims 32 and 128 (64-key tiles), and stacked per-sample prefixes (S0 = S:
+# no packing)
+_OWN_CASES = [(256, 16, 40, 3136, 40, 1, (1.0, 1.0), 64),
+              (256, 12, 40, 3136, 40, 1, (1.0, 1.0), 64),
+              (7, 2, 33, 300, 33, 1, (1.0, 4.0), 64),
+              (5, 2, 64, 200, 64, 1, (4.0, 1.0), 64),
+              (5, 2, 65, 200, 65, 1, (1.0, 1.0), 64),
+              (3, 2, 20, 129, 70, 1, (1.0, 1.0), 64),
+              (7, 2, 40, 300, 40, 1, (1.0, 1.0), 128),
+              (7, 2, 40, 300, 40, 1, (1.0, 1.0), 32),
+              (4, 2, 40, 300, 40, 4, (1.0, 1.0), 64)]
+
+
+@pytest.mark.parametrize('dtype,atol', [(torch.float32, 3e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_flash_attention_prefix_own_lengths_match_plain(dev, dtype, atol):
+    """K2 with own-key lengths (the bucketed encoder suffix) against its
+    plain version, the dense two-source attention with the pad-key mask:
+    lengths drawn from 0 (the prefix alone), 1, 33 and all. The pad keys
+    hold NaN, which only a read of them could carry into the output. bf16
+    with a shared prefix and Nq <= 64 packs floor(128 / Nq) samples a
+    block, counted under flash_attention_prefix_packed too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(9)
+    for s, h, nq, n0, n1, s0, w, d in _OWN_CASES:
+        q = _rand(rng, s, h, nq, d, scale=d ** -0.5).to(dev, dtype)
+        k0, v0 = (_rand(rng, s0, h, n0, d).to(dev, dtype) for _ in range(2))
+        k1, v1 = (_rand(rng, s, h, n1, d).to(dev, dtype) for _ in range(2))
+        lens = rng.choice([0, 1, min(33, n1), n1], s).astype(np.int32)
+        own_len = torch.from_numpy(lens).to(dev)
+        valid = torch.arange(n1, device=dev) < own_len[:, None]
+        pads = ~valid[:, None, :, None]
+        nan = float('nan')
+        before = dict(kernels.LAUNCHES)
+        out = fa.flash_attention_prefix(q, k0, v0, k1.masked_fill(pads, nan),
+                                        v1.masked_fill(pads, nan), *w,
+                                        own_len=own_len)
+        packed = int(dtype == torch.bfloat16 and s0 == 1 and nq <= 64)
+        assert kernels.LAUNCHES == dict(
+            before,
+            flash_attention_prefix=before['flash_attention_prefix'] + 1,
+            flash_attention_prefix_packed=(
+                before['flash_attention_prefix_packed'] + packed))
+        ref = fa._dense_attention_prefix(q, k0, v0, k1, v1, *w,
+                                         own_valid=valid)
+        case = (s, h, nq, n0, n1, s0, w, d)
+        assert out.shape == q.shape and bool(torch.isfinite(out).all()), case
+        assert _err(out, ref) <= atol, case
+        del ref
+    with pytest.raises(ValueError, match='own_len'):
+        fa.flash_attention_prefix(q, k0, v0, k1, v1, own_len=own_len[:-1])
+
+
 def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
     q = torch.zeros(1, 2, 8, 64, device=dev)
     with pytest.raises(ValueError, match='contiguous'):
@@ -633,10 +690,9 @@ def test_flow_generator_on_the_card_matches_the_cpu(dev, engine):
     # it), each with a 2-iteration RAFT: 2 lookups per chunk
     if engine == 'fast':
         # one scene: its prefix once (K1 in every block), then the suffix
-        # decoder (K2 in every decoder block) per chunk; the LayerNorms of
-        # the cold chunk and of the two on the cached prefix
-        want = dict(flash_attention=depth,
-                    flash_attention_prefix=3 * model.decoder_depth,
+        # (K2 in every encoder and decoder block) per chunk; the LayerNorms
+        # of the cold chunk and of the two on the cached prefix
+        want = dict(flash_attention=depth, flash_attention_prefix=3 * depth,
                     window_lookup=3 * 2,
                     add_layer_norm=_cold_norms(le, ld)
                     + 2 * _warm_norms(le, ld))
@@ -821,12 +877,13 @@ def test_imu_generator_on_the_card_matches_the_cpu(dev, engine,
     assert max(_err(yc, yg), _err(fc, fg)) <= 1e-3
     assert not any(lc.values())
     # flow2imu once (K1 in its 8 blocks, RAFT-2 forward and backward), two
-    # chunks: fast, the prefix once (4 main blocks) and K2 in both decoder
-    # blocks per chunk; exact, the predictor's 8 blocks per chunk
+    # chunks: fast, the prefix once (4 main blocks) and K2 in both encoder
+    # and both decoder blocks per chunk; exact, the predictor's 8 blocks
+    # per chunk
     norms = norm_calls.count('cuda')
     assert norms == norm_calls.count('cpu')
     assert (norms > 0) == (engine == 'fast')
-    want = (dict(flash_attention=8 + 4, flash_attention_prefix=4,
+    want = (dict(flash_attention=8 + 4, flash_attention_prefix=2 * 4,
                  window_lookup=4 + 4, add_layer_norm=norms)
             if engine == 'fast' else
             dict(flash_attention=8 + 16, window_lookup=4 + 4))
@@ -939,11 +996,11 @@ def test_service_fast_route_on_the_card_matches_the_cpu(dev, monkeypatch):
     depth = model.encoder_depth + model.decoder_depth
     le, ld = model.encoder_depth, model.decoder_depth
     # the first scene's prefix, the second scene's (the first is a hit),
-    # the suffix decoder in both dispatches, a RAFT-2 in each; the
-    # LayerNorms: a cold dispatch, then the second scene's prefix (its
+    # the suffix (K2 in every block) in both dispatches, a RAFT-2 in each;
+    # the LayerNorms: a cold dispatch, then the second scene's prefix (its
     # blocks' 2 Le + 2 Ld and enc_norm) and one suffix pass over both
     assert lg == dict({k: 0 for k in lg}, flash_attention=2 * depth,
-                      flash_attention_prefix=2 * model.decoder_depth,
+                      flash_attention_prefix=2 * depth,
                       window_lookup=2 * 2,
                       add_layer_norm=_cold_norms(le, ld)
                       + (2 * le + 2 * ld + 1) + _warm_norms(le, ld)), lg
