@@ -40,7 +40,7 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    path's shapes: K1 at the ViT-B 4x4 prefix and at the IMU stream's head
    dim 32, K2 at the conjoined decoder suffix; K2 with own-key lengths at
    the cf and imu encoder suffixes (3 samples a block in bf16), against
-   the dense route it replaced; K1, K5 and K6 at head dims
+   K2's plain version; K1, K5 and K6 at head dims
    8, 24 and 48 (run padded to 16, 32 and 64) in f32 and bf16; K5 and K6
    at the ChannelMAE trainer's shapes (with and without the flow group)
    and at the imu400 main stream's; K1, K5 and K6 at one tp = 2 rank's
@@ -515,12 +515,12 @@ def attention_cases(torch, F, fa, rec):
             k = rnd(b, h, nk, d, dtype=dtype)
             v = rnd(b, h, nk, d, dtype=dtype)
             out = fa.flash_attention(q, k, v)
-            ref = fa._chunked_dense_attention(q, k, v)
+            ref = fa.dense_attention(q, k, v)
             err = max_err(out, ref)
             tol = attention_tol(dn, ref, TOL_F32)
             ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
             plain_ms = time_ms(torch,
-                               lambda: fa._chunked_dense_attention(q, k, v))
+                               lambda: fa.dense_attention(q, k, v))
             lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=1.0))
             item = q.element_size()
@@ -562,11 +562,12 @@ def attention_cases(torch, F, fa, rec):
             k1, v1 = (rnd(s, h, n1, 64, dtype=dtype) for _ in range(2))
             args = (q, k0, v0, k1, v1, w0, w1)
             out = fa.flash_attention_prefix(*args)
-            ref = fa._dense_two_source(*args)
+            ref = fa._dense_attention_prefix(*args)
             err = max_err(out, ref)
             tol = attention_tol(dn, ref, TOL_K2_F32)
             ms = time_ms(torch, lambda: fa.flash_attention_prefix(*args))
-            plain_ms = time_ms(torch, lambda: fa._dense_two_source(*args))
+            plain_ms = time_ms(torch,
+                               lambda: fa._dense_attention_prefix(*args))
             kc = torch.cat([k0.expand(s, -1, -1, -1), k1], 2)
             vc = torch.cat([v0.expand(s, -1, -1, -1), v1], 2)
             bias = torch.cat([torch.full((n0,), math.log(w0), device=dev),
@@ -956,7 +957,7 @@ def training_kernel_cases(torch, F, fa, rec):
         dn = str(dtype).split('.')[1]
         q, k, v, do = inputs(bc, h, nq, nk, d, dtype)
         out, lse = fa._flash_forward_lse(q, k, v)
-        ref, ref_lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+        ref, ref_lse = fa.dense_attention(q, k, v, with_lse=True)
         delta = (do.float() * out.float()).sum(-1)
         grads = fa._flash_backward(q, k, v, do, lse, delta)
         again = fa._flash_backward(q, k, v, do, lse, delta)
@@ -978,7 +979,7 @@ def training_kernel_cases(torch, F, fa, rec):
         out, lse = fa._flash_forward_lse(q, k, v)
         delta = (do.float() * out.float()).sum(-1)
         ms5 = time_ms(torch, lambda: fa._flash_forward_lse(q, k, v))
-        plain5 = time_ms(torch, lambda: fa._chunked_dense_attention(
+        plain5 = time_ms(torch, lambda: fa.dense_attention(
             q, k, v, with_lse=True))
         lib5 = library_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, scale=1.0))
@@ -1083,7 +1084,7 @@ def small_slice(torch, port, rec):
             y, f, m = counterfactual_videos_and_flows_fast(
                 model, fp, raft, *(torch.from_numpy(v).to(dev) for v in
                                    (x, p, a, shifts, noise)),
-                pad, True, 2, True, True, True, None, *rung, n_vis=n_vis)
+                pad, True, 2, True, None, *rung, n_vis=n_vis)
             outs[dev] = (y.cpu(), f.cpu(), m.cpu(),
                          engine_launches(port))
         (yc, fc, mc, lc), (yg, fg, mg, lg) = outs['cpu'], outs['cuda']
@@ -1198,7 +1199,7 @@ def full_width(torch, port, rec, smi):
     def dispatch(rung):
         return counterfactual_videos_and_flows_fast(
             model, fp, raft, x, p, a, shifts, noise, pad, True, 24, True,
-            True, True, None, *rung, n_vis=n_vis)
+            None, *rung, n_vis=n_vis)
 
     results = []
     for name, rung in (('default', default), ('exact', (1, 1, 'erf'))):
@@ -1674,7 +1675,7 @@ def generator_phase(torch, port, rec, smi, ctx):
     def direct(cache=None):
         return segmentation.counterfactual_videos_and_flows_fast(
             cfg, ctx['fp'], raft, x, passive, active, shifts, noise, pad,
-            True, 24, True, True, True, cache, *ctx['default'], n_vis=n_vis)
+            True, 24, True, cache, *ctx['default'], n_vis=n_vis)
 
     y_d, f_d, m_d = direct()
     agree = dict(masks_bitwise=bool(torch.equal(m_d, seen['m'])),
@@ -1776,8 +1777,8 @@ def generator_phase(torch, port, rec, smi, ctx):
         try:
             return segmentation.counterfactual_videos_and_flows_fast_multi(
                 cfg, gen._fast_params, raft, xs, pas_e, act_e, sh_e,
-                fast_vmae.sfx_bucket(1, n1), True, 24, True, True, True,
-                noise_e, stacked, n_vis=n0 + 1, device=dev)
+                fast_vmae.sfx_bucket(1, n1), True, 24, True, noise_e,
+                stacked, n_vis=n0 + 1, device=dev)
         finally:
             fast_vmae.flash_attention_prefix = real_k2
 
@@ -3559,13 +3560,13 @@ def world_one(torch, port, rec, smi, ctx):
         smesh = parallel.sample_parallel_mesh()
         ref = counterfactual_videos_and_flows_fast(
             model, fp, raft, x, p, a, shifts, noise, ctx['pad'], True, 24,
-            True, True, True, None, *rung, n_vis=n_vis_cf)
+            True, None, *rung, n_vis=n_vis_cf)
         torch.cuda.synchronize()
         port.kernels.reset_launches()
         t1 = time.perf_counter()
         got = parallel.sharded_counterfactuals_fast(
             smesh, model, fp, raft, x, p, a, shifts, noise, n_vis_cf, True,
-            24, True, True, None, *rung)
+            24, None, *rung)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3
         launches = engine_launches(port)
@@ -3672,12 +3673,12 @@ def _small_parallel_work(torch, inputs, mesh=None, smesh=None):
     if smesh is None:
         out = counterfactual_videos_and_flows_fast(
             tiny, fp, raft, d['x'], d['p'], d['a'], d['shifts'], d['noise'],
-            fast_vmae.sfx_bucket(n_vis_cf - n0, n - n0), True, 2, True, True,
+            fast_vmae.sfx_bucket(n_vis_cf - n0, n - n0), True, 2, True,
             n_vis=n_vis_cf)
     else:
         out = parallel.sharded_counterfactuals_fast(
             smesh, tiny, fp, raft, d['x'], d['p'], d['a'], d['shifts'],
-            d['noise'], n_vis_cf, True, 2, True)
+            d['noise'], n_vis_cf, True, 2)
     return dict(metrics=metrics, params=params,
                 dispatch=[o.cpu() for o in out])
 
@@ -4558,7 +4559,7 @@ def fidelity_phase(torch, port, rec, smi):
              if isinstance(report['per_image'][0][k], dict)
              and 'segment' in report['per_image'][0][k]]
     c = dict(seconds=sec, out=os.path.relpath(out_json, HERE),
-             images=report['images'], two_source=report['two_source'],
+             images=report['images'],
              **{k: report[k] for k in (
                  'min_flow_corr', 'min_video_corr', 'min_segment_spearman',
                  'min_movability_pearson', 'max_video_abs_err')},
@@ -4587,7 +4588,7 @@ def fidelity_phase(torch, port, rec, smi):
                               'min_segment_spearman',
                               'min_movability_pearson', 'max_video_abs_err')]
     c['ok'] = (not bad and summed == total and report['backend'] == 'cuda'
-               and report['two_source'] and len(report['per_image']) == 2
+               and len(report['per_image']) == 2
                and all(math.isfinite(v) for v in numbers)
                and len(c['decomposition']) > 4
                and len(report['conjoined']['per_image']) == 2)

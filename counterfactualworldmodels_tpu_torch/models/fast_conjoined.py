@@ -20,10 +20,12 @@ The deviation from the exact model is the frozen main prefix only, as in
 the plain engine. The main blocks are fast_vmae's ``prefix_block_one`` /
 ``suffix_block_one`` (one block body for both engines, each handing its
 MLP output pending to the next norm, a cross block's norm1_cross
-included): on the card K1 runs the prefix blocks, K2 the suffix encoder
-blocks (the bucketing pads masked by own-key lengths) and the suffix
-decoder blocks (the exact rung: no pooling), and the tiny context stream
-runs the plain dense attention, as in the JAX engine.
+included): K1 runs the prefix blocks, K2 the suffix encoder blocks (the
+bucketing pads masked by own-key lengths) and the suffix decoder blocks
+(the exact rung: no pooling), each on the card or as its plain version by
+the tensors' device (ops/flash_attention), and the tiny context stream
+runs K1's plain version, ``dense_attention``, on every device, as in the
+JAX engine.
 
 The engine reads its weights from ``cast_params``: the reference-layout
 state dict re-laid-out (kernels [in, out], blocks as fast_vmae's dicts) and
@@ -37,13 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import patches as patch_ops
+from ..ops.flash_attention import dense_attention
 from ..ops.normalization import imagenet_normalize
 from ..ops.pos_embed import sinusoid_encoding_table
 from ..utils import profiling
 from .conjoined import ConjoinedVMAE
 from .fast_vmae import (HashLru, _add_ln, _block_params, _ln, pad_vis1_idx,
-                        prefix_block_one, resolve_two_source, sfx_bucket,
-                        suffix_block_one)
+                        prefix_block_one, sfx_bucket, suffix_block_one)
 
 
 def conjoined_fast_supported(model: ConjoinedVMAE) -> bool:
@@ -326,7 +328,7 @@ def _ctx_tokens(model: ConjoinedVMAE, params, x_c):
 
 
 def _ctx_block(p, z, heads):
-    z, r, _ = prefix_block_one(p, z, heads, False)
+    z, r, _ = prefix_block_one(p, z, heads, attention=dense_attention)
     return z + r
 
 
@@ -346,19 +348,19 @@ def _ctx_dec_tokens(model, params, ctx, dtype):
 
 
 @torch.no_grad()
-def encode_conjoined_prefix(model: ConjoinedVMAE, params, x0, x_c,
-                            use_flash: bool) -> ConjoinedPrefixCache:
+def encode_conjoined_prefix(model: ConjoinedVMAE, params, x0,
+                            x_c) -> ConjoinedPrefixCache:
     """The shared (frame 0 + context) conjoined pass of one scene.
 
     x0: [1, C, H, W] preprocessed main frame 0; x_c: [1, C, L] raw IMU
     (before the dummy token), all visible. The pass is the span
     ``cf.prefix_build``."""
     with profiling.span('cf.prefix_build'):
-        return _encode_prefix(model, params, x0, x_c, use_flash)
+        return _encode_prefix(model, params, x0, x_c)
 
 
-def _encode_prefix(model: ConjoinedVMAE, params, x0, x_c,
-                   use_flash: bool) -> ConjoinedPrefixCache:
+def _encode_prefix(model: ConjoinedVMAE, params, x0,
+                   x_c) -> ConjoinedPrefixCache:
     m, c = model.main, model.context
     n0 = m.num_patches // m.num_frames
     enc = params['main_encoder']
@@ -380,7 +382,7 @@ def _encode_prefix(model: ConjoinedVMAE, params, x0, x_c,
     for idx, (pi, pj) in enumerate(model.enc_pairs):
         while i < pi:
             h, r, kv = prefix_block_one(enc['blocks'][i], h,
-                                        m.encoder_num_heads, use_flash, r)
+                                        m.encoder_num_heads, r)
             enc_kvs.append(kv)
             i += 1
         while j < pj:
@@ -392,7 +394,7 @@ def _encode_prefix(model: ConjoinedVMAE, params, x0, x_c,
         enc_cross_kv.append(ckv)
     for k in range(i, m.encoder_depth):
         h, r, kv = prefix_block_one(enc['blocks'][k], h, m.encoder_num_heads,
-                                    use_flash, r)
+                                    r)
         enc_kvs.append(kv)
     for k in range(j, c.encoder_depth):
         s_ctx = _ctx_block(ce['blocks'][k], s_ctx, c.encoder_num_heads)
@@ -412,7 +414,7 @@ def _encode_prefix(model: ConjoinedVMAE, params, x0, x_c,
     for idx, (pi, pj) in enumerate(model.dec_pairs):
         while i <= pi:
             z0, r, kv = prefix_block_one(dec['blocks'][i], z0,
-                                         m.decoder_num_heads, use_flash, r)
+                                         m.decoder_num_heads, r)
             dec_kvs.append(kv)
             i += 1
         while j <= pj:
@@ -424,7 +426,7 @@ def _encode_prefix(model: ConjoinedVMAE, params, x0, x_c,
         dec_cross_kv.append(ckv)
     for k in range(i, m.decoder_depth):
         z0, r, kv = prefix_block_one(dec['blocks'][k], z0,
-                                     m.decoder_num_heads, use_flash, r)
+                                     m.decoder_num_heads, r)
         dec_kvs.append(kv)
     return ConjoinedPrefixCache(
         ctx_tokens=ctx0, enc_kvs=tuple(enc_kvs),
@@ -439,7 +441,6 @@ def _encode_prefix(model: ConjoinedVMAE, params, x0, x_c,
 @torch.no_grad()
 def predict_frame1_conjoined(model: ConjoinedVMAE, params,
                              cache: ConjoinedPrefixCache, x1n, vis1_idx,
-                             use_flash: bool, two_source: bool,
                              key_valid=None):
     """Encode the visible frame-1 tokens against the cached prefix with an
     exact per-sample context stream alongside, then decode every frame-1
@@ -459,10 +460,9 @@ def predict_frame1_conjoined(model: ConjoinedVMAE, params,
     with profiling.span('cf.suffix'):
         with profiling.span('cf.suffix.encoder'):
             z1, ctx = _suffix_encoder(model, params, cache, x1n, vis1_idx,
-                                      use_flash, key_valid)
+                                      key_valid)
         with profiling.span('cf.suffix.decoder'):
-            return _suffix_decoder(model, params, cache, z1, ctx, use_flash,
-                                   two_source)
+            return _suffix_decoder(model, params, cache, z1, ctx)
 
 
 def _ctx_blocks(blocks, ctx, heads: int, lo: int, hi: int):
@@ -476,13 +476,12 @@ def _ctx_blocks(blocks, ctx, heads: int, lo: int, hi: int):
 
 
 def _suffix_encoder(model: ConjoinedVMAE, params,
-                    cache: ConjoinedPrefixCache, x1n, vis1_idx,
-                    use_flash: bool, key_valid):
+                    cache: ConjoinedPrefixCache, x1n, vis1_idx, key_valid):
     """The encoder suffix: the visible frame-1 tokens against the cached
-    prefix beside the per-sample context stream; with use_flash its
-    self-attention runs on K2 (the pad keys masked by own-key lengths),
-    else dense. Returns (the main decoder's frame-1 rows and null-padding
-    rows [S, N1 (+ pads), Cd], the encoded context [S, M, Ec])."""
+    prefix beside the per-sample context stream; its self-attention runs
+    on K2 (the pad keys masked by own-key lengths). Returns (the main
+    decoder's frame-1 rows and null-padding rows [S, N1 (+ pads), Cd], the
+    encoded context [S, M, Ec])."""
     m, c = model.main, model.context
     n0 = m.num_patches // m.num_frames
     n1 = m.num_patches - n0
@@ -511,8 +510,8 @@ def _suffix_encoder(model: ConjoinedVMAE, params,
     for idx, (pi, pj) in enumerate(model.enc_pairs):
         while i < pi:
             h, r = suffix_block_one(enc['blocks'][i], cache.enc_kvs[i], h,
-                                    m.encoder_num_heads, use_flash,
-                                    use_flash, key_valid=key_valid, r=r)
+                                    m.encoder_num_heads, key_valid=key_valid,
+                                    r=r)
             i += 1
         ctx = _ctx_blocks(ce['blocks'], ctx, c.encoder_num_heads, j, pj)
         j = max(j, pj)
@@ -524,8 +523,8 @@ def _suffix_encoder(model: ConjoinedVMAE, params,
         r = None
     for k in range(i, m.encoder_depth):
         h, r = suffix_block_one(enc['blocks'][k], cache.enc_kvs[k], h,
-                                m.encoder_num_heads, use_flash, use_flash,
-                                key_valid=key_valid, r=r)
+                                m.encoder_num_heads, key_valid=key_valid,
+                                r=r)
     ctx = _ctx_blocks(ce['blocks'], ctx, c.encoder_num_heads, j,
                       c.encoder_depth)
     _, h = _add_ln(h, r, enc['norm'])
@@ -552,8 +551,7 @@ def _suffix_encoder(model: ConjoinedVMAE, params,
 
 
 def _suffix_decoder(model: ConjoinedVMAE, params,
-                    cache: ConjoinedPrefixCache, z1, ctx, use_flash: bool,
-                    two_source: bool):
+                    cache: ConjoinedPrefixCache, z1, ctx):
     """Every frame-1 row through the decoder against the cached prefix
     (the exact rung: no pooling) beside the per-sample context decoder;
     the head's output [S, N1, out_dim]."""
@@ -569,8 +567,7 @@ def _suffix_decoder(model: ConjoinedVMAE, params,
     for idx, (pi, pj) in enumerate(model.dec_pairs):
         while i <= pi:
             z1, r = suffix_block_one(dec['blocks'][i], cache.dec_kvs[i], z1,
-                                     m.decoder_num_heads, use_flash,
-                                     two_source, r=r)
+                                     m.decoder_num_heads, r=r)
             i += 1
         zc = _ctx_blocks(cd['blocks'], zc, c.decoder_num_heads, j, pj + 1)
         j = max(j, pj + 1)
@@ -581,8 +578,7 @@ def _suffix_decoder(model: ConjoinedVMAE, params,
         r = None
     for k in range(i, m.decoder_depth):
         z1, r = suffix_block_one(dec['blocks'][k], cache.dec_kvs[k], z1,
-                                 m.decoder_num_heads, use_flash, two_source,
-                                 r=r)
+                                 m.decoder_num_heads, r=r)
     # LayerNorm is per row: the null-padding rows are normalised and dropped
     y1 = _add_ln(z1, r, dec['norm'])[1][:, :n1]
     return _dense_b(dec['head'], y1)
@@ -594,10 +590,9 @@ def _suffix_decoder(model: ConjoinedVMAE, params,
 
 def predict_videos_conjoined_prefix(wrapper, params, x_mocos, mask_mocos,
                                     x_context, mask_context, n_vis: int,
-                                    normalize: bool, use_flash: bool,
+                                    normalize: bool,
                                     cache: Optional[ConjoinedPrefixCache]
-                                    = None,
-                                    two_source: Optional[bool] = None):
+                                    = None):
     """The fast path of the IMU-conditioned counterfactual forward:
     x_mocos [S, 2, C, H, W] sharing frame 0, frame 0 fully visible, the IMU
     context [1, C, L] shared and fully visible. Returns [S, 2, C, H, W]:
@@ -624,14 +619,12 @@ def predict_videos_conjoined_prefix(wrapper, params, x_mocos, mask_mocos,
             'shared-prefix engine requires frame 0 fully visible')
     return _conjoined_videos_core(
         wrapper, params, x_mocos, mask_mocos, x_context, mask_context,
-        sfx_bucket(n_vis - n0, m.num_patches - n0), normalize, use_flash,
-        resolve_two_source(use_flash, two_source), cache)
+        sfx_bucket(n_vis - n0, m.num_patches - n0), normalize, cache)
 
 
 @torch.no_grad()
 def _conjoined_videos_core(wrapper, params, x_mocos, mask_mocos, x_context,
                            mask_context, n_sfx_pad: int, normalize: bool,
-                           use_flash: bool, two_source: bool,
                            cache: Optional[ConjoinedPrefixCache] = None):
     """n_sfx_pad: the bucketed suffix width (fast_vmae.sfx_bucket); each
     row's visible frame-1 count must be at most it."""
@@ -649,10 +642,9 @@ def _conjoined_videos_core(wrapper, params, x_mocos, mask_mocos, x_context,
         mask1 = mask_m[:, n0:]
         vis1_idx = pad_vis1_idx(mask1, n_sfx_pad)
     if cache is None:
-        cache = encode_conjoined_prefix(model, params, x_m[0:1, :, 0], x_c,
-                                        use_flash)
+        cache = encode_conjoined_prefix(model, params, x_m[0:1, :, 0], x_c)
     y1 = predict_frame1_conjoined(model, params, cache, x_m[:, :, 1],
-                                  vis1_idx, use_flash, two_source,
+                                  vis1_idx,
                                   key_valid=vis1_idx < mask1.shape[-1])
     with profiling.span('cf.assemble'):
         patch = (m.tubelet_size,) + m.patch_size
@@ -665,7 +657,7 @@ def _conjoined_videos_core(wrapper, params, x_mocos, mask_mocos, x_context,
 
 @torch.no_grad()
 def make_conjoined_prefix_cache(wrapper, params, x, x_context,
-                                normalize: bool, use_flash: bool):
+                                normalize: bool):
     """The prefix cache of one scene. x: [1, 2, C, H, W] raw scene;
     x_context: [1, C, L] raw IMU."""
     model = wrapper.model
@@ -679,7 +671,7 @@ def make_conjoined_prefix_cache(wrapper, params, x, x_context,
         torch.zeros((1, model.context.num_patches), dtype=torch.bool,
                     device=dev))
     return encode_conjoined_prefix(model, params, x_m[0:1, :, 0],
-                                   x_c[..., 0, 0], use_flash)
+                                   x_c[..., 0, 0])
 
 
 def stack_conjoined_prefix_caches(caches) -> ConjoinedPrefixCache:
@@ -705,11 +697,10 @@ class ConjoinedPrefixLru(HashLru):
     get(x, x_context) with x [1, 2, C, H, W] raw scene and x_context
     [1, C, L] raw IMU -> (ConjoinedPrefixCache, hit)."""
 
-    def __init__(self, wrapper, params, use_flash: bool, normalize: bool,
-                 size: int = 4):
+    def __init__(self, wrapper, params, normalize: bool, size: int = 4):
         super().__init__(size)
         self.wrapper, self.params = wrapper, params
-        self.use_flash, self.normalize = use_flash, normalize
+        self.normalize = normalize
 
     def _key_arrays(self, x, x_context):
         # the prefix depends on frame 0 and the context, not on frame 1
@@ -717,6 +708,5 @@ class ConjoinedPrefixLru(HashLru):
 
     def _build(self, x, x_context):
         return make_conjoined_prefix_cache(self.wrapper, self.params, x,
-                                           x_context, self.normalize,
-                                           self.use_flash)
+                                           x_context, self.normalize)
 

@@ -8,10 +8,11 @@ states ONCE (frame-0 queries attend frame-0 keys only) and caches their
 per-layer keys/values; per-sample (suffix) tokens then attend
 [cached prefix K/V ; own K/V].
 
-Attention on the path goes to the hand-written kernels on CUDA
-(ops/flash_attention: K1 for the prefix blocks, K2 for the suffix encoder,
-its bucketing pads masked by own-key lengths, and the suffix decoder) and
-to their plain versions on the CPU. Every LayerNorm goes through
+Every block's attention is one call into ops/flash_attention, which runs
+the hand-written kernel on CUDA tensors and its plain version on CPU ones:
+``flash_attention`` (K1) for the prefix blocks, ``flash_attention_prefix``
+(K2) for the suffix encoder, its bucketing pads masked by own-key lengths,
+and the suffix decoder. Every LayerNorm goes through
 ``ops.layer_norm.add_layer_norm`` (the one-pass kernel of
 ``csrc/layer_norm.cu`` on CUDA) with the residual add before it folded in:
 a block returns its stream h and its MLP output m pending, and the next
@@ -36,13 +37,12 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..ops import patches as patch_ops
-from ..ops.flash_attention import (_dense_attention_prefix, flash_attention,
-                                   flash_attention_prefix, own_lengths)
+from ..ops.flash_attention import (flash_attention, flash_attention_prefix,
+                                   own_lengths)
 from ..ops.layer_norm import add_layer_norm
 from ..ops.normalization import imagenet_normalize
 from ..ops.pos_embed import sinusoid_encoding_table
 from ..utils import profiling
-from .layers import dense_attention
 from .vmae import PretrainVisionTransformer, mask_order
 
 
@@ -223,12 +223,9 @@ def sfx_bucket(n_sfx: int, n1: int) -> int:
     """Bucketed per-sample visible-frame-1 width: 4, 8, 16, then widening
     midpoints (24, 32, 40, 48, 64, 96, ...), capped at n1; 0 stays 0. Pad
     slots carry the sentinel index n1, which the engine masks out of
-    attention and drops at the scatter, so bucketing is numerics-neutral.
-    CWM_SFX_BUCKET=0 disables it."""
+    attention and drops at the scatter, so bucketing is numerics-neutral."""
     if n_sfx <= 0:
         return 0
-    if os.environ.get('CWM_SFX_BUCKET', '1') == '0':
-        return n_sfx
     for b in (4, 8, 16, 24, 32, 40, 48, 64, 96, 128, 192, 256, 384, 512,
               768, 1024, 1536, 2048, 3072, 4096):
         if b >= n_sfx or b >= n1:
@@ -249,23 +246,18 @@ def pad_vis1_idx(mask1, n_sfx_pad: int):
                        torch.full_like(order, n1))
 
 
-def _dense_attention(q, k, v):
-    return dense_attention(q, k, v, dtype=v.dtype)
-
-
-def prefix_block_one(p, h, num_heads: int, use_flash: bool, r=None):
+def prefix_block_one(p, h, num_heads: int, r=None,
+                     attention=flash_attention):
     """One pre-norm ViT block over prefix tokens whose stream is h + r (r:
     the previous block's pending MLP output, or None). Returns (h, m,
-    (k, v)): the block's output stream is h + m, m left pending."""
+    (k, v)): the block's output stream is h + m, m left pending.
+    attention(q, k, v): the block's attention, K1 unless the caller names
+    another (the conjoined engine's context stream)."""
     scale = (h.shape[-1] // num_heads) ** -0.5
     b, n, _ = h.shape
     h, ln = _add_ln(h, r, p['norm1'])
     q, k, v = _qkv(p['attn'], ln, num_heads)
-    if use_flash:
-        o = flash_attention(q * scale, k, v)
-    else:
-        o = _dense_attention(q * scale, k, v)
-    o = _proj(p['attn'], o, b, n)
+    o = _proj(p['attn'], attention(q * scale, k, v), b, n)
     if 'gamma_1' in p:
         o = p['gamma_1'] * o
     h, ln = _add_ln(h, o, p['norm2'])
@@ -285,8 +277,7 @@ def _pool_kv_grid(x, pool: int, grid):
     return p.reshape(s, h, (gh // pool) * (gw // pool), d).to(x.dtype)
 
 
-def suffix_block_one(p, kv0, h, num_heads: int, use_flash: bool,
-                     two_source: bool, prefix_weight: float = 1.0,
+def suffix_block_one(p, kv0, h, num_heads: int, prefix_weight: float = 1.0,
                      suffix_pool: int = 1, grid=None, gelu: str = 'erf',
                      key_valid=None, r=None):
     """One pre-norm ViT block: per-sample tokens attend [cached prefix kv0 ;
@@ -298,9 +289,8 @@ def suffix_block_one(p, kv0, h, num_heads: int, use_flash: bool,
     suffix_pool: >1 pools the per-sample keys/values pool x pool over the
     token ``grid`` and weights them pool^2-fold (queries stay full-res).
     key_valid: optional bool [S, N] pad-key mask (sfx_bucket: the pads
-    trail); with use_flash it goes to K2 as own-key lengths (whatever
-    two_source says), else to the dense two-source attention. It cannot be
-    combined with pooling."""
+    trail), which goes to K2 as own-key lengths. It cannot be combined
+    with pooling."""
     scale = (h.shape[-1] // num_heads) ** -0.5
     s, n, _ = h.shape
     k0, v0 = kv0
@@ -313,26 +303,10 @@ def suffix_block_one(p, kv0, h, num_heads: int, use_flash: bool,
         k = _pool_kv_grid(k, suffix_pool, grid)
         v = _pool_kv_grid(v, suffix_pool, grid)
         suffix_weight = float(suffix_pool * suffix_pool)
-    # no suffix tokens (frame 1 fully masked): the dense route takes the
-    # empty shapes, which the kernel refuses
-    if use_flash and (two_source or key_valid is not None) and n > 0:
-        o = flash_attention_prefix(
-            q * scale, k0, v0, k, v, prefix_weight=prefix_weight,
-            suffix_weight=suffix_weight,
-            own_len=None if key_valid is None else own_lengths(key_valid))
-    elif (two_source or prefix_weight != 1.0 or suffix_weight != 1.0
-          or key_valid is not None):
-        o = _dense_attention_prefix(q * scale, k0, v0, k, v,
-                                    weight0=prefix_weight,
-                                    weight1=suffix_weight,
-                                    own_valid=key_valid)
-    else:
-        kf = torch.cat([k0.expand(s, *k0.shape[1:]), k], dim=2)
-        vf = torch.cat([v0.expand(s, *v0.shape[1:]), v], dim=2)
-        if use_flash:
-            o = flash_attention(q * scale, kf, vf)
-        else:
-            o = _dense_attention(q * scale, kf, vf)
+    o = flash_attention_prefix(
+        q * scale, k0, v0, k, v, prefix_weight=prefix_weight,
+        suffix_weight=suffix_weight,
+        own_len=None if key_valid is None else own_lengths(key_valid))
     o = _proj(p['attn'], o, s, n)
     if 'gamma_1' in p:
         o = p['gamma_1'] * o
@@ -347,7 +321,7 @@ def _num_layers(stacked) -> int:
     return stacked['norm1']['scale'].shape[0]
 
 
-def _prefix_blocks(stacked, h0, num_heads: int, use_flash: bool):
+def _prefix_blocks(stacked, h0, num_heads: int):
     """Full self-attention over the prefix; returns (h, m, (k, v)): the
     output stream h + m (m the last block's pending MLP output) and the
     per-layer keys/values stacked [L, B, H, N, d]."""
@@ -355,32 +329,23 @@ def _prefix_blocks(stacked, h0, num_heads: int, use_flash: bool):
     h, m = h0, None
     for i in range(_num_layers(stacked)):
         h, m, (k, v) = prefix_block_one(_layer(stacked, i), h, num_heads,
-                                        use_flash, m)
+                                        m)
         ks.append(k)
         vs.append(v)
     return h, m, (torch.stack(ks), torch.stack(vs))
 
 
-def resolve_two_source(use_flash: bool, two_source=None) -> bool:
-    """``None`` reads CWM_FLASH_TWO_SOURCE (default on)."""
-    if two_source is None:
-        two_source = os.environ.get('CWM_FLASH_TWO_SOURCE', '1') != '0'
-    return bool(use_flash and two_source)
-
-
-def _suffix_blocks(stacked, kvs, hs, num_heads: int, use_flash: bool,
-                   two_source: bool, prefix_weight: float = 1.0,
-                   suffix_pool: int = 1, grid=None, gelu: str = 'erf',
-                   key_valid=None):
+def _suffix_blocks(stacked, kvs, hs, num_heads: int,
+                   prefix_weight: float = 1.0, suffix_pool: int = 1,
+                   grid=None, gelu: str = 'erf', key_valid=None):
     """Per-sample tokens attending to [cached prefix kv ; own kv]; returns
     (hs, m), the output stream hs + m with m pending."""
     k0s, v0s = kvs
     m = None
     for i in range(_num_layers(stacked)):
         hs, m = suffix_block_one(_layer(stacked, i), (k0s[i], v0s[i]), hs,
-                                 num_heads, use_flash, two_source,
-                                 prefix_weight, suffix_pool, grid, gelu,
-                                 key_valid, m)
+                                 num_heads, prefix_weight, suffix_pool, grid,
+                                 gelu, key_valid, m)
     return hs, m
 
 
@@ -414,7 +379,7 @@ class PrefixCache(NamedTuple):
 
 
 def encode_prefix(model: PretrainVisionTransformer, fp: FastParams,
-                  use_flash: bool, x0n) -> PrefixCache:
+                  x0n) -> PrefixCache:
     """Run the shared frame-0 pass once. x0n: [1, C, H, W] normalized
     frame 0. Returns the per-layer encoder/decoder prefix KV caches."""
     with profiling.span('cf.prefix_build'):
@@ -431,7 +396,7 @@ def encode_prefix(model: PretrainVisionTransformer, fp: FastParams,
         tokens0 = tokens0 + pos_enc.to(dtype)
 
         h0, m0, enc_kvs = _prefix_blocks(fp.enc_blocks, tokens0,
-                                         model.encoder_num_heads, use_flash)
+                                         model.encoder_num_heads)
         _, h0 = _add_ln(h0, m0, fp.enc_norm)
 
         z0 = torch.matmul(h0, fp.e2d_kernel).to(dtype)
@@ -439,28 +404,25 @@ def encode_prefix(model: PretrainVisionTransformer, fp: FastParams,
             model.num_patches, model.decoder_embed_dim, device=dev).to(dtype)
         z0 = z0 + pos_dec[:, :n0]
         _, _, dec_kvs = _prefix_blocks(fp.dec_blocks, z0,
-                                       model.decoder_num_heads, use_flash)
+                                       model.decoder_num_heads)
         return PrefixCache(enc_kvs=enc_kvs, dec_kvs=dec_kvs)
 
 
 def predict_frame1_from_prefix(model: PretrainVisionTransformer,
-                               fp: FastParams, use_flash: bool,
-                               cache: PrefixCache, x1n, vis1_idx,
-                               two_source: Optional[bool] = None,
-                               prefix_pool: int = 1, suffix_pool: int = 1,
+                               fp: FastParams, cache: PrefixCache, x1n,
+                               vis1_idx, prefix_pool: int = 1,
+                               suffix_pool: int = 1,
                                gelu: Optional[str] = None):
     """Per-sample pass: encode the visible frame-1 tokens against the cached
     prefix, decode every frame-1 position. x1n: [S, C, H, W] normalized
     frame 1; vis1_idx: int [S, n_sfx] visible patch indices within frame 1
     (sentinel N1 in pad slots). Returns [S, N1, out_dim]."""
-    return _predict_frame1_core(model, fp, use_flash,
-                                resolve_two_source(use_flash, two_source),
-                                cache, x1n, vis1_idx, int(prefix_pool),
-                                int(suffix_pool), resolve_gelu(gelu))
+    return _predict_frame1_core(model, fp, cache, x1n, vis1_idx,
+                                int(prefix_pool), int(suffix_pool),
+                                resolve_gelu(gelu))
 
 
 def _predict_frame1_core(model: PretrainVisionTransformer, fp: FastParams,
-                         use_flash: bool, two_source: bool,
                          cache: PrefixCache, x1n, vis1_idx,
                          prefix_pool: int = 1, suffix_pool: int = 1,
                          gelu: str = 'erf'):
@@ -470,8 +432,8 @@ def _predict_frame1_core(model: PretrainVisionTransformer, fp: FastParams,
             model.num_patches, model.decoder_embed_dim,
             device=x1n.device)[0].to(dtype)
         with profiling.span('cf.suffix.encoder'):
-            z1 = _encode_suffix(model, fp, use_flash, cache, x1n, vis1_idx,
-                                pos_dec, gelu)
+            z1 = _encode_suffix(model, fp, cache, x1n, vis1_idx, pos_dec,
+                                gelu)
         with profiling.span('cf.suffix.decoder'):
             dec_kvs, pw = cache.dec_kvs, 1.0
             ph, pw_ = model.full_patch_size[-2:]
@@ -480,17 +442,15 @@ def _predict_frame1_core(model: PretrainVisionTransformer, fp: FastParams,
                 dec_kvs = pool_dec_prefix(dec_kvs, prefix_pool, gh, gw)
                 pw = float(prefix_pool * prefix_pool)
             y1, m1 = _suffix_blocks(fp.dec_blocks, dec_kvs, z1,
-                                    model.decoder_num_heads, use_flash,
-                                    two_source, pw, suffix_pool, (gh, gw),
-                                    gelu)
+                                    model.decoder_num_heads, pw, suffix_pool,
+                                    (gh, gw), gelu)
             _, y1 = _add_ln(y1, m1, fp.dec_norm)
             return (torch.matmul(y1, fp.head_kernel).to(dtype)
                     + fp.head_bias)
 
 
 def _encode_suffix(model: PretrainVisionTransformer, fp: FastParams,
-                   use_flash: bool, cache: PrefixCache, x1n, vis1_idx,
-                   pos_dec, gelu: str):
+                   cache: PrefixCache, x1n, vis1_idx, pos_dec, gelu: str):
     """The decoder's frame-1 input rows [S, N1, Cd]: the visible frame-1
     tokens encoded against the cached encoder prefix, at their slots among
     mask tokens. pos_dec: the decoder's position table [N, Cd]."""
@@ -520,11 +480,11 @@ def _encode_suffix(model: PretrainVisionTransformer, fp: FastParams,
         device=x1n.device)[0].to(dtype)
     tok = tok + pos_enc[n0 + idx_safe]
 
-    # encoder suffix: ~n_sfx queries per sample, two-source (K2 on the
-    # card, its pad keys masked by own-key lengths)
+    # encoder suffix: ~n_sfx queries per sample, two-source, its pad keys
+    # masked by own-key lengths
     hs, ms = _suffix_blocks(fp.enc_blocks, cache.enc_kvs, tok,
-                            model.encoder_num_heads, use_flash, True,
-                            gelu=gelu, key_valid=valid)
+                            model.encoder_num_heads, gelu=gelu,
+                            key_valid=valid)
     _, hs = _add_ln(hs, ms, fp.enc_norm)
     zs = torch.matmul(hs, fp.e2d_kernel).to(dtype)
 
@@ -551,12 +511,12 @@ def stack_prefix_caches(caches) -> PrefixCache:
 
 
 def make_prefix_cache(model: PretrainVisionTransformer, fp: FastParams,
-                      use_flash: bool, normalize: bool, x0) -> PrefixCache:
+                      normalize: bool, x0) -> PrefixCache:
     """Build the reusable frame-0 cache for a scene. x0: [1, C, H, W] raw
     frame 0 (same normalization flag as the later prediction calls)."""
     if normalize:
         x0 = imagenet_normalize(x0[:, None], temporal_dim=1)[:, 0]
-    return encode_prefix(model, fp, use_flash, x0)
+    return encode_prefix(model, fp, x0)
 
 
 class HashLru:
@@ -613,22 +573,18 @@ class PrefixLru(HashLru):
     get(x0) with x0 [1, C, H, W] raw frame 0 -> (PrefixCache, hit)."""
 
     def __init__(self, model: PretrainVisionTransformer, fp: FastParams,
-                 use_flash: bool, normalize: bool, size: int = 4):
+                 normalize: bool, size: int = 4):
         super().__init__(size)
-        self.model, self.fp = model, fp
-        self.use_flash, self.normalize = use_flash, normalize
+        self.model, self.fp, self.normalize = model, fp, normalize
 
     def _build(self, x0):
-        return make_prefix_cache(self.model, self.fp, self.use_flash,
-                                 self.normalize, x0)
+        return make_prefix_cache(self.model, self.fp, self.normalize, x0)
 
 
 def predict_videos_shared_prefix(model: PretrainVisionTransformer,
-                                 fp: FastParams, use_flash: bool,
-                                 n_vis: int, normalize: bool,
+                                 fp: FastParams, n_vis: int, normalize: bool,
                                  x_mocos, mask_mocos,
                                  cache: Optional[PrefixCache] = None,
-                                 two_source: Optional[bool] = None,
                                  prefix_pool: int = 1,
                                  suffix_pool: int = 1,
                                  gelu: Optional[str] = None):
@@ -646,17 +602,15 @@ def predict_videos_shared_prefix(model: PretrainVisionTransformer,
             f'n_vis={n_vis} < num_patches_per_frame={n0}: the shared-prefix '
             'engine requires frame 0 fully visible in every prompt (the '
             'fix_passive construction)')
-    return _predict_videos_core(model, fp, use_flash,
-                                resolve_two_source(use_flash, two_source),
-                                sfx_bucket(n_vis - n0, n1), normalize,
+    return _predict_videos_core(model, fp, sfx_bucket(n_vis - n0, n1),
+                                normalize,
                                 x_mocos, mask_mocos, cache,
                                 int(prefix_pool), int(suffix_pool),
                                 resolve_gelu(gelu))
 
 
 def _predict_videos_core(model: PretrainVisionTransformer, fp: FastParams,
-                         use_flash: bool, two_source: bool, n_sfx_pad: int,
-                         normalize: bool, x_mocos, mask_mocos,
+                         n_sfx_pad: int, normalize: bool, x_mocos, mask_mocos,
                          cache: Optional[PrefixCache] = None,
                          prefix_pool: int = 1, suffix_pool: int = 1,
                          gelu: str = 'erf'):
@@ -677,10 +631,9 @@ def _predict_videos_core(model: PretrainVisionTransformer, fp: FastParams,
         mask1 = mask_mocos[:, n0:]
         vis1_idx = pad_vis1_idx(mask1, n_sfx_pad)
     if cache is None:
-        cache = encode_prefix(model, fp, use_flash, xm[0:1, 0])
-    y1 = _predict_frame1_core(model, fp, use_flash, two_source, cache,
-                              xm[:, 1], vis1_idx, prefix_pool, suffix_pool,
-                              gelu)
+        cache = encode_prefix(model, fp, xm[0:1, 0])
+    y1 = _predict_frame1_core(model, fp, cache, xm[:, 1], vis1_idx,
+                              prefix_pool, suffix_pool, gelu)
     with profiling.span('cf.assemble'):
         raw1 = patch_ops.patchify(x_mocos[:, 1:2], model.full_patch_size,
                                   temporal_dim=1)

@@ -20,16 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import dense_attention
 from ..ops.patches import patchify
-
-
-def dense_attention(q, k, v, dtype=torch.float32):
-    """Plain softmax attention; q is pre-scaled. [B,H,N,D] each. f32 scores
-    and softmax, probabilities cast to ``dtype``, f32 products, output in
-    ``dtype``."""
-    attn = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    attn = torch.softmax(attn, dim=-1).to(dtype)
-    return torch.matmul(attn.float(), v.float()).to(dtype)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-6, dtype=None):
@@ -81,8 +73,8 @@ class Attention(nn.Module):
     """Multi-head self-attention with the reference's split q/v bias layout:
     fused qkv weight without bias plus separate q_bias / v_bias (k bias
     fixed at zero). attn_impl 'flash' runs ops/flash_attention (K1, or
-    K5/K6 when a gradient is asked for); 'dense' the plain
-    ``dense_attention``."""
+    K5/K6 when a gradient is asked for); 'dense' K1's plain version,
+    ``ops.flash_attention.dense_attention``."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None,
@@ -125,7 +117,7 @@ class Attention(nn.Module):
         if self.attn_impl == 'flash':
             from ..ops.flash_attention import flash_attention
             return flash_attention(q, k, v)
-        return dense_attention(q, k, v, dtype=self.dtype)
+        return dense_attention(q, k, v)
 
     def forward(self, x):
         b, n, _ = x.shape

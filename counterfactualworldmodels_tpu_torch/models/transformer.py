@@ -1,10 +1,10 @@
 """Cross-attention transformer blocks of the conjoined (two-stream) models.
 
 Port of counterfactualworldmodels_tpu/models/transformer.py. The cross
-attention is plain attention (f32 scores and softmax, as the JAX package's
-``dense_attention`` and einsums), so these blocks run as tensor products
-on either device; the streams' self-attention blocks (models/layers.Block)
-are where the flash kernel runs.
+attention is plain attention (f32 scores and softmax: K1's plain version,
+``ops.flash_attention.dense_attention``, and einsums), so these blocks run
+as tensor products on either device; the streams' self-attention blocks
+(models/layers.Block) are where the flash kernel runs.
 
 ``state_dict`` keys are the reference layout the JAX package's torch
 export writes (``cross_attention.{qk,qk_src,v,v_src,projection,
@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import LayerNorm, dense, dense_attention
+from ..ops.flash_attention import dense_attention
+from .layers import LayerNorm, dense
 
 
 def _heads(z, b, n, h, width):
@@ -92,7 +93,7 @@ class CrossSelfAttention(nn.Module):
                                    self.v_bias]).to(dt)
         qkv = qkv.reshape(b, n, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        y = dense_attention(q * self.scale, k, v, dtype=dt)
+        y = dense_attention(q * self.scale, k, v)
         y = y.transpose(1, 2).reshape(b, n, -1)
         return dense(y, self.projection, dt)
 

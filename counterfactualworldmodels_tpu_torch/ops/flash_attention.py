@@ -4,9 +4,11 @@ pair, the forward with logsumexp (K5) and the fused backward (K6).
 Port of counterfactualworldmodels_tpu/ops/flash_attention.py. On CUDA
 tensors the wrappers launch the hand-written kernels of ``csrc/attention.cu``
 (K1, K2, K5) and ``csrc/attention_bwd.cu`` (K6); on CPU tensors they run
-their plain versions, ``_chunked_dense_attention``, ``_dense_two_source``
-(``_dense_attention_prefix`` for K2 with own-key lengths) and
-``_chunked_attention_bwd`` (the same math: f32 scores and softmax).
+their plain versions, one for each contract: ``dense_attention`` (K1 and
+K5), ``_dense_attention_prefix`` (K2) and ``_chunked_attention_bwd`` (K6),
+the same math with f32 scores and softmax. This module is the one place
+that chooses between a kernel and its plain version; callers pass tensors
+and the device decides.
 Inside each kernel entry the dtype picks the route: bf16 runs on the
 tensor cores (wgmma); f32, forward and backward, on the tensor cores in
 tf32 with split products (lo.hi + hi.lo + hi.hi: f32 accuracy, whatever
@@ -31,7 +33,6 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -67,13 +68,11 @@ def _chunk_rows(b, h, nk):
     return max(64, min(1024, 2 ** 27 // max(per_row, 1) // 64 * 64))
 
 
-def _chunked_dense_attention(q, k, v, bias=None, with_lse: bool = False):
+def dense_attention(q, k, v, with_lse: bool = False):
     """Plain attention over query chunks (bounded live score memory): f32
     scores and softmax, probabilities cast to v's dtype, f32 products,
-    output in q's dtype. bias: optional [Nk] f32 per-key logit bias (the
-    dense image of the kernel's per-panel key multiplicities, +ln w).
-    with_lse: also return the rows' logsumexp of the f32 scores,
-    [B, H, Nq] f32 (the plain version of K5)."""
+    output in q's dtype. with_lse: also return the rows' logsumexp of the
+    f32 scores, [B, H, Nq] f32 (the plain version of K5)."""
     b, h, n, _ = q.shape
     kt = k.float().transpose(-1, -2)
     vf = v.float()
@@ -81,8 +80,6 @@ def _chunked_dense_attention(q, k, v, bias=None, with_lse: bool = False):
     outs, lses = [], []
     for i in range(0, n, chunk):
         s = torch.matmul(q[:, :, i:i + chunk].float(), kt)
-        if bias is not None:
-            s = s + bias
         if with_lse:
             lses.append(torch.logsumexp(s, dim=-1))
         p = torch.softmax(s, dim=-1).to(v.dtype)
@@ -117,60 +114,47 @@ def _chunked_attention_bwd(q, k, v, do, lse, delta):
             dv.to(q.dtype))
 
 
-def _dense_two_source(q, k0, v0, k1, v1, w0: float, w1: float):
-    """Plain two-source softmax: the per-panel key multiplicities become
-    +ln(w) logit biases over the concatenated panels."""
-    s = q.shape[0]
-    if k0.shape[0] == 1 and s > 1:
-        k0 = k0.expand(s, *k0.shape[1:])
-        v0 = v0.expand(s, *v0.shape[1:])
-    k = torch.cat([k0, k1], 2)
-    v = torch.cat([v0, v1], 2)
-    bias = None
-    if w0 != 1.0 or w1 != 1.0:
-        bias = torch.cat([
-            torch.full((k0.shape[2],), math.log(w0), dtype=torch.float32,
-                       device=q.device),
-            torch.full((k1.shape[2],), math.log(w1), dtype=torch.float32,
-                       device=q.device)])
-    return _chunked_dense_attention(q, k, v, bias)
-
-
 def _dense_attention_prefix(q, k0, v0, k1, v1, weight0: float = 1.0,
                             weight1: float = 1.0, own_valid=None):
-    """Two-source dense attention without materializing broadcast+concat
-    K/V: softmax over [prefix scores ; own scores], f32. q [S, H, Nq, d];
-    k0/v0 [S0, H, N0, d] with S0 in {1, S}; k1/v1 [S, H, N1, d].
+    """The plain version of K2: one f32 softmax over [prefix scores ; own
+    scores] without materializing broadcast+concat K/V, over query chunks
+    (bounded live score memory). q [S, H, Nq, d]; k0/v0 [S0, H, N0, d]
+    with S0 in {1, S}; k1/v1 [S, H, N1, d]. Output in v1's dtype.
 
-    weight0/weight1: key multiplicity of each panel. own_valid: optional
-    bool [S, N1]; False marks pad keys of the own panel (sfx_bucket), which
-    score -inf, so a row with no valid own key falls back to prefix-only
-    attention. A zero-width own panel is single-source attention over the
-    prefix. The shared-prefix engines' dense route, and the plain version
-    of K2 with own-key lengths."""
-    qf = q.float()
+    weight0/weight1: key multiplicity of each panel (a +ln w logit bias).
+    own_valid: optional bool [S, N1]; False marks pad keys of the own panel
+    (sfx_bucket), which score -inf, so a row with no valid own key falls
+    back to prefix-only attention. A zero-width own panel is single-source
+    attention over the prefix."""
     sub0 = 'hkd' if k0.shape[0] == 1 else 'shkd'
     k0f = (k0[0] if k0.shape[0] == 1 else k0).float()
     v0f = (v0[0] if v0.shape[0] == 1 else v0).float()
-    s0 = torch.einsum(f'shqd,{sub0}->shqk', qf, k0f)
-    if k1.shape[2] == 0:
-        p0 = torch.softmax(s0, dim=-1)
+    k1f, v1f = k1.float(), v1.float()
+    s, h, n, _ = q.shape
+    chunk = _chunk_rows(s, h, k0.shape[2] + k1.shape[2])
+    outs = []
+    for i in range(0, n, chunk):
+        qf = q[:, :, i:i + chunk].float()
+        s0 = torch.einsum(f'shqd,{sub0}->shqk', qf, k0f)
+        if k1.shape[2] == 0:
+            p0 = torch.softmax(s0, dim=-1)
+            outs.append(torch.einsum(f'shqk,{sub0}->shqd', p0, v0f))
+            continue
+        s1 = torch.einsum('shqd,shkd->shqk', qf, k1f)
+        if weight0 != 1.0:
+            s0 = s0 + math.log(weight0)
+        if weight1 != 1.0:
+            s1 = s1 + math.log(weight1)
+        if own_valid is not None:
+            s1 = s1.masked_fill(~own_valid[:, None, None, :], float('-inf'))
+        m = torch.maximum(s0.amax(-1, keepdim=True),
+                          s1.amax(-1, keepdim=True))
+        p0 = torch.exp(s0 - m)
+        p1 = torch.exp(s1 - m)
+        l = p0.sum(-1, keepdim=True) + p1.sum(-1, keepdim=True)
         o = torch.einsum(f'shqk,{sub0}->shqd', p0, v0f)
-        return o.to(v1.dtype)
-    s1 = torch.einsum('shqd,shkd->shqk', qf, k1.float())
-    if weight0 != 1.0:
-        s0 = s0 + float(np.log(weight0))
-    if weight1 != 1.0:
-        s1 = s1 + float(np.log(weight1))
-    if own_valid is not None:
-        s1 = s1.masked_fill(~own_valid[:, None, None, :], float('-inf'))
-    m = torch.maximum(s0.amax(-1, keepdim=True), s1.amax(-1, keepdim=True))
-    p0 = torch.exp(s0 - m)
-    p1 = torch.exp(s1 - m)
-    l = p0.sum(-1, keepdim=True) + p1.sum(-1, keepdim=True)
-    o = torch.einsum(f'shqk,{sub0}->shqd', p0, v0f)
-    o = o + torch.einsum('shqk,shkd->shqd', p1, v1.float())
-    return (o / l).to(v1.dtype)
+        outs.append((o + torch.einsum('shqk,shkd->shqd', p1, v1f)) / l)
+    return torch.cat(outs, dim=2).to(v1.dtype)
 
 
 def own_lengths(key_valid):
@@ -268,7 +252,7 @@ def _check_single_source(q, k, v):
 def _flash_forward_lse(q, k, v):
     """(out, lse [B, H, Nq] f32): K5 on CUDA, the plain version on the CPU."""
     if q.device.type == 'cpu':
-        return _chunked_dense_attention(q, k, v, with_lse=True)
+        return dense_attention(q, k, v, with_lse=True)
     _check_single_source(q, k, v)
     b, h, nq, _ = q.shape
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
@@ -341,7 +325,7 @@ def flash_attention(q, k, v) -> torch.Tensor:
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v)
     if q.device.type == 'cpu':
-        return _chunked_dense_attention(q, k, v)
+        return dense_attention(q, k, v)
     _check_single_source(q, k, v)
     out = _launch(q, k, v, False, 1.0, None, None, 1.0)
     kernels.LAUNCHES['flash_attention'] += 1
@@ -372,12 +356,13 @@ def flash_attention_prefix(q, k0, v0, k1, v1, prefix_weight: float = 1.0,
     [S, H, N1, D]. prefix_weight / suffix_weight: key multiplicity of each
     panel (equal to a +ln w logit bias). own_len: optional int32 [S] on q's
     device (``own_lengths``): sample s's own keys at or past own_len[s] are
-    pad keys and score -inf (0: the prefix alone). CUDA: the K2 kernel,
+    pad keys and score -inf (0: the prefix alone). No query rows: an
+    empty output, whatever the device. CUDA: the K2 kernel,
     which has no backward (RuntimeError when a gradient is asked for); in
     bf16 with a shared prefix and Nq <= 64 one block packs
     floor(128 / Nq) samples' queries (also counted under
-    ``flash_attention_prefix_packed``). CPU: the plain version
-    (``_dense_attention_prefix`` with own_len)."""
+    ``flash_attention_prefix_packed``). CPU: the plain version,
+    ``_dense_attention_prefix``."""
     s = q.shape[0]
     s0 = k0.shape[0]
     if s0 not in (1, s):
@@ -385,6 +370,9 @@ def flash_attention_prefix(q, k0, v0, k1, v1, prefix_weight: float = 1.0,
             f'flash_attention_prefix: prefix batch dim {s0} must be 1 '
             f'(shared scene) or match the sample dim {s} (stacked '
             'per-sample prefixes)')
+    if q.shape[2] == 0:
+        # no query rows (a suffix with no visible token): nothing to attend
+        return q.new_empty(q.shape)
     n0 = k0.shape[2]
     n1 = k1.shape[2]
     if n0 == 0 or n1 == 0:
@@ -397,13 +385,11 @@ def flash_attention_prefix(q, k0, v0, k1, v1, prefix_weight: float = 1.0,
         raise ValueError('flash_attention_prefix: own_len must be a '
                          f'contiguous int32 [{s}] on q\'s device')
     if q.device.type == 'cpu':
-        if own_len is not None:
-            own_valid = torch.arange(n1) < own_len[:, None]
-            return _dense_attention_prefix(q, k0, v0, k1, v1,
-                                           float(prefix_weight),
-                                           float(suffix_weight), own_valid)
-        return _dense_two_source(q, k0, v0, k1, v1, float(prefix_weight),
-                                 float(suffix_weight))
+        own_valid = (None if own_len is None
+                     else torch.arange(n1) < own_len[:, None])
+        return _dense_attention_prefix(q, k0, v0, k1, v1,
+                                       float(prefix_weight),
+                                       float(suffix_weight), own_valid)
     _refuse_grad('flash_attention_prefix', q, k0, v0, k1, v1)
     _check_cuda('flash_attention_prefix', q, k0, v0, k1, v1)
     if k0.shape != v0.shape or k1.shape != v1.shape or k1.shape[0] != s:

@@ -93,8 +93,7 @@ def sharded_counterfactuals(mesh: DeviceMesh, vmae_module, raft_model, x,
 def sharded_counterfactuals_fast(mesh: DeviceMesh, vmae_model, fast_params,
                                  raft_model, x, passive, active, shifts,
                                  noise: Noise, n_vis: int, normalize: bool,
-                                 raft_iters: int, use_flash: bool = False,
-                                 two_source: bool = False, prefix_cache=None,
+                                 raft_iters: int, prefix_cache=None,
                                  prefix_pool: int = 1, suffix_pool: int = 1,
                                  gelu: str = 'erf'):
     """The shared-prefix engine (counterfactual_videos_and_flows_fast) with
@@ -112,9 +111,9 @@ def sharded_counterfactuals_fast(mesh: DeviceMesh, vmae_model, fast_params,
     out = counterfactual_videos_and_flows_fast(
         vmae_model, fast_params, raft_model, x, sh.local(passive, 2),
         sh.local(active, 2), sh.local(shifts, 1), sh.local(noise, 0),
-        n_sfx_pad, normalize, raft_iters, True, use_flash, two_source,
-        prefix_cache=prefix_cache, prefix_pool=prefix_pool,
-        suffix_pool=suffix_pool, gelu=gelu, n_vis=n_vis)
+        n_sfx_pad, normalize, raft_iters, True, prefix_cache=prefix_cache,
+        prefix_pool=prefix_pool, suffix_pool=suffix_pool, gelu=gelu,
+        n_vis=n_vis)
     return _gather3(sh, out)
 
 
@@ -122,10 +121,8 @@ def sharded_counterfactuals_fast_multi(mesh: DeviceMesh, vmae_model,
                                        fast_params, raft_model, x, passive,
                                        active, shifts, noise: Noise,
                                        n_vis: int, normalize: bool,
-                                       raft_iters: int,
-                                       use_flash: bool = False,
-                                       two_source: bool = False,
-                                       prefix_cache=None, device='cuda'):
+                                       raft_iters: int, prefix_cache=None,
+                                       device='cuda'):
     """The multi-scene engine (counterfactual_videos_and_flows_fast_multi)
     with every per-sample operand split over the mesh, the stacked prefix
     cache included (its leaves' batch axis 1): a rank holds only its own
@@ -149,7 +146,7 @@ def sharded_counterfactuals_fast_multi(mesh: DeviceMesh, vmae_model,
     out = counterfactual_videos_and_flows_fast_multi(
         vmae_model, fast_params, raft_model, sh.local(x), sh.local(passive),
         sh.local(active), sh.local(shifts), n_sfx_pad, normalize, raft_iters,
-        True, use_flash, two_source, sh.local(noise),
+        True, sh.local(noise),
         _tree_local(sh, prefix_cache, 1), n_vis=n_vis, device=device)
     return _gather3(sh, out)
 
@@ -158,9 +155,7 @@ def sharded_imu_counterfactuals_fast(mesh: DeviceMesh, wrapper, params,
                                      raft_model, x, passive, active, shifts,
                                      noise: Noise, x_context, mask_context,
                                      n_vis: int, normalize: bool,
-                                     raft_iters: int, use_flash: bool = False,
-                                     two_source: bool = False,
-                                     prefix_cache=None):
+                                     raft_iters: int, prefix_cache=None):
     """The conjoined (IMU-conditioned) shared-prefix step
     (pipelines.imu._imu_counterfactual_step_fast) with the samples split
     over the mesh: the scene, the IMU context and the prefix cache
@@ -174,8 +169,7 @@ def sharded_imu_counterfactuals_fast(mesh: DeviceMesh, wrapper, params,
     out = _imu_counterfactual_step_fast(
         wrapper, params, raft_model, x, sh.local(passive, 2),
         sh.local(active, 2), sh.local(shifts, 1), sh.local(noise, 0),
-        x_context, mask_context, n_vis, normalize, raft_iters, use_flash,
-        two_source, prefix_cache)
+        x_context, mask_context, n_vis, normalize, raft_iters, prefix_cache)
     return _gather3(sh, out)
 
 

@@ -32,7 +32,7 @@ import torch
 from ..masking import generators as maskgen
 from ..models import fast_conjoined
 from ..models.conjoined import ConjoinedPredictorWrapper
-from ..models.fast_vmae import resolve_two_source, sfx_bucket
+from ..models.fast_vmae import sfx_bucket
 from ..models.raft.raft import apply_raft_shared0, apply_raft_video
 from ..ops.normalization import imagenet_normalize, imagenet_unnormalize
 from ..utils import profiling
@@ -418,8 +418,8 @@ class ImuConditionedFlowGenerator(FlowGenerator):
             self._conj_params = fast_conjoined.cast_params(
                 w.model, w.params, w.model.dtype, self.device)
             self._conj_prefix_lru = fast_conjoined.ConjoinedPrefixLru(
-                w, self._conj_params, self._use_flash,
-                self.imagenet_normalize_inputs, size=self.prefix_cache_size)
+                w, self._conj_params, self.imagenet_normalize_inputs,
+                size=self.prefix_cache_size)
 
     def _conj_fast_ok(self, prompt_ok: bool) -> bool:
         """The engine runs a call when it is on, supports the model and the
@@ -458,7 +458,7 @@ class ImuConditionedFlowGenerator(FlowGenerator):
             cache, _ = self._conj_prefix_lru.get(x, x_context)
             vid = fast_conjoined.predict_videos_conjoined_prefix(
                 w, self._conj_params, x, mask, x_context, mask_context, n_vis,
-                self.imagenet_normalize_inputs, self._use_flash, cache=cache)
+                self.imagenet_normalize_inputs, cache=cache)
         else:
             vid = _conjoined_predict_video(
                 w, x, mask, x_context, mask_context, n_vis,
@@ -536,8 +536,7 @@ class ImuConditionedFlowGenerator(FlowGenerator):
             return _imu_counterfactual_step_fast(
                 w, self._conj_params, self.flow_model, x, passive, active,
                 shifts, noise, self._x_context, self._mask_context, n_vis,
-                self.imagenet_normalize_inputs, iters, self._use_flash,
-                resolve_two_source(self._use_flash), cache)
+                self.imagenet_normalize_inputs, iters, cache)
         return _imu_counterfactual_step(
             w, self.flow_model, x, passive, active, shifts, noise,
             self._x_context.repeat_interleave(s, 0),
@@ -550,8 +549,7 @@ class ImuConditionedFlowGenerator(FlowGenerator):
 def _imu_counterfactual_step_fast(wrapper, params, raft_model, x, passive,
                                   active, shifts, noise, x_context,
                                   mask_context, n_vis: int, normalize: bool,
-                                  raft_iters: int, use_flash: bool,
-                                  two_source: bool, prefix_cache=None):
+                                  raft_iters: int, prefix_cache=None):
     """The shared-prefix step for one scene: B = 1, fix_passive, frame 0
     visible, the IMU context [1, C, L] shared and visible (untiled). The
     conjoined forward runs on models/fast_conjoined.py (prefix_cache:
@@ -573,8 +571,7 @@ def _imu_counterfactual_step_fast(wrapper, params, raft_model, x, passive,
             wrapper.patch_size, n_vis_target=n_vis, fix_passive=True)
     y = fast_conjoined._conjoined_videos_core(
         wrapper, params, x_mocos, mask_mocos, x_context, mask_context,
-        _imu_sfx_pad(wrapper, n_vis), normalize, use_flash, two_source,
-        prefix_cache)
+        _imu_sfx_pad(wrapper, n_vis), normalize, prefix_cache)
     flows = apply_raft_shared0(raft_model, y, raft_iters, True)
     return y, flows, mask_mocos
 
@@ -583,7 +580,6 @@ def _imu_counterfactual_multi_step_fast(wrapper, params, raft_model, x,
                                         passive, active, shifts, noise,
                                         x_context, mask_context, n_vis: int,
                                         normalize: bool, raft_iters: int,
-                                        use_flash: bool, two_source: bool,
                                         prefix_cache):
     """The multi-SCENE step: each sample carries its OWN (scene, IMU) pair.
     x [S, T, C, H, W]; passive/active bool [S, N]; shifts int [S, 2];
@@ -602,8 +598,7 @@ def _imu_counterfactual_multi_step_fast(wrapper, params, raft_model, x,
         n_vis_target=n_vis, fix_passive=True)
     y = fast_conjoined._conjoined_videos_core(
         wrapper, params, x_mocos, mask_mocos, x_context, mask_context,
-        _imu_sfx_pad(wrapper, n_vis), normalize, use_flash, two_source,
-        prefix_cache)
+        _imu_sfx_pad(wrapper, n_vis), normalize, prefix_cache)
     flows = apply_raft_video(raft_model, y, iters=raft_iters,
                              scale_inputs=True)
     return y, flows, mask_mocos

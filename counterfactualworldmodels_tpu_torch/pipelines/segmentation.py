@@ -201,7 +201,6 @@ class FlowGenerator(PredictorBasedGenerator):
         self._prefix_lru = None          # built on the first fast call
         self._fast_params_src = None     # identity key: rebuilt on a swap
         self._fast_params = None
-        self._use_flash = self.device.type == 'cuda'
         self.raft_iters = raft_iters
         self.flow_params = None
         self.flow_model = None
@@ -475,7 +474,7 @@ class FlowGenerator(PredictorBasedGenerator):
             self._fast_params = fast_vmae.stack_vmae_params(
                 self.predictor, self.params, device=self.device)
             self._prefix_lru = fast_vmae.PrefixLru(
-                self.predictor, self._fast_params, self._use_flash,
+                self.predictor, self._fast_params,
                 self.imagenet_normalize_inputs, size=self.prefix_cache_size)
 
     def _fast_predict_ok(self, x, mask, kwargs) -> bool:
@@ -504,7 +503,7 @@ class FlowGenerator(PredictorBasedGenerator):
         cache, _ = self._prefix_lru.get(x[0:1, 0])
         ppool, spool, gelu = self._pool_config(*x.shape[-2:])
         vid = fast_vmae.predict_videos_shared_prefix(
-            self.predictor, self._fast_params, self._use_flash, n_vis,
+            self.predictor, self._fast_params, n_vis,
             self.imagenet_normalize_inputs, x, mask, cache,
             prefix_pool=ppool, suffix_pool=spool, gelu=gelu)
         if frame is not None:
@@ -542,10 +541,8 @@ class FlowGenerator(PredictorBasedGenerator):
         return counterfactual_videos_and_flows_fast(
             self.predictor, self._fast_params, self.flow_model, x, passive,
             active, shifts, noise, n_sfx_pad, self.imagenet_normalize_inputs,
-            iters, True, self._use_flash,
-            fast_vmae.resolve_two_source(self._use_flash),
-            prefix_cache=cache, prefix_pool=ppool, suffix_pool=spool,
-            gelu=gelu, n_vis=n_vis)
+            iters, True, prefix_cache=cache, prefix_pool=ppool,
+            suffix_pool=spool, gelu=gelu, n_vis=n_vis)
 
     def predict_counterfactual_videos_and_flows(
             self, x, active_patches, passive_patches=None, shifts=None,
@@ -722,9 +719,8 @@ def counterfactual_videos_and_flows_fast(
         vmae_model, fast_params, raft_model, x, passive, active, shifts,
         noise: Union[torch.Tensor, torch.Generator],
         n_sfx_pad: int, normalize: bool, raft_iters: int, fix_passive: bool,
-        use_flash: bool, two_source: bool = False, prefix_cache=None,
-        prefix_pool: int = 1, suffix_pool: int = 1, gelu: str = 'erf',
-        n_vis: Optional[int] = None):
+        prefix_cache=None, prefix_pool: int = 1, suffix_pool: int = 1,
+        gelu: str = 'erf', n_vis: Optional[int] = None):
     """Shared-prefix fast path for one scene: B = 1, frame 0 fully visible
     and identical across samples (fix_passive). The ViT runs through the
     prefix-isolated engine (models/fast_vmae.py) and RAFT shares the
@@ -761,9 +757,9 @@ def counterfactual_videos_and_flows_fast(
             vmae_model.full_patch_size, n_vis_target=n_vis,
             fix_passive=fix_passive)
 
-    y = _predict_videos_core(vmae_model, fast_params, use_flash, two_source,
-                             n_sfx_pad, normalize, x_mocos, mask_mocos,
-                             prefix_cache, prefix_pool, suffix_pool, gelu)
+    y = _predict_videos_core(vmae_model, fast_params, n_sfx_pad, normalize,
+                             x_mocos, mask_mocos, prefix_cache, prefix_pool,
+                             suffix_pool, gelu)
     flows = apply_raft_shared0(raft_model, y, raft_iters, True)
     return y, flows, mask_mocos
 
@@ -771,7 +767,6 @@ def counterfactual_videos_and_flows_fast(
 def counterfactual_videos_and_flows_fast_multi(
         vmae_model, fast_params, raft_model, x, passive, active, shifts,
         n_sfx_pad: int, normalize: bool, raft_iters: int, fix_passive: bool,
-        use_flash: bool, two_source: bool,
         noise: Union[torch.Tensor, torch.Generator], prefix_cache,
         n_vis: Optional[int] = None, device='cuda'):
     """Multi-SCENE fast dispatch: each sample carries its OWN scene.
@@ -801,9 +796,8 @@ def counterfactual_videos_and_flows_fast_multi(
     x_mocos, mask_mocos = perturb.make_motion_counterfactual(
         x, passive, active, shifts, noise, vmae_model.full_patch_size,
         n_vis_target=n_vis, fix_passive=fix_passive)
-    y = _predict_videos_core(vmae_model, fast_params, use_flash, two_source,
-                             n_sfx_pad, normalize, x_mocos, mask_mocos,
-                             prefix_cache)
+    y = _predict_videos_core(vmae_model, fast_params, n_sfx_pad, normalize,
+                             x_mocos, mask_mocos, prefix_cache)
     flows = apply_raft_video(raft_model, y, iters=raft_iters,
                              scale_inputs=True)
     return y, flows, mask_mocos

@@ -107,7 +107,7 @@ def bench_config(name: str, dtype, attn_impl: str = 'flash'):
     headline), base (ViT-B 8x8), both at 224 px, or tiny (a 2-block model
     at 64 px with 8 px patches, for runs on the CPU).
     ``attn_impl`` is the exact model's attention (the shared-prefix engine
-    takes its own ``use_flash``)."""
+    runs the kernels on the card and their plain versions on the CPU)."""
     from ..models import vmae
     kw = dict(dtype=dtype, attn_impl=attn_impl)
     if name == 'tiny':
@@ -148,7 +148,7 @@ def on_device(device, passive, active, shifts, n_vis, noise):
 
 @torch.no_grad()
 def dispatch(model, fp, raft, x, prompts, rung, raft_iters: int,
-             use_flash: bool, two_source: bool, mesh=None):
+             mesh=None):
     """One counterfactual dispatch of the prompts (passive, active, shifts,
     n_vis, noise) on the scene x [1, 2, 3, H, W] at ``rung`` (prefix pool,
     suffix pool, gelu). Returns (videos, flows, masks) for all S."""
@@ -160,13 +160,12 @@ def dispatch(model, fp, raft, x, prompts, rung, raft_iters: int,
         from ..parallel.inference import sharded_counterfactuals_fast
         return sharded_counterfactuals_fast(
             mesh, model, fp, raft, x, p, a, shifts, noise, n_vis, True,
-            raft_iters, use_flash, two_source, prefix_pool=pp,
-            suffix_pool=sp, gelu=gelu)
+            raft_iters, prefix_pool=pp, suffix_pool=sp, gelu=gelu)
     n0 = model.num_patches_per_frame
     pad = fast_vmae.sfx_bucket(n_vis - n0, model.num_patches - n0)
     return counterfactual_videos_and_flows_fast(
         model, fp, raft, x, p, a, shifts, noise, pad, True, raft_iters, True,
-        use_flash, two_source, None, pp, sp, gelu, n_vis=n_vis)
+        None, pp, sp, gelu, n_vis=n_vis)
 
 
 def parse_args(argv=None):
@@ -193,7 +192,6 @@ def main(argv=None):
     bench_model = env.get('CWM_BENCH_MODEL', 'large')
     raft_iters = int(env.get('CWM_BENCH_RAFT_ITERS', 24))
     model, fp, raft = build(bench_model, dev, raft_iters)
-    use_flash = two_source = cuda
 
     b = 1
     s = int(env.get('CWM_BENCH_S', 16 if cuda else 2))
@@ -222,7 +220,7 @@ def main(argv=None):
     def flow_sum(prompts, rung_):
         def fn():
             flows = dispatch(model, fp, raft, x, prompts, rung_, raft_iters,
-                             use_flash, two_source, mesh)[1]
+                             mesh)[1]
             return flows.abs().float().sum()
         return fn
 
@@ -291,14 +289,13 @@ def main(argv=None):
     yv = torch.from_numpy(rng.rand(s, 2, 3, hw, hw).astype(np.float32)).to(dev)
     stage_iters = 6 if cuda else 1
     with torch.no_grad():
-        cache = fast_vmae.encode_prefix(model, fp, use_flash, xm[0:1, 0])
+        cache = fast_vmae.encode_prefix(model, fp, xm[0:1, 0])
     stages = {
         'prefix_ms': C.stage_ms(lambda: fast_vmae.encode_prefix(
-            model, fp, use_flash, xm[0:1, 0]), stage_iters),
+            model, fp, xm[0:1, 0]), stage_iters),
         'suffix_ms': C.stage_ms(lambda: fast_vmae.predict_frame1_from_prefix(
-            model, fp, use_flash, cache, xm[:, 1], vis1,
-            two_source=two_source, prefix_pool=rung[0], suffix_pool=rung[1],
-            gelu=rung[2]), stage_iters),
+            model, fp, cache, xm[:, 1], vis1, prefix_pool=rung[0],
+            suffix_pool=rung[1], gelu=rung[2]), stage_iters),
         'raft_ms': C.stage_ms(lambda: apply_raft_shared0(
             raft, yv, raft_iters, True), stage_iters),
     }

@@ -13,7 +13,7 @@ card (f32 on the CPU). Rows:
   prefix panel in place;
 - ``sdpa``: ``torch.nn.functional.scaled_dot_product_attention``, the
   library candidate (no path of the port calls it);
-- ``plain``: the plain version (``_chunked_dense_attention``).
+- ``plain``: the plain version (``dense_attention``).
 
 Each row: ms per call (one warm call, then the best of 3 windows of
 ``--iters`` calls closed by one host fetch), TFLOP/s of 4·S·H·Nq·Nk·D,
@@ -88,7 +88,7 @@ def main(argv=None):
     k0, v0 = k[:1, :, :n0].contiguous(), v[:1, :, :n0].contiguous()
     k1, v1 = k[:, :, n0:].contiguous(), v[:, :, n0:].contiguous()
     with torch.no_grad():
-        ref = fa._chunked_dense_attention(q.float(), k.float(), v.float())
+        ref = fa.dense_attention(q.float(), k.float(), v.float())
     flops = 4.0 * b * h * nq * nk * d
 
     def timeit(fn):
@@ -107,7 +107,7 @@ def main(argv=None):
         'ours-two-source': lambda: fa.flash_attention_prefix(q, k0, v0, k1,
                                                              v1),
         'sdpa': lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0),
-        'plain': lambda: fa._chunked_dense_attention(q, k, v),
+        'plain': lambda: fa.dense_attention(q, k, v),
     }
     rows = {}
     with torch.no_grad():

@@ -113,7 +113,6 @@ def main(argv=None):
     p, a, sh, n_vis = C.demo_prompts(rng, n, s)
     passive, active, shifts, noise = C.as_tensors(
         dev, p, a, sh, C.demo_noise(s, n - n0))
-    two_source = fc.resolve_two_source(cuda)
     n_vis_c = w.context_n_vis(mask_c)
 
     @torch.no_grad()
@@ -122,12 +121,11 @@ def main(argv=None):
             from ..parallel.inference import sharded_imu_counterfactuals_fast
             flows = sharded_imu_counterfactuals_fast(
                 mesh, w, fast_params, raft, x, passive, active, shifts,
-                noise, imu, mask_c, n_vis, True, raft_iters, cuda,
-                two_source)[1]
+                noise, imu, mask_c, n_vis, True, raft_iters)[1]
         else:
             flows = _imu_counterfactual_step_fast(
                 w, fast_params, raft, x, passive, active, shifts, noise, imu,
-                mask_c, n_vis, True, raft_iters, cuda, two_source)[1]
+                mask_c, n_vis, True, raft_iters)[1]
         return flows.abs().float().sum()
 
     @torch.no_grad()
@@ -161,8 +159,8 @@ def main(argv=None):
         'metric': 'conjoined (IMU-conditioned) counterfactual sims/sec/card',
         'unit': 'sims/sec/card',
         'config': dict({'model': cfg, 's': s, 'hw': hw,
-                        'raft_iters': raft_iters, 'two_source': two_source,
-                        'mesh': world, 'engine': 'conjoined shared-prefix',
+                        'raft_iters': raft_iters, 'mesh': world,
+                        'engine': 'conjoined shared-prefix',
                         'image': source}, **C.device_record(dev)),
     }
     fast_rate, rec['launches_fast'] = rate(fast)
@@ -184,13 +182,12 @@ def main(argv=None):
                           ).to(dev)
     stage_iters = 6 if cuda else 1
     cache = fc.encode_conjoined_prefix(model, fast_params, x_m[0:1, :, 0],
-                                       imu, cuda)
+                                       imu)
     rec['stages'] = {
         'prefix_ms': C.stage_ms(lambda: fc.encode_conjoined_prefix(
-            model, fast_params, x_m[0:1, :, 0], imu, cuda), stage_iters),
+            model, fast_params, x_m[0:1, :, 0], imu), stage_iters),
         'suffix_ms': C.stage_ms(lambda: fc.predict_frame1_conjoined(
-            model, fast_params, cache, x_m[:, :, 1], vis1, cuda,
-            two_source), stage_iters),
+            model, fast_params, cache, x_m[:, :, 1], vis1), stage_iters),
         'raft_ms': C.stage_ms(lambda: apply_raft_shared0(
             raft, yv, raft_iters, True), stage_iters),
     }

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils import to_host
 from ._timing import timed
 
 CHECKPOINTS = {'base': 'cwm_baseVMAE_224px_8x8patches_2frames.pth',
@@ -41,10 +42,6 @@ def parse_args(argv=None):
     ap.add_argument('--movability', action='store_true')
     ap.add_argument('--device', default='cuda')
     return ap.parse_args(argv)
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
 
 
 def make_movability(G, samples: int, raft_iters: int):
@@ -82,7 +79,8 @@ def run_demo(G, x, out: str, samples: int = 8, movability=False,
     # 1. factual prediction
     video = x[:, None].expand(1, 2, *x.shape[1:])
     pred = timed(log, 'factual', G.device, lambda: G(video))
-    save('factual_pred', np.clip(_host(pred[0, 0]).transpose(1, 2, 0), 0, 1))
+    save('factual_pred',
+         np.clip(to_host(pred[0, 0]).transpose(1, 2, 0), 0, 1))
     print('factual prediction ->', os.path.join(out, 'factual_pred.png'))
 
     # 2. one counterfactual: move the centre patch right
@@ -98,10 +96,11 @@ def run_demo(G, x, out: str, samples: int = 8, movability=False,
             sample_batch_size=1))
     rgb = flow_to_rgb(flows[0, 0], max_speed=max(
         float(flows.abs().max()), 1e-3))
-    arrays['flows'] = _host(flows)
-    save('counterfactual_flow', np.clip(_host(rgb).transpose(1, 2, 0), 0, 1))
+    arrays['flows'] = to_host(flows)
+    save('counterfactual_flow',
+         np.clip(to_host(rgb).transpose(1, 2, 0), 0, 1))
     seg = G.compute_mean_motion_map(G._batch_to_samples(flows))
-    save('spelke_segment', _host(seg[0, 0]), 'inferno')
+    save('spelke_segment', to_host(seg[0, 0]), 'inferno')
     print('counterfactual flow + Spelke segment saved')
 
     # 3. batched random counterfactuals + covariance
@@ -110,19 +109,19 @@ def run_demo(G, x, out: str, samples: int = 8, movability=False,
         lambda: G.sample_counterfactual_motion_map(
             x, num_active_patches=1, num_passive_patches=1,
             num_samples=samples, sample_batch_size=samples))
-    arrays['flow_samples'] = _host(flows_s)
+    arrays['flow_samples'] = to_host(flows_s)
     motion = G.compute_mean_motion_map(flows_s)
-    save('mean_motion_map', _host(motion[0, 0]), 'inferno')
+    save('mean_motion_map', to_host(motion[0, 0]), 'inferno')
     corrs = G.compute_flow_corrs(flows_s, downsample=4)
     center = corrs[0, 0, corrs.shape[2] // 2, corrs.shape[3] // 2]
-    save('motion_covariance_center', _host(center), 'RdBu_r')
+    save('motion_covariance_center', to_host(center), 'RdBu_r')
     print('mean motion map + covariance probe saved')
 
     # 4. movability (optional; heavier)
     if movability is not False and movability is not None:
         M = (make_movability(G, samples, raft_iters) if movability is True
              else movability)
-        save('movability', _host(timed(log, 'movability', G.device,
+        save('movability', to_host(timed(log, 'movability', G.device,
                                        lambda: M(video))[0, 0]), 'inferno')
         print('movability map saved')
     return arrays

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils import to_host
 from ._timing import timed
 
 
@@ -162,8 +163,6 @@ class Legs:
         self.device = resolve_device(device)
         self.model = dataclasses.replace(model, dtype=dtype)
         self.raft = raft
-        self.use_flash = self.device.type == 'cuda'
-        self.two_source = fast_vmae.resolve_two_source(self.use_flash)
         module = PretrainVisionTransformerModule(
             dataclasses.replace(self.model, attn_impl='flash'),
             device=self.device)
@@ -196,13 +195,9 @@ class Legs:
             self.log, name, self.device,
             lambda: counterfactual_videos_and_flows_fast(
                 self.model, self.fast_params, self.raft, x, passive, active,
-                shifts, noise, pad, True, raft_iters, True, self.use_flash,
-                self.two_source, None, *rung, n_vis=n_vis))
+                shifts, noise, pad, True, raft_iters, True, None, *rung,
+                n_vis=n_vis))
         return y, f
-
-
-def _host(t):
-    return t.float().cpu().numpy()
 
 
 def image_row(legs: Legs, x, passive, active, shifts, noise, n_vis,
@@ -210,7 +205,7 @@ def image_row(legs: Legs, x, passive, active, shifts, noise, n_vis,
     """One image's row: the engine at the exact rung and at each pooled
     rung against the exact model. Returns (row without the image name,
     {leg: (videos, flows)} on the host)."""
-    y_e, f_e = (_host(v) for v in legs.exact(x, passive, active, shifts,
+    y_e, f_e = (to_host(v) for v in legs.exact(x, passive, active, shifts,
                                              noise, n_vis, raft_iters))
     seg_e, mov_e = _end_products(f_e, probe_yx)
 
@@ -222,12 +217,12 @@ def image_row(legs: Legs, x, passive, active, shifts, noise, n_vis,
         return stats
 
     arrays = {'exact': (y_e, f_e)}
-    arrays['fast'] = tuple(_host(v) for v in legs.fast(
+    arrays['fast'] = tuple(to_host(v) for v in legs.fast(
         x, passive, active, shifts, noise, n_vis, raft_iters))
     row = vs_exact(*arrays['fast'])
     for rung in pools:
         key = rung_key(*rung)
-        arrays[key] = tuple(_host(v) for v in legs.fast(
+        arrays[key] = tuple(to_host(v) for v in legs.fast(
             x, passive, active, shifts, noise, n_vis, raft_iters, rung,
             name=key))
         row[key] = vs_exact(*arrays[key])
@@ -257,10 +252,10 @@ def decomposition(legs32: Legs, bf16_arrays, x, passive, active, shifts,
     f32 vs bf16, pooling = a pooled rung in f32 vs the fast f32 leg."""
     y_e, f_e = bf16_arrays['exact']
     y_f, f_f = bf16_arrays['fast']
-    y_e32, f_e32 = (_host(v) for v in legs32.exact(
+    y_e32, f_e32 = (to_host(v) for v in legs32.exact(
         x, passive, active, shifts, noise, n_vis, raft_iters,
         name='exact f32'))
-    y_f32, f_f32 = (_host(v) for v in legs32.fast(
+    y_f32, f_f32 = (to_host(v) for v in legs32.fast(
         x, passive, active, shifts, noise, n_vis, raft_iters,
         name='fast f32'))
     out = {
@@ -277,7 +272,7 @@ def decomposition(legs32: Legs, bf16_arrays, x, passive, active, shifts,
         if (pool, spool) == (1, 1):
             continue
         key = f'pool{pool}_suffix{spool}_{gelu}'
-        y_p32, f_p32 = (_host(v) for v in legs32.fast(
+        y_p32, f_p32 = (to_host(v) for v in legs32.fast(
             x, passive, active, shifts, noise, n_vis, raft_iters,
             (pool, spool, gelu), name=f'{key} f32'))
         out[f'{key}_f32_vs_exact_f32'] = _pair_stats(y_e32, f_e32, y_p32,
@@ -363,7 +358,7 @@ def conjoined_fidelity(images, mode, args, device, dtype, log=None):
                         x, active_patches=active, shifts=shifts,
                         num_samples=s, sample_batch_size=s,
                         head_motion=head))
-            outs[engine] = (_host(y), _host(f))
+            outs[engine] = (to_host(y), to_host(f))
         ye, fe = outs['exact']
         yf, ff = outs['fast']
         per_image.append({
@@ -511,7 +506,6 @@ def main(argv=None):
         'samples_per_image': s,
         'model': args.model,
         'raft_iters': args.raft_iters,
-        'two_source': legs.two_source,
         'backend': dev.type,
         'images': label,
         'per_image': per_image,

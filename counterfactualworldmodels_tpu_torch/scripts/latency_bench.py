@@ -96,7 +96,6 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cuda = dev.type == 'cuda'
     dtype = torch.bfloat16 if cuda else torch.float32
-    use_flash = cuda
     cfg = bench_config(args.model, dtype, 'flash' if cuda else 'dense')
     module = vmae.init_params(cfg, seed=0, device=dev)
 
@@ -122,17 +121,15 @@ def main(argv=None):
     # the interactive click with a warm scene prefix (a PrefixLru hit:
     # only the S = 1 frame-1 suffix pass runs)
     fp = fast_vmae.stack_vmae_params(cfg, module.state_dict(), dtype, dev)
-    two_source = fast_vmae.resolve_two_source(use_flash)
     xm = imagenet_normalize(x, temporal_dim=1)
     with torch.no_grad():
-        cache = fast_vmae.encode_prefix(cfg, fp, use_flash, xm[0:1, 0])
+        cache = fast_vmae.encode_prefix(cfg, fp, xm[0:1, 0])
     vis1 = torch.from_numpy(rng.choice(npf, 33, replace=False)[None]).to(dev)
 
     def run_warm():
         with torch.no_grad():
-            y1 = fast_vmae.predict_frame1_from_prefix(
-                cfg, fp, use_flash, cache, xm[:, 1], vis1,
-                two_source=two_source)
+            y1 = fast_vmae.predict_frame1_from_prefix(cfg, fp, cache,
+                                                      xm[:, 1], vis1)
         return y1.abs().float().sum().item()
 
     rec['warm_prefix'] = timed(run_warm, args.iters)
@@ -163,20 +160,18 @@ def imu_click(rng, dev: torch.device, iters: int) -> dict:
     sd = weights.init_conjoined_state_dict(
         cmodel, torch.Generator(device=dev).manual_seed(2))
     cfp = fc.cast_params(cmodel, sd, device=dev)
-    two_source = fc.resolve_two_source(cuda)
     cn0 = cmodel.main.num_patches // 2
     cx = torch.from_numpy(rng.rand(1, 2, 3, chw, chw).astype(np.float32)
                           ).to(dev)
     cimu = torch.from_numpy((rng.randn(1, 6, cmodel.context.sequence_length)
                              * 0.1).astype(np.float32)).to(dev)
     cxm = imagenet_normalize(cx, temporal_dim=1).transpose(1, 2)
-    ccache = fc.encode_conjoined_prefix(cmodel, cfp, cxm[0:1, :, 0], cimu,
-                                        cuda)
+    ccache = fc.encode_conjoined_prefix(cmodel, cfp, cxm[0:1, :, 0], cimu)
     cvis1 = torch.from_numpy(rng.choice(cn0, 33, replace=False)[None]).to(dev)
 
     def run_warm_imu():
         y1 = fc.predict_frame1_conjoined(cmodel, cfp, ccache, cxm[:, :, 1],
-                                         cvis1, cuda, two_source)
+                                         cvis1)
         return y1.abs().float().sum().item()
 
     out = timed(run_warm_imu, iters)

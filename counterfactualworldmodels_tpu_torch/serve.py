@@ -62,6 +62,7 @@ from .pipelines.imu import _imu_counterfactual_multi_step_fast
 from .pipelines.segmentation import (
     counterfactual_videos_and_flows_fast,
     counterfactual_videos_and_flows_fast_multi)
+from .utils import to_host
 from .utils.batching import MicroBatcher, pad_to_bucket
 from .utils.png import encode_png
 
@@ -227,10 +228,6 @@ def _png_b64(arr):
         encode_png((np.clip(a, 0, 1) * 255).astype(np.uint8))).decode()
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
-
-
 def _same_images(items) -> bool:
     x0 = items[0][0]
     return all(it[0].shape == x0.shape and bool(torch.equal(it[0], x0))
@@ -324,8 +321,8 @@ class CwmService:
             self._fp = fast_vmae.stack_vmae_params(G.predictor, G.params,
                                                    device=self.device)
             self._lru = fast_vmae.PrefixLru(
-                G.predictor, self._fp, self.device.type == 'cuda',
-                G.imagenet_normalize_inputs, size=self.prefix_cache_size)
+                G.predictor, self._fp, G.imagenet_normalize_inputs,
+                size=self.prefix_cache_size)
         return self._lru.get(x)
 
     def _parse_image(self, req):
@@ -358,7 +355,7 @@ class CwmService:
         with self.lock, torch.no_grad():
             video = x[:, None].expand(1, 2, *x.shape[1:])
             pred = G.predict(video, mask.to(self.device), frame=1)
-            pred = _host(pred[0, 0]).transpose(1, 2, 0)
+            pred = to_host(pred[0, 0]).transpose(1, 2, 0)
         return {'prediction': _png_b64(pred)}
 
     def _parse_cf_request(self, req):
@@ -389,10 +386,10 @@ class CwmService:
         """Response assembly: simulation/flow/segment PNGs + the raw
         segment. flow0 [2, H, W] and seg [H, W] tensors."""
         flow0 = flow0.float()
-        rgb = _host(flow_to_rgb(
+        rgb = to_host(flow_to_rgb(
             flow0, max_speed=max(float(flow0.abs().max()), 1e-3))
         ).transpose(1, 2, 0)
-        seg = _host(seg)
+        seg = to_host(seg)
         return {'simulation': _png_b64(sim), 'flow_rgb': _png_b64(rgb),
                 'segment': _png_b64(seg),
                 'segment_raw': np.round(seg, 4).tolist(), **extra}
@@ -406,7 +403,7 @@ class CwmService:
             flows_s = fl[:, 0].movedim(0, -1)[None]
             seg = self.G.compute_mean_motion_map(flows_s)[0, 0]
             out.append(self._cf_response(
-                _host(ys[off, 1]).transpose(1, 2, 0), fl[0, 0], seg,
+                to_host(ys[off, 1]).transpose(1, 2, 0), fl[0, 0], seg,
                 **extra))
             off += s
         return out
@@ -481,7 +478,6 @@ class CwmService:
         s_total = sum(counts)
         s_pad = pad_to_bucket(s_total, self._scene_buckets())
         rows, act, pas, shf = self._rows(items, s_pad)
-        use_flash = self.device.type == 'cuda'
         with self.lock, torch.no_grad():
             self._req_counter += 1
             n0 = G.predictor.num_patches_per_frame
@@ -501,9 +497,8 @@ class CwmService:
             ys, flows, _ = counterfactual_videos_and_flows_fast_multi(
                 G.predictor, self._fp, G.flow_model, xs, pas, act, shf,
                 self._sfx_pad(n_vis), G.imagenet_normalize_inputs,
-                G.raft_iters, True, use_flash,
-                fast_vmae.resolve_two_source(use_flash), noise, stacked,
-                n_vis=n_vis, device=self.device)
+                G.raft_iters, True, noise, stacked, n_vis=n_vis,
+                device=self.device)
             self.scene_batches += 1
             out, off = [], 0
             for s, resp in zip(counts, self._responses(
@@ -549,7 +544,6 @@ class CwmService:
         active, passive, shifts = self._stacked_prompts(items, s_pad)
         shifts = torch.tensor(shifts, dtype=torch.long,
                               device=self.device)[None]
-        use_flash = self.device.type == 'cuda'
         with self.lock, torch.no_grad():
             self._req_counter += 1
             n0 = G.predictor.num_patches_per_frame
@@ -560,9 +554,8 @@ class CwmService:
             ys, flows, _ = counterfactual_videos_and_flows_fast(
                 G.predictor, self._fp, G.flow_model, video, passive, active,
                 shifts, noise, self._sfx_pad(n_vis),
-                G.imagenet_normalize_inputs, G.raft_iters, True, use_flash,
-                fast_vmae.resolve_two_source(use_flash), prefix_cache=cache,
-                n_vis=n_vis)
+                G.imagenet_normalize_inputs, G.raft_iters, True,
+                prefix_cache=cache, n_vis=n_vis)
             extra = ({} if self._batcher is None
                      else {'batched_samples': s_pad})
             return self._responses(ys, flows, counts, prefix_cache_hit=hit,
@@ -584,7 +577,7 @@ class CwmService:
                 passive_patches=passive, shifts=[tuple(shift)] * s,
                 num_samples=s, sample_batch_size=s)
             seg = G.compute_mean_motion_map(G._batch_to_samples(flows))[0, 0]
-            return self._cf_response(_host(ys[0, 1]).transpose(1, 2, 0),
+            return self._cf_response(to_host(ys[0, 1]).transpose(1, 2, 0),
                                      flows[0, 0], seg)
 
     # ---- startup warmup ----
@@ -838,8 +831,7 @@ class ImuCwmService(CwmService):
             ys, flows, _ = _imu_counterfactual_multi_step_fast(
                 G.predictor, G._conj_params, G.flow_model, xs, pas, act, shf,
                 noise, x_context, mask_context, n_vis,
-                G.imagenet_normalize_inputs, G.raft_iters, G._use_flash,
-                fast_conjoined.resolve_two_source(G._use_flash), stacked)
+                G.imagenet_normalize_inputs, G.raft_iters, stacked)
             self.scene_batches += 1
             return self._responses(ys, flows, counts, engine=self.engine,
                                    imu_conditioned=True,
@@ -888,7 +880,7 @@ class ImuCwmService(CwmService):
                 num_samples=s, sample_batch_size=s, head_motion=head)
             seg = G.compute_mean_motion_map(G._batch_to_samples(flows))[0, 0]
             return self._cf_response(
-                _host(ys[0, 1]).transpose(1, 2, 0), flows[0, 0], seg,
+                to_host(ys[0, 1]).transpose(1, 2, 0), flows[0, 0], seg,
                 engine=self.engine, imu_conditioned=True)
 
     def movability(self, req):
@@ -905,7 +897,7 @@ class ImuCwmService(CwmService):
             head = self._static_imu_for(x)
             video = x[:, None].expand(1, 2, *x.shape[1:])
             out = self.G(video, head_motion=head, num_iters=iters)
-            m = _host(out[0, 0])
+            m = to_host(out[0, 0])
         rng = float(m.max() - m.min())
         return {'movability': _png_b64((m - m.min()) / max(rng, 1e-6)),
                 'movability_raw': np.round(m, 4).tolist(),

@@ -168,10 +168,9 @@ def test_conjoined_counts_match_torchs_flop_counter():
     clip = imu_dispatch.imu_clip(cfg, SEED, 0, torch.device('cpu'))
     vis = torch.stack([torch.randperm(64)[:8] for _ in range(s)])
     with FlopCounterMode(display=False) as counter:
-        cache = fc.encode_conjoined_prefix(w.model, params, x0, clip, False)
+        cache = fc.encode_conjoined_prefix(w.model, params, x0, clip)
         fc.predict_frame1_conjoined(w.model, params, cache,
-                                    torch.rand(s, 3, 128, 128), vis, False,
-                                    False)
+                                    torch.rand(s, 3, 128, 128), vis)
     assert counter.get_total_flops() == conjoined.dispatch_flops(cfg, s, 8)
     ops, nbytes = conjoined.dispatch_kernels(cfg, s)
     k1 = attention.fwd(1, 4, 64, 12, [(1, 64)])[0] * 2 + attention.fwd(

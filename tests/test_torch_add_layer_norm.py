@@ -6,9 +6,9 @@ pending-residual block loops, on the CPU.
 blocks hand their MLP output pending to the next norm; below, the loops
 are held bitwise against the settled form (each residual added where it
 arises, each norm on the settled stream), written out here as the engine
-had it, in f32 and bf16, for the prefix, the dense two-source encoder
-suffix with pad keys, and the decoder suffix at the exact and the pooled
-rung. The card's kernel is held against the plain version in
+had it, in f32 and bf16, for the prefix, the two-source encoder suffix
+with pad keys, and the decoder suffix at the exact and the pooled rung.
+The card's kernel is held against the plain version in
 tests/test_torch_kernels_cuda.py.
 """
 import pytest
@@ -17,7 +17,7 @@ import torch
 from counterfactualworldmodels_tpu_torch.models import fast_vmae as tfv
 from counterfactualworldmodels_tpu_torch.models import layers, vmae
 from counterfactualworldmodels_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_prefix)
+    flash_attention, flash_attention_prefix, own_lengths)
 from counterfactualworldmodels_tpu_torch.ops.layer_norm import add_layer_norm
 from counterfactualworldmodels_tpu_torch.utils import weights
 
@@ -58,16 +58,12 @@ def _settled_ln(x, p):
     return layers.layer_norm(x, p['scale'], p['bias'], 1e-6)
 
 
-def _settled_prefix_block(p, h, num_heads, use_flash):
+def _settled_prefix_block(p, h, num_heads):
     scale = (h.shape[-1] // num_heads) ** -0.5
     b, n, _ = h.shape
     ln = _settled_ln(h, p['norm1'])
     q, k, v = tfv._qkv(p['attn'], ln, num_heads)
-    if use_flash:
-        o = flash_attention(q * scale, k, v)
-    else:
-        o = tfv._dense_attention(q * scale, k, v)
-    o = tfv._proj(p['attn'], o, b, n)
+    o = tfv._proj(p['attn'], flash_attention(q * scale, k, v), b, n)
     if 'gamma_1' in p:
         o = p['gamma_1'] * o
     h = h + o
@@ -77,9 +73,9 @@ def _settled_prefix_block(p, h, num_heads, use_flash):
     return h + m, (k, v)
 
 
-def _settled_suffix_block(p, kv0, h, num_heads, use_flash, two_source,
-                          prefix_weight=1.0, suffix_pool=1, grid=None,
-                          gelu='erf', key_valid=None):
+def _settled_suffix_block(p, kv0, h, num_heads, prefix_weight=1.0,
+                          suffix_pool=1, grid=None, gelu='erf',
+                          key_valid=None):
     scale = (h.shape[-1] // num_heads) ** -0.5
     s, n, _ = h.shape
     k0, v0 = kv0
@@ -90,15 +86,10 @@ def _settled_suffix_block(p, kv0, h, num_heads, use_flash, two_source,
         k = tfv._pool_kv_grid(k, suffix_pool, grid)
         v = tfv._pool_kv_grid(v, suffix_pool, grid)
         suffix_weight = float(suffix_pool * suffix_pool)
-    if two_source and use_flash and key_valid is None:
-        o = flash_attention_prefix(q * scale, k0, v0, k, v,
-                                   prefix_weight=prefix_weight,
-                                   suffix_weight=suffix_weight)
-    else:
-        o = tfv._dense_attention_prefix(q * scale, k0, v0, k, v,
-                                        weight0=prefix_weight,
-                                        weight1=suffix_weight,
-                                        own_valid=key_valid)
+    o = flash_attention_prefix(
+        q * scale, k0, v0, k, v, prefix_weight=prefix_weight,
+        suffix_weight=suffix_weight,
+        own_len=None if key_valid is None else own_lengths(key_valid))
     o = tfv._proj(p['attn'], o, s, n)
     if 'gamma_1' in p:
         o = p['gamma_1'] * o
@@ -109,11 +100,11 @@ def _settled_suffix_block(p, kv0, h, num_heads, use_flash, two_source,
     return h + m
 
 
-def _settled_prefix(stacked, h, num_heads, use_flash, norm):
+def _settled_prefix(stacked, h, num_heads, norm):
     ks, vs = [], []
     for i in range(tfv._num_layers(stacked)):
         h, (k, v) = _settled_prefix_block(tfv._layer(stacked, i), h,
-                                          num_heads, use_flash)
+                                          num_heads)
         ks.append(k)
         vs.append(v)
     return _settled_ln(h, norm), torch.stack(ks), torch.stack(vs)
@@ -144,25 +135,24 @@ def engine():
 
 @pytest.mark.parametrize('dtype', DTYPES, ids=['f32', 'bf16'])
 def test_block_loops_match_the_settled_form(engine, dtype):
-    """The prefix (K1 route) and the encoder suffix (dense two-source with
-    pad keys): stream, keys and values bitwise the settled form's."""
+    """The prefix (K1) and the encoder suffix (K2 with pad keys): stream,
+    keys and values bitwise the settled form's."""
     model, sd = engine
     fp = tfv.stack_vmae_params(model, sd, dtype=dtype, device='cpu')
     g = torch.Generator().manual_seed(4)
     eh, dh = model.encoder_num_heads, model.decoder_num_heads
     tokens0 = _rows(g, (1, 64, 64), dtype)
-    h, m, kvs = tfv._prefix_blocks(fp.enc_blocks, tokens0, eh, True)
+    h, m, kvs = tfv._prefix_blocks(fp.enc_blocks, tokens0, eh)
     _, y = tfv._add_ln(h, m, fp.enc_norm)
     want_y, want_k, want_v = _settled_prefix(fp.enc_blocks, tokens0, eh,
-                                             True, fp.enc_norm)
+                                             fp.enc_norm)
     assert torch.equal(y, want_y)
     assert torch.equal(kvs[0], want_k) and torch.equal(kvs[1], want_v)
     assert m is not None and m.dtype == dtype
 
     z0 = _rows(g, (1, 64, 32), dtype)
-    _, _, dec_kvs = tfv._prefix_blocks(fp.dec_blocks, z0, dh, False)
-    _, want_dk, want_dv = _settled_prefix(fp.dec_blocks, z0, dh, False,
-                                          fp.dec_norm)
+    _, _, dec_kvs = tfv._prefix_blocks(fp.dec_blocks, z0, dh)
+    _, want_dk, want_dv = _settled_prefix(fp.dec_blocks, z0, dh, fp.dec_norm)
     assert torch.equal(dec_kvs[0], want_dk)
     assert torch.equal(dec_kvs[1], want_dv)
 
@@ -170,12 +160,10 @@ def test_block_loops_match_the_settled_form(engine, dtype):
     valid = torch.ones(3, 8, dtype=torch.bool)
     valid[0, 5:] = False
     valid[2, 1:] = False
-    hs, ms = tfv._suffix_blocks(fp.enc_blocks, kvs, tok, eh, False, True,
-                                key_valid=valid)
+    hs, ms = tfv._suffix_blocks(fp.enc_blocks, kvs, tok, eh, key_valid=valid)
     _, ys = tfv._add_ln(hs, ms, fp.enc_norm)
     assert torch.equal(ys, _settled_suffix(fp.enc_blocks, kvs, tok,
-                                           fp.enc_norm, eh, False, True,
-                                           key_valid=valid))
+                                           fp.enc_norm, eh, key_valid=valid))
 
 
 @pytest.mark.parametrize('rung', [(1, 1, 'erf'), (2, 2, 'tanh'),
@@ -183,22 +171,22 @@ def test_block_loops_match_the_settled_form(engine, dtype):
                          ids=['exact', 'pool2', 'pool4'])
 @pytest.mark.parametrize('dtype', DTYPES, ids=['f32', 'bf16'])
 def test_suffix_decoder_matches_the_settled_form(engine, dtype, rung):
-    """The decoder suffix over the full frame-1 grid (8 x 8 tokens), K2's
-    route (two-source; pooled prefix and own keys on the pooled rungs),
-    then dec_norm: bitwise the settled form's."""
+    """The decoder suffix over the full frame-1 grid (8 x 8 tokens) on K2
+    (pooled prefix and own keys on the pooled rungs), then dec_norm:
+    bitwise the settled form's."""
     model, sd = engine
     pp, sp, gelu = rung
     fp = tfv.stack_vmae_params(model, sd, dtype=dtype, device='cpu')
     g = torch.Generator().manual_seed(5)
     dh = model.decoder_num_heads
     z0 = _rows(g, (1, 64, 32), dtype)
-    _, _, dec_kvs = tfv._prefix_blocks(fp.dec_blocks, z0, dh, True)
+    _, _, dec_kvs = tfv._prefix_blocks(fp.dec_blocks, z0, dh)
     pw = 1.0
     if pp > 1:
         dec_kvs = tfv.pool_dec_prefix(dec_kvs, pp, 8, 8)
         pw = float(pp * pp)
     z1 = _rows(g, (3, 64, 32), dtype)
-    args = (dh, True, True, pw, sp, (8, 8), gelu)
+    args = (dh, pw, sp, (8, 8), gelu)
     y1, m1 = tfv._suffix_blocks(fp.dec_blocks, dec_kvs, z1, *args)
     _, y1 = tfv._add_ln(y1, m1, fp.dec_norm)
     want = _settled_suffix(fp.dec_blocks, dec_kvs, z1, fp.dec_norm, *args)

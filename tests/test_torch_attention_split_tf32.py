@@ -166,12 +166,12 @@ def test_split_tf32_arithmetic_holds_the_f32_tolerances(case):
     assert _err(out, ref) <= tol
     assert _lse_excess(lse, ref_lse) <= 1 / MARGIN
     if k1 is None:
-        plain = tfa._chunked_dense_attention(q, k0, v0)
+        plain = tfa.dense_attention(q, k0, v0)
         jax_out = jfa.flash_attention(jnp.asarray(q.numpy()),
                                       jnp.asarray(k0.numpy()),
                                       jnp.asarray(v0.numpy()), interpret=True)
     else:
-        plain = tfa._dense_two_source(q, k0, v0, k1, v1, w0, w1)
+        plain = tfa._dense_attention_prefix(q, k0, v0, k1, v1, w0, w1)
         jax_out = jfa.flash_attention_prefix(
             *(jnp.asarray(a.numpy()) for a in (q, k0, v0, k1, v1)),
             interpret=True, prefix_weight=w0, suffix_weight=w1)
@@ -203,7 +203,7 @@ def test_split_tf32_lse_matches_the_jax_training_forward():
     _, jax_lse = jfa._flash_bhnd_lse(jnp.asarray(q[0].numpy()),
                                      jnp.asarray(k[0].numpy()),
                                      jnp.asarray(v[0].numpy()), 64, 128, True)
-    _, plain_lse = tfa._chunked_dense_attention(q, k, v, with_lse=True)
+    _, plain_lse = tfa.dense_attention(q, k, v, with_lse=True)
     _, ref_lse = _dense_f64(q, k, v, 1.0)
     for other in (torch.from_numpy(np.array(jax_lse))[None], plain_lse,
                   ref_lse):

@@ -195,8 +195,7 @@ def test_bench_dispatch_matches_jax(small_pair):
     noise = jax_uniform_noise(keys[0], n - npf)
     prompts = bench.on_device(torch.device('cpu'), p, a, sh, nv, noise)
     fp = tfv.stack_vmae_params(tm, sd, torch.float32, 'cpu')
-    ty, tf, tmask = bench.dispatch(tm, fp, tr, t(x), prompts, rung, 2, False,
-                                   False)
+    ty, tf, tmask = bench.dispatch(tm, fp, tr, t(x), prompts, rung, 2)
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
     assert_close(ty.numpy(), jy, 1e-4)
     assert_close(tf.numpy(), jf, 1e-3)
@@ -291,8 +290,8 @@ def test_bench_conjoined_main_on_cpu(monkeypatch, capsys):
     assert _one_json_line(capsys) == json.loads(json.dumps(rec))
     assert {'metric', 'unit', 'config', 'value', 'exact_sims_per_sec',
             'speedup_vs_exact', 'stages'} <= set(rec)
-    assert {'model', 's', 'hw', 'raft_iters', 'two_source', 'backend',
-            'mesh', 'engine'} <= set(rec['config'])
+    assert {'model', 's', 'hw', 'raft_iters', 'backend', 'mesh',
+            'engine'} <= set(rec['config'])
     assert rec['value'] > 0 and rec['exact_sims_per_sec'] > 0
     assert rec['config']['model'] == 'small' and rec['config']['hw'] == 112
     assert set(rec['stages']) == {'prefix_ms', 'suffix_ms', 'raft_ms'}

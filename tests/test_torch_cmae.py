@@ -241,8 +241,8 @@ def test_head_dim_padding_is_exact_in_the_plain_versions(d):
     pq, pk, pv, pdo = fa.pad_head_dim(q, k, v, do)
     assert pq.shape[-1] == kd and torch.equal(pq[..., :d], q)
     assert not pq[..., d:].any()
-    out, lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
-    pout, plse = fa._chunked_dense_attention(pq, pk, pv, with_lse=True)
+    out, lse = fa.dense_attention(q, k, v, with_lse=True)
+    pout, plse = fa.dense_attention(pq, pk, pv, with_lse=True)
     assert_close(pout[..., :d], out, atol=1e-6)
     assert not pout[..., d:].any()
     assert_close(plse, lse, atol=1e-6)

@@ -4,9 +4,9 @@
 The tiny conjoined model of tests/test_fast_conjoined.py in both flavours
 (padded IMU context without a dummy token; non-padded context with one),
 JAX-initialised weights bridged by ``conjoined_state_dict_from_jax`` and
-re-laid-out by ``cast_params``. Both engines run their dense route (the
-JAX package's CPU route; the port's kernel wrappers take their plain
-versions on CPU tensors). Prefix caches, frame-1 predictions and videos
+re-laid-out by ``cast_params``. The JAX engine runs its dense route (the
+JAX package's CPU route); the port's kernel wrappers take their plain
+versions on CPU tensors. Prefix caches, frame-1 predictions and videos
 within 1e-4 (f32); masks and routing exact.
 """
 import numpy as np
@@ -154,8 +154,7 @@ def test_prefix_and_frame1_match_jax(flavour, cross):
     vis1 = np.stack([np.nonzero(~mask[i, N0:])[0] for i in range(3)])
     jcache = _jencode(jm, params, jnp.asarray(xm[0:1, :, 0]),
                       jnp.asarray(imu), False)
-    tcache = tfc.encode_conjoined_prefix(tm, tp, t(xm[0:1, :, 0]), t(imu),
-                                         False)
+    tcache = tfc.encode_conjoined_prefix(tm, tp, t(xm[0:1, :, 0]), t(imu))
     jl = jax.tree_util.tree_leaves(jcache)
     tl = jax.tree_util.tree_leaves(
         jax.tree_util.tree_map(lambda v: v.numpy(), tuple(tcache)))
@@ -166,13 +165,12 @@ def test_prefix_and_frame1_match_jax(flavour, cross):
     jy = _jframe1(jm, params, jcache, jnp.asarray(xm[:, :, 1]),
                   jnp.asarray(vis1), False, False)
     ty = tfc.predict_frame1_conjoined(tm, tp, tcache, t(xm[:, :, 1]),
-                                      t(vis1).long(), False, False)
+                                      t(vis1).long())
     assert_close(ty.numpy(), jy, 1e-4)
 
 
 @pytest.mark.parametrize('flavour', FLAVOURS)
-def test_videos_with_bucketing_and_ragged_rows_match_jax(flavour,
-                                                         monkeypatch):
+def test_videos_with_bucketing_and_ragged_rows_match_jax(flavour):
     """predict_videos_conjoined_prefix on rows of 0, 3 and 5 visible
     frame-1 patches in one bucket of 8: a row whose suffix keys are all
     pad stays finite, and every row equals JAX's and its own exact-width
@@ -180,19 +178,19 @@ def test_videos_with_bucketing_and_ragged_rows_match_jax(flavour,
     jm, params, jw, tm, tp, tw = engines(flavour)
     x, mask, imu = workload(3, counts=(0, 3, 5))
     mask_c = np.zeros((1, IMU_TOK), bool)
-    args = (n_vis := N0 + 5, True, False)
+    n_vis = N0 + 5
     jy = jfc.predict_videos_conjoined_prefix(
         jw, params, jnp.asarray(x), jnp.asarray(mask), jnp.asarray(imu),
-        jnp.asarray(mask_c), *args)
+        jnp.asarray(mask_c), n_vis, True, False)
     ty = tfc.predict_videos_conjoined_prefix(
-        tw, tp, t(x), t(mask), t(imu), t(mask_c), *args)
+        tw, tp, t(x), t(mask), t(imu), t(mask_c), n_vis, True)
     assert torch.isfinite(ty).all()
     assert_close(ty.numpy(), jy, 1e-4)
-    monkeypatch.setenv('CWM_SFX_BUCKET', '0')
     for i, k in enumerate((0, 3, 5)):
-        yi = tfc.predict_videos_conjoined_prefix(
-            tw, tp, t(x[i:i + 1]), t(mask[i:i + 1]), t(imu), t(mask_c),
-            N0 + k, True, False)
+        # the row at its exact width: a suffix of k tokens, no pad slot
+        yi = tfc._conjoined_videos_core(
+            tw, tp, t(x[i:i + 1]), t(mask[i:i + 1]), t(imu), t(mask_c), k,
+            True)
         assert_close(ty[i].numpy(), yi[0].numpy(), 1e-5)
     assert n_vis > N0
 
@@ -206,9 +204,9 @@ def test_stacked_caches_match_serial_and_jax():
     for seed in (11, 12, 13):
         x, mask, imu = workload(seed, s=1, counts=(4,))
         cache = tfc.make_conjoined_prefix_cache(tw, tp, t(x[0:1]), t(imu),
-                                                True, False)
+                                                True)
         serial.append(tfc.predict_videos_conjoined_prefix(
-            tw, tp, t(x), t(mask), t(imu), t(mask_c), N0 + 4, True, False,
+            tw, tp, t(x), t(mask), t(imu), t(mask_c), N0 + 4, True,
             cache=cache))
         jcache = jfc.make_conjoined_prefix_cache(
             jw, params, jnp.asarray(x[0:1]), jnp.asarray(imu), True, False)
@@ -218,7 +216,7 @@ def test_stacked_caches_match_serial_and_jax():
     assert stacked.ctx_tokens.shape[0] == 3
     mc = np.zeros((3, IMU_TOK), bool)
     ty = tfc.predict_videos_conjoined_prefix(
-        tw, tp, t(cat(0)), t(cat(1)), t(cat(2)), t(mc), N0 + 4, True, False,
+        tw, tp, t(cat(0)), t(cat(1)), t(cat(2)), t(mc), N0 + 4, True,
         cache=stacked)
     assert_close(ty.numpy(), torch.cat(serial).numpy(), 2e-5)
     jy = jfc.predict_videos_conjoined_prefix(
@@ -237,12 +235,12 @@ def test_lru_keys_on_scene_and_imu():
     x, mask, imu = workload(5)
     mask_c = np.zeros((1, IMU_TOK), bool)
     implicit = tfc.predict_videos_conjoined_prefix(
-        tw, tp, t(x), t(mask), t(imu), t(mask_c), N0 + 4, True, False)
-    lru = tfc.ConjoinedPrefixLru(tw, tp, False, True, size=2)
+        tw, tp, t(x), t(mask), t(imu), t(mask_c), N0 + 4, True)
+    lru = tfc.ConjoinedPrefixLru(tw, tp, True, size=2)
     cache, hit = lru.get(t(x[0:1]), t(imu))
     assert not hit and lru.misses == 1
     injected = tfc.predict_videos_conjoined_prefix(
-        tw, tp, t(x), t(mask), t(imu), t(mask_c), N0 + 4, True, False,
+        tw, tp, t(x), t(mask), t(imu), t(mask_c), N0 + 4, True,
         cache=cache)
     assert_close(injected.numpy(), implicit.numpy(), 1e-6)
     other1 = x[0:1].copy()
@@ -263,17 +261,17 @@ def test_guards_and_zero_suffix():
     bad[0, 3] = True
     with pytest.raises(ValueError, match='frame 0'):
         tfc.predict_videos_conjoined_prefix(tw, tp, t(x), t(bad), t(imu), mc,
-                                            N0 + 2, True, False)
+                                            N0 + 2, True)
     with pytest.raises(ValueError, match='mask_context'):
         tfc.predict_videos_conjoined_prefix(
-            tw, tp, t(x), t(mask), t(imu), ~mc, N0 + 2, True, False)
+            tw, tp, t(x), t(mask), t(imu), ~mc, N0 + 2, True)
     with pytest.raises(ValueError, match='n_vis'):
         tfc.predict_videos_conjoined_prefix(tw, tp, t(x), t(mask), t(imu), mc,
-                                            N0 - 1, True, False)
+                                            N0 - 1, True)
     full = np.ones((2, N), bool)
     full[:, :N0] = False
     ty = tfc.predict_videos_conjoined_prefix(tw, tp, t(x), t(full), t(imu),
-                                             mc, N0, True, False)
+                                             mc, N0, True)
     jy = jfc.predict_videos_conjoined_prefix(
         jw, params, jnp.asarray(x), jnp.asarray(full), jnp.asarray(imu),
         jnp.asarray(mc.numpy()), N0, True, False)

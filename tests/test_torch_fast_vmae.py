@@ -1,10 +1,9 @@
 """Port parity: the shared-prefix VMAE engine against the JAX engine.
 
 Same weights (JAX init -> weight bridge) and same inputs on both sides, in
-f32 on the CPU; the JAX engine runs with use_flash=False. The port runs
-both its dense route and its kernel route (use_flash=True, whose wrappers
-take the plain versions on CPU tensors). atol 1e-4: f32 sums over three
-encoder and two decoder layers in another order."""
+f32 on the CPU; the JAX engine runs with use_flash=False. The port's
+attention wrappers take their plain versions on CPU tensors. atol 1e-4:
+f32 sums over three encoder and two decoder layers in another order."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -14,6 +13,7 @@ import torch
 from counterfactualworldmodels_tpu.models import fast_vmae as jfv
 from counterfactualworldmodels_tpu.ops.normalization import imagenet_normalize
 from counterfactualworldmodels_tpu_torch.models import fast_vmae as tfv
+from counterfactualworldmodels_tpu_torch.ops import flash_attention as tfa
 
 from torch_port_common import RUNGS, assert_close, t, vmae_pair, workload
 
@@ -45,21 +45,19 @@ def test_encode_prefix_and_frame1_match_jax(pair):
                            jfv.sfx_bucket(n_vis - n0, n1))
     jy = jfv.predict_frame1_from_prefix(jm, jfp, False, jc,
                                         jnp.asarray(xn[:, 1]), vis)
-    for use_flash in (False, True):
-        tc = tfv.encode_prefix(tm, tfp, use_flash, t(xn[0:1, 0]))
-        for jt, tt in zip(jax.tree_util.tree_leaves(tuple(jc)),
-                          [tc.enc_kvs[0], tc.enc_kvs[1], tc.dec_kvs[0],
-                           tc.dec_kvs[1]]):
-            assert tuple(tt.shape) == jt.shape
-            assert_close(tt.numpy(), jt, ATOL)
-        np.testing.assert_array_equal(
-            tfv.pad_vis1_idx(t(mask[:, n0:]),
-                             tfv.sfx_bucket(n_vis - n0, n1)).numpy(),
-            np.asarray(vis))
-        ty = tfv.predict_frame1_from_prefix(tm, tfp, use_flash, tc,
-                                            t(xn[:, 1]), t(vis).long(),
-                                            two_source=use_flash)
-        assert_close(ty.numpy(), jy, ATOL)
+    tc = tfv.encode_prefix(tm, tfp, t(xn[0:1, 0]))
+    for jt, tt in zip(jax.tree_util.tree_leaves(tuple(jc)),
+                      [tc.enc_kvs[0], tc.enc_kvs[1], tc.dec_kvs[0],
+                       tc.dec_kvs[1]]):
+        assert tuple(tt.shape) == jt.shape
+        assert_close(tt.numpy(), jt, ATOL)
+    np.testing.assert_array_equal(
+        tfv.pad_vis1_idx(t(mask[:, n0:]),
+                         tfv.sfx_bucket(n_vis - n0, n1)).numpy(),
+        np.asarray(vis))
+    ty = tfv.predict_frame1_from_prefix(tm, tfp, tc, t(xn[:, 1]),
+                                        t(vis).long())
+    assert_close(ty.numpy(), jy, ATOL)
 
 
 @pytest.mark.parametrize('rung', RUNGS, ids=['exact', 'pool2', 'pool4'])
@@ -70,11 +68,10 @@ def test_predict_videos_matches_jax_at_rung(pair, rung):
     ref = np.asarray(jfv.predict_videos_shared_prefix(
         jm, jfp, False, n_vis, True, jnp.asarray(x), jnp.asarray(mask),
         prefix_pool=pp, suffix_pool=sp, gelu=gelu))
-    for use_flash in (False, True):
-        out = tfv.predict_videos_shared_prefix(
-            tm, tfp, use_flash, n_vis, True, t(x), t(mask),
-            two_source=use_flash, prefix_pool=pp, suffix_pool=sp, gelu=gelu)
-        assert_close(out.numpy(), ref, ATOL)
+    out = tfv.predict_videos_shared_prefix(
+        tm, tfp, n_vis, True, t(x), t(mask), prefix_pool=pp, suffix_pool=sp,
+        gelu=gelu)
+    assert_close(out.numpy(), ref, ATOL)
 
 
 def test_ragged_bucketed_rows_match_jax(pair):
@@ -86,8 +83,8 @@ def test_ragged_bucketed_rows_match_jax(pair):
     assert tfv.sfx_bucket(n_vis - n0, jm.num_patches - n0) == 8
     ref = np.asarray(jfv.predict_videos_shared_prefix(
         jm, jfp, False, n_vis, True, jnp.asarray(x), jnp.asarray(mask)))
-    out = tfv.predict_videos_shared_prefix(tm, tfp, True, n_vis, True, t(x),
-                                           t(mask), two_source=True)
+    out = tfv.predict_videos_shared_prefix(tm, tfp, n_vis, True, t(x),
+                                           t(mask))
     assert_close(out.numpy(), ref, ATOL)
 
 
@@ -98,8 +95,7 @@ def test_zero_suffix_prompt_matches_jax(pair):
     n0 = jm.num_patches_per_frame
     ref = np.asarray(jfv.predict_videos_shared_prefix(
         jm, jfp, False, n0, True, jnp.asarray(x), jnp.asarray(mask)))
-    out = tfv.predict_videos_shared_prefix(tm, tfp, True, n0, True, t(x),
-                                           t(mask), two_source=True)
+    out = tfv.predict_videos_shared_prefix(tm, tfp, n0, True, t(x), t(mask))
     assert_close(out.numpy(), ref, ATOL)
     assert_close(out[0].numpy(), out[1].numpy(), 1e-6)
 
@@ -111,7 +107,7 @@ def test_rejects_frame0_masks_and_model_knobs(pair):
     mask[:, 0] = True
     mask[:, n0 + np.where(mask[0, n0:])[0][0]] = False
     with pytest.raises(ValueError, match='frame 0'):
-        tfv.predict_videos_shared_prefix(tm, tfp, False, n_vis, True, t(x),
+        tfv.predict_videos_shared_prefix(tm, tfp, n_vis, True, t(x),
                                          t(mask))
     import dataclasses
     for knob in (dict(qk_scale=0.5), dict(use_learnable_pos_emb=True)):
@@ -126,7 +122,7 @@ def test_dense_attention_prefix_zero_width_own_panel():
     k0 = t(rng.randn(1, 2, 5, 4).astype(np.float32))
     v0 = t(rng.randn(1, 2, 5, 4).astype(np.float32))
     z = torch.zeros(2, 2, 0, 4)
-    out = tfv._dense_attention_prefix(q, k0, v0, z, z)
+    out = tfa._dense_attention_prefix(q, k0, v0, z, z)
     ref = jfv._dense_attention_prefix(*(jnp.asarray(a.numpy()) for a in
                                         (q, k0, v0, z, z)))
     assert_close(out.numpy(), ref, 1e-5)
@@ -140,7 +136,3 @@ def test_resolvers_match_jax():
     for n in (0, 1, 4, 5, 17, 33, 100, 3136):
         assert tfv.sfx_bucket(n, 3136) == jfv.sfx_bucket(n, 3136)
         assert tfv.sfx_bucket(n, 20) == jfv.sfx_bucket(n, 20)
-    for uf in (False, True):
-        for ts in (None, False, True):
-            assert (tfv.resolve_two_source(uf, ts)
-                    == jfv.resolve_two_source(uf, ts))

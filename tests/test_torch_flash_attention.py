@@ -69,7 +69,7 @@ def test_flash_attention_prefix_rejections():
 
 @pytest.mark.parametrize('s0', [1, 4])
 def test_flash_attention_prefix_plain_with_own_lengths(s0):
-    """With own_len the plain branch is the engine's dense route
+    """With own_len the plain branch is K2's plain version
     (_dense_attention_prefix with the pad-key mask), bitwise: lengths 0
     (the prefix alone), 1, part of the panel and all of it. own_lengths
     makes them from a mask whose pads trail, and refuses any other."""

@@ -48,7 +48,7 @@ def test_bwd_plain_matches_jax_kernel():
     """K6's plain version against _flash_bwd_bhnd fed the same residuals."""
     q, k, v, co = _inputs(7, 1, 2, 200, 333, 64)
     _, lse = tfa._flash_forward_lse(t(q), t(k), t(v))
-    out = tfa._chunked_dense_attention(t(q), t(k), t(v))
+    out = tfa.dense_attention(t(q), t(k), t(v))
     delta = (t(co) * out).sum(-1)
     ref = jfa._flash_bwd_bhnd(*(jnp.asarray(a[0]) for a in (q, k, v, co)),
                               jnp.asarray(lse[0].numpy()),

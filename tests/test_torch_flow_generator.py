@@ -206,10 +206,10 @@ def test_multi_scene_dispatch_matches_per_scene_dispatches_and_jax(nets):
         shifts = np.asarray([[[1, i - 1]]], np.int64)
         key = jax.random.PRNGKey(10 + i)
         noise = t(jax_uniform_noise(key[None], N - N0))
-        cache = tfv.make_prefix_cache(tm, tfp, False, True, t(x[:, 0]))
+        cache = tfv.make_prefix_cache(tm, tfp, True, t(x[:, 0]))
         serial.append(tseg.counterfactual_videos_and_flows_fast(
             tm, tfp, tr, t(x), t(passive), t(active), t(shifts), noise, pad,
-            True, 2, True, False, False, prefix_cache=cache, n_vis=n_vis))
+            True, 2, True, prefix_cache=cache, n_vis=n_vis))
         scenes.append((x, passive[..., 0], active[..., 0], shifts[0], key,
                        noise, cache))
     stacked = tfv.stack_prefix_caches([s[-1] for s in scenes])
@@ -217,8 +217,8 @@ def test_multi_scene_dispatch_matches_per_scene_dispatches_and_jax(nets):
     cat = lambda i: np.concatenate([s[i] for s in scenes])  # noqa: E731
     ty, tf, tmask = tseg.counterfactual_videos_and_flows_fast_multi(
         tm, tfp, tr, cat(0), cat(1), cat(2), cat(3), pad, True, 2, True,
-        False, False, torch.cat([s[5] for s in scenes]), stacked,
-        n_vis=n_vis, device='cpu')
+        torch.cat([s[5] for s in scenes]), stacked, n_vis=n_vis,
+        device='cpu')
     np.testing.assert_array_equal(tmask.numpy(),
                                   torch.cat([m for _, _, m in serial]).numpy())
     assert_close(ty.numpy(), torch.cat([y for y, _, _ in serial]).numpy(),
@@ -239,8 +239,8 @@ def test_multi_scene_dispatch_matches_per_scene_dispatches_and_jax(nets):
     with pytest.raises(ValueError, match='stacked'):
         tseg.counterfactual_videos_and_flows_fast_multi(
             tm, tfp, tr, cat(0), cat(1), cat(2), cat(3), pad, True, 2, True,
-            False, False, torch.cat([s[5] for s in scenes]), None,
-            n_vis=n_vis, device='cpu')
+            torch.cat([s[5] for s in scenes]), None, n_vis=n_vis,
+            device='cpu')
 
 
 def test_frame0_masked_prompt_takes_the_exact_path(nets):

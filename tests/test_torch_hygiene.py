@@ -44,6 +44,26 @@ def test_forbidden_name_matcher():
     assert not _forbidden('jaxtyping')
 
 
+def test_no_attention_route_flags_or_switches():
+    """ops.flash_attention alone chooses between a kernel and its plain
+    version: no function of the port (nor of chip_smoke.py) takes a
+    use_flash or two_source parameter, and none reads the switches
+    CWM_FLASH_TWO_SOURCE or CWM_SFX_BUCKET."""
+    flags = {'use_flash', 'two_source'}
+    switches = {'CWM_FLASH_TWO_SOURCE', 'CWM_SFX_BUCKET'}
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.arg) and node.arg in flags:
+                bad.append(f'{path}:{node.lineno}: parameter {node.arg}')
+            elif (isinstance(node, ast.Constant)
+                  and node.value in switches):
+                bad.append(f'{path}:{node.lineno}: {node.value}')
+    assert not bad, bad
+
+
 def test_port_imports_no_jax_package():
     bad = []
     for path in _port_sources():
@@ -126,8 +146,8 @@ def test_generator_entry_points_raise_without_cuda_unless_cpu_is_asked():
     exact = (module, raft, x, masks, masks, shifts, torch.Generator(),
              tm.num_patches, False, 1, True)
     multi = (tm, fp, raft, x[0:1], masks[..., 0], masks[..., 0], shifts[0],
-             0, False, 1, True, False, False, torch.Generator(),
-             tfv.make_prefix_cache(tm, fp, False, False, x[:, 0]))
+             0, False, 1, True, torch.Generator(),
+             tfv.make_prefix_cache(tm, fp, False, x[:, 0]))
     for call in (
             lambda **kw: segmentation.FlowGenerator(
                 predictor=tm, params=sd, flow_model=raft, **kw),

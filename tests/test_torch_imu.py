@@ -231,7 +231,7 @@ def test_frame0_visible_prompt_through_the_wrapper(nets):
     tp = tfc.cast_params(tw.model, tw.params, torch.float32, 'cpu')
     ty, tf, tmask = timu._imu_counterfactual_step_fast(
         tw, tp, tkw['flow_model'], t(x), t(passive), t(active), t(shifts),
-        t(noise), t(imu), t(mc), n_vis, True, 2, False, False)
+        t(noise), t(imu), t(mc), n_vis, True, 2)
     jy, jf, jmask = jimu._imu_counterfactual_step_fast(
         jw, jw.params, jkw['flow_model'], jkw['flow_params'],
         jnp.asarray(x), jnp.asarray(passive), jnp.asarray(active),
@@ -275,7 +275,7 @@ def test_multi_scene_step_matches_jax(nets):
     tp = tfc.cast_params(tw.model, tw.params, torch.float32, 'cpu')
     tcache = tfc.stack_conjoined_prefix_caches([
         tfc.make_conjoined_prefix_cache(tw, tp, t(xs[i:i + 1]),
-                                        t(imus[i:i + 1]), True, False)
+                                        t(imus[i:i + 1]), True)
         for i in range(3)])
     jcache = jfc.stack_conjoined_prefix_caches([
         jfc.make_conjoined_prefix_cache(jw, jw.params,
@@ -284,7 +284,7 @@ def test_multi_scene_step_matches_jax(nets):
                                         False) for i in range(3)])
     ty, tf, tm = timu._imu_counterfactual_multi_step_fast(
         tw, tp, tkw['flow_model'], t(xs), t(passive), t(active), t(shifts),
-        t(noise), t(imus), t(mc), N0 + 1, True, 2, False, False, tcache)
+        t(noise), t(imus), t(mc), N0 + 1, True, 2, tcache)
     jy, jf, jm = jimu._imu_counterfactual_multi_step_fast(
         jw, jw.params, jkw['flow_model'], jkw['flow_params'],
         jnp.asarray(xs), jnp.asarray(passive), jnp.asarray(active),
@@ -296,8 +296,7 @@ def test_multi_scene_step_matches_jax(nets):
     with pytest.raises(ValueError, match='stacked'):
         timu._imu_counterfactual_multi_step_fast(
             tw, tp, tkw['flow_model'], t(xs), t(passive), t(active),
-            t(shifts), t(noise), t(imus), t(mc), N0 + 1, True, 2, False,
-            False, None)
+            t(shifts), t(noise), t(imus), t(mc), N0 + 1, True, 2, None)
 
 
 def test_frame0_masked_prompt_takes_the_exact_path(nets):

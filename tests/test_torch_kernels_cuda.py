@@ -72,7 +72,7 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, atol):
         out = fa.flash_attention(q, k, v)
         assert kernels.LAUNCHES['flash_attention'] == before + 1
         assert out.dtype == dtype and out.shape == q.shape
-        assert _err(out, fa._chunked_dense_attention(q, k, v)) <= atol
+        assert _err(out, fa.dense_attention(q, k, v)) <= atol
 
 
 @pytest.mark.parametrize('dtype,atol', [(torch.float32, 3e-5),
@@ -96,7 +96,7 @@ def test_flash_attention_prefix_kernel_matches_plain(dev, dtype, atol):
         before = kernels.LAUNCHES['flash_attention_prefix']
         out = fa.flash_attention_prefix(q, k0, v0, k1, v1, *w)
         assert kernels.LAUNCHES['flash_attention_prefix'] == before + 1
-        ref = fa._dense_two_source(q, k0, v0, k1, v1, *w)
+        ref = fa._dense_attention_prefix(q, k0, v0, k1, v1, *w)
         assert _err(out, ref) <= atol, (s0, n0, n1, w, d)
 
 
@@ -256,7 +256,7 @@ def test_flash_attention_lse_kernel_matches_plain(dev, dtype, atol):
         before = kernels.LAUNCHES['flash_attention_lse']
         out, lse = fa._flash_forward_lse(q, k, v)
         assert kernels.LAUNCHES['flash_attention_lse'] == before + 1
-        ref, ref_lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+        ref, ref_lse = fa.dense_attention(q, k, v, with_lse=True)
         assert lse.dtype == torch.float32 and lse.shape == (b, h, nq)
         assert _err(out, ref) <= atol
         assert torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-5)
@@ -267,7 +267,7 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, dtype):
     rng = np.random.RandomState(4)
     for (b, h, nq, nk, d) in _BWD_SHAPES:
         q, k, v, do = _grad_inputs(rng, dev, dtype, b, h, nq, nk, d)
-        out, lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+        out, lse = fa.dense_attention(q, k, v, with_lse=True)
         delta = (do.float() * out.float()).sum(-1)
         before = kernels.LAUNCHES['flash_attention_bwd']
         got = fa._flash_backward(q, k, v, do, lse, delta)
@@ -384,7 +384,7 @@ def test_f32_attention_forward_matches_plain(dev, shape):
     q = _rand(rng, b, h, nq, d, scale=d ** -0.5).to(dev)
     k, v = (_rand(rng, b, h, nk, d).to(dev) for _ in range(2))
     out = fa.flash_attention(q, k, v)
-    ref, ref_lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+    ref, ref_lse = fa.dense_attention(q, k, v, with_lse=True)
     assert _err(out, ref) <= 2e-5
     out5, lse = fa._flash_forward_lse(q, k, v)
     assert torch.equal(out5, out)
@@ -399,7 +399,7 @@ def test_f32_attention_backward_matches_plain(dev, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(sum(shape) + 1)
     q, k, v, do = _grad_inputs(rng, dev, torch.float32, *shape)
-    out, lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+    out, lse = fa.dense_attention(q, k, v, with_lse=True)
     delta = (do * out).sum(-1)
     before = kernels.LAUNCHES['flash_attention_bwd']
     got = fa._flash_backward(q, k, v, do, lse, delta)
@@ -425,7 +425,7 @@ def test_f32_prefix_attention_matches_plain(dev, d):
         k0, v0 = (_rand(rng, s0, 2, n0, d).to(dev) for _ in range(2))
         k1, v1 = (_rand(rng, 3, 2, n1, d).to(dev) for _ in range(2))
         out = fa.flash_attention_prefix(q, k0, v0, k1, v1, *w)
-        ref = fa._dense_two_source(q, k0, v0, k1, v1, *w)
+        ref = fa._dense_attention_prefix(q, k0, v0, k1, v1, *w)
         assert _err(out, ref) <= 3e-5, (s0, n0, n1, w)
 
 
@@ -438,7 +438,7 @@ def test_f32_attention_ignores_the_tf32_flags(dev):
     k, v = (_rand(rng, 2, 4, 300, 64).to(dev) for _ in range(2))
     k1, v1 = (_rand(rng, 2, 4, 70, 64).to(dev) for _ in range(2))
     do = _rand(rng, 2, 4, 300, 64).to(dev)
-    out, lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+    out, lse = fa.dense_attention(q, k, v, with_lse=True)
     delta = (do * out).sum(-1)
     outs = []
     matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
@@ -472,7 +472,7 @@ def test_flash_attention_gradients_come_from_k6(dev):
     assert kernels.LAUNCHES['flash_attention_bwd'] == 1
     assert kernels.LAUNCHES['flash_attention'] == 0
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    ref = torch.autograd.grad(fa._chunked_dense_attention(*ref_leaves),
+    ref = torch.autograd.grad(fa.dense_attention(*ref_leaves),
                               ref_leaves, do)
     for name, a, r in zip('qkv', grads, ref):
         assert torch.allclose(a, r, atol=2e-4, rtol=1e-4), name
@@ -599,13 +599,13 @@ def test_engine_norms_run_the_kernel(dev):
         fp = fast_vmae.stack_vmae_params(model, sd, dtype=torch.float32,
                                          device=d)
         kernels.reset_launches()
-        cache = fast_vmae.encode_prefix(model, fp, True, x0.to(d))
+        cache = fast_vmae.encode_prefix(model, fp, x0.to(d))
         cold = fast_vmae.predict_frame1_from_prefix(
-            model, fp, True, cache, x1.to(d), vis.to(d), prefix_pool=2,
+            model, fp, cache, x1.to(d), vis.to(d), prefix_pool=2,
             suffix_pool=2, gelu='tanh')
         n_cold = kernels.LAUNCHES['add_layer_norm']
         warm = fast_vmae.predict_frame1_from_prefix(
-            model, fp, True, cache, x1.to(d), vis.to(d))
+            model, fp, cache, x1.to(d), vis.to(d))
         outs[str(d)] = (cold.cpu(), warm.cpu(), n_cold,
                         kernels.LAUNCHES['add_layer_norm'] - n_cold)
     (cc, cw, cn, cwn), (gc, gw, gn, gwn) = outs['cpu'], outs['cuda']
@@ -773,7 +773,7 @@ def test_attention_kernels_at_the_imu_path_shapes(dev, dtype, atol):
                               (4, 6, 50, 50, 32), (1, 12, 1, 1, 32)]:
         q = _rand(rng, b, h, nq, d, scale=d ** -0.5).to(dev, dtype)
         k, v = (_rand(rng, b, h, nk, d).to(dev, dtype) for _ in range(2))
-        ref = fa._chunked_dense_attention(q, k, v)
+        ref = fa.dense_attention(q, k, v)
         tol = atol if dtype == torch.float32 else atol * float(
             ref.float().abs().max())
         assert _err(fa.flash_attention(q, k, v), ref) <= tol, (b, h, nq, d)
@@ -783,7 +783,7 @@ def test_attention_kernels_at_the_imu_path_shapes(dev, dtype, atol):
     k1, v1 = (_rand(rng, s, h, n1, 64).to(dev, dtype) for _ in range(2))
     before = kernels.LAUNCHES['flash_attention_prefix']
     out = fa.flash_attention_prefix(q, k0, v0, k1, v1)
-    ref = fa._dense_two_source(q, k0, v0, k1, v1, 1.0, 1.0)
+    ref = fa._dense_attention_prefix(q, k0, v0, k1, v1, 1.0, 1.0)
     tol = (3e-5 if dtype == torch.float32
            else atol * float(ref.float().abs().max()))
     assert _err(out, ref) <= tol
@@ -1025,7 +1025,7 @@ def test_padded_head_dims_match_plain(dev, dtype, atol):
         kernels.reset_launches()
         out = fa.flash_attention(q, k, v)
         out5, lse = fa._flash_forward_lse(q, k, v)
-        ref, ref_lse = fa._chunked_dense_attention(q, k, v, with_lse=True)
+        ref, ref_lse = fa.dense_attention(q, k, v, with_lse=True)
         assert out.shape == out5.shape == q.shape
         assert _err(out, ref) <= atol and _err(out5, ref) <= atol, d
         assert torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-5), d

@@ -251,7 +251,7 @@ def _run_wrappers(inputs, mesh=None):
     if mesh is None:
         out['fast'] = tseg.counterfactual_videos_and_flows_fast(
             cfg, fp, raft, x, passive, active, shifts, t(w['noise']), n_sfx,
-            True, 1, True, False, n_vis=n_vis_cf)
+            True, 1, True, n_vis=n_vis_cf)
         out['exact'] = tseg.counterfactual_videos_and_flows(
             module, raft, x, passive, active, shifts, t(w['noise_exact']),
             n_vis_cf, True, 1, True, device='cpu')
@@ -270,13 +270,13 @@ def _run_wrappers(inputs, mesh=None):
             mesh, t(w['scenes']), t(w['mshifts']))
     scenes = t(w['scenes'])
     cache = tfv.stack_prefix_caches(
-        [tfv.make_prefix_cache(cfg, fp, False, True, scenes[i:i + 1, 0])
+        [tfv.make_prefix_cache(cfg, fp, True, scenes[i:i + 1, 0])
          for i in range(S)])
     margs = (scenes, t(w['mpassive']), t(w['mactive']), t(w['mshifts']))
     if mesh is None:
         out['multi'] = tseg.counterfactual_videos_and_flows_fast_multi(
-            cfg, fp, raft, *margs, n_sfx, True, 1, True, False, False,
-            t(w['noise']), cache, n_vis=n_vis_cf, device='cpu')
+            cfg, fp, raft, *margs, n_sfx, True, 1, True, t(w['noise']),
+            cache, n_vis=n_vis_cf, device='cpu')
     else:
         out['multi'] = parallel.sharded_counterfactuals_fast_multi(
             mesh, cfg, fp, raft, *margs, t(w['noise']), n_vis_cf, True, 1,
@@ -296,7 +296,7 @@ def _run_wrappers(inputs, mesh=None):
     if mesh is None:
         out['imu_fast'] = timu._imu_counterfactual_step_fast(
             wrap, cp, raft, *iargs, t(w['noise_imu']), imu, mc, n_vis_i,
-            True, 1, False, False)
+            True, 1)
         out['imu_exact'] = timu._imu_counterfactual_step(
             wrap, raft, *iargs, t(w['noise_imu_exact']), *tiled, n_vis_i,
             n_vis_c, True, 1, True)

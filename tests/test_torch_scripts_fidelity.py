@@ -158,7 +158,7 @@ def test_main_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == (
         report)
     for k in ('engine', 'weights', 'samples_per_image', 'model',
-              'raft_iters', 'two_source', 'backend', 'per_image',
+              'raft_iters', 'backend', 'per_image',
               'min_flow_corr', 'min_video_corr', 'min_segment_spearman',
               'min_movability_pearson', 'max_video_abs_err', 'conjoined'):
         assert k in report, k

@@ -62,22 +62,21 @@ def test_counterfactual_videos_and_flows_fast_matches_jax(setup, rung):
         jnp.asarray(active), jnp.asarray(shifts), keys, pad, True, 2, True,
         False, False, None, pp, sp, gelu, n_vis=n_vis)
     noise = t(jax_uniform_noise(keys[0], n1))
-    for use_flash in (False, True):
-        ty, tf, tmask = tseg.counterfactual_videos_and_flows_fast(
-            tm, tfp, tr, t(x), t(passive), t(active), t(shifts), noise,
-            tfv.sfx_bucket(n_vis - n0, n1), True, 2, True, use_flash,
-            use_flash, None, pp, sp, gelu, n_vis=n_vis)
-        np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
-        assert ty.shape == jy.shape and tf.shape == jf.shape
-        assert_close(ty.numpy(), jy, 1e-4)
-        assert_close(tf.numpy(), jf, 1e-3)
+    ty, tf, tmask = tseg.counterfactual_videos_and_flows_fast(
+        tm, tfp, tr, t(x), t(passive), t(active), t(shifts), noise,
+        tfv.sfx_bucket(n_vis - n0, n1), True, 2, True, None, pp, sp, gelu,
+        n_vis=n_vis)
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    assert ty.shape == jy.shape and tf.shape == jf.shape
+    assert_close(ty.numpy(), jy, 1e-4)
+    assert_close(tf.numpy(), jf, 1e-3)
 
 
 def test_counterfactual_fast_argument_checks(setup):
     (jm, _, _, _), (tm, tfp, tr), inputs = setup
     x, passive, active, shifts, _, n_vis = inputs
     args = (tm, tfp, tr, t(x), t(passive), t(active), t(shifts), None, 8,
-            True, 1, True, False)
+            True, 1, True)
     with pytest.raises(TypeError, match='n_vis is required'):
         tseg.counterfactual_videos_and_flows_fast(*args)
     x2 = torch.cat([t(x), t(x)])
