@@ -49,7 +49,10 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
    shapes, K1 and K2 at the fidelity report's S = 8 legs (f32 and bf16)
    and at the demo's ViT-B 8x8; the residual add + LayerNorm pass at the
    benchmark dispatch's suffix rows (the sum bitwise, the rows within one
-   bf16 ulp), against ``x + r`` then ``F.layer_norm``;
+   bf16 ulp), against ``x + r`` then ``F.layer_norm``; the qkv pass at the
+   cf and imu decoder suffixes (q and unpooled k, v bitwise, pooled k, v
+   within one bf16 ulp), against the bias add, head split, scale and pool
+   the engine ran before;
 4. both paths at the tests' small configurations on the card and on the
    CPU (f32, TF32 off): masks equal, videos and flows within tolerance;
    three train steps with equal losses and gradient norms; FlowGenerator
@@ -68,9 +71,9 @@ bf16, batch 4, mask ratio 0.9), all from seeded random weights. Phases:
 5. the full-width dispatch at the library-default rung and the exact rung:
    shapes, finite flows, visible frame-1 pixels pasted unchanged, and the
    launch counts that show every kernel of the path ran (the LayerNorm
-   pass 147 a dispatch; the later phases through the shared-prefix
-   engines count the attention kernels and the lookup only, and phase 11
-   the LayerNorm pass too); then (5b)
+   pass 147 a dispatch, the qkv pass 72; the later phases through the
+   shared-prefix engines count the attention kernels and the lookup only,
+   and phase 11 the LayerNorm and qkv passes too); then (5b)
    ``pipelines.segmentation.FlowGenerator`` on the same weights: (a) a cold
    scene's motion map (K1 36, K2 36 of which the encoder's 24 packed,
    lookup 24, one LRU miss), held against the direct dispatch on its
@@ -292,19 +295,21 @@ def log(phase, msg):
 
 
 # The residual add + LayerNorm pass runs once per norm of the shared-prefix
-# engines. Phases that run those engines compare the other kernels'
-# launches by path and leave this counter out (strip_norm); phases 5 and 11
-# hold it to the engine's count (norm_launches); every other phase expects
-# it at 0 with the rest.
+# engines, the qkv pass once per block. Phases that run those engines
+# compare the other kernels' launches by path and leave these two counters
+# out (strip_norm); phases 5 and 11 hold them to the engine's counts
+# (norm_launches, qkv_launches); every other phase expects them at 0 with
+# the rest.
 NORM = 'add_layer_norm'
+QKV = 'qkv_heads'
 
 
 def strip_norm(launches):
-    return {k: v for k, v in launches.items() if k != NORM}
+    return {k: v for k, v in launches.items() if k not in (NORM, QKV)}
 
 
 def engine_launches(port):
-    """The launch counts, the LayerNorm pass's left out."""
+    """The launch counts, the LayerNorm and qkv passes' left out."""
     return strip_norm(port.kernels.LAUNCHES)
 
 
@@ -325,6 +330,13 @@ def norm_launches(enc_depth, dec_depth, prefix):
     built (two a block, enc_norm): 74 and 147 at ViT-L."""
     suffix = 2 * enc_depth + 2 * dec_depth + 2
     return suffix + (2 * enc_depth + 2 * dec_depth + 1 if prefix else 0)
+
+
+def qkv_launches(enc_depth, dec_depth, prefix):
+    """The qkv pass's launches in one suffix pass of the VMAE engine (one
+    a block), plus the scene's prefix where it is built: 36 and 72 at
+    ViT-L."""
+    return (enc_depth + dec_depth) * (2 if prefix else 1)
 
 
 def time_ms(torch, fn, target_ms=150.0):
@@ -896,6 +908,79 @@ def layer_norm_cases(torch, F, rec):
                              f'{bad}')
 
 
+# the qkv pass at the benchmark's counterfactual cells (256 prompts a
+# dispatch): the cf decoder suffix (ViT-L's decoder, 8 heads, k and v
+# pooled 4 x 4 over the 56 x 56 grid) and the imu one (imu400's decoder, 6
+# heads, 3136 + 64 rows, unpooled); (case, S, N, heads, d, pool, grid)
+QKV_CASES = (('cf decoder suffix', 256, 3136, 8, 64, 4, (56, 56)),
+             ('imu decoder suffix', 256, 3200, 6, 64, 1, None))
+
+
+def qkv_heads_cases(torch, F, rec):
+    """qkv_heads (bf16, both biases) against its plain version at
+    QKV_CASES: q and unpooled k, v bitwise, pooled k, v in bf16 ulps of
+    each value; times of the kernel, the plain version and the library
+    yardstick, the passes the engine ran before (the stacked bias added,
+    ``permute().contiguous()``, ``q * scale``, the f32 pooled mean), which
+    the port no longer calls; the bound is the bytes it must move, qkv
+    read, q, k and v written."""
+    from counterfactualworldmodels_tpu_torch.ops import linear as lin
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(23)
+    bf16 = torch.bfloat16
+    bad = []
+    for case, s, n, heads, d, pool, grid in QKV_CASES:
+        a = heads * d
+        qkv = (2 * torch.randn(s, n, 3 * a, device=dev,
+                               generator=g)).to(bf16)
+        qb, vb = (torch.randn(a, device=dev, generator=g).to(bf16)
+                  for _ in range(2))
+        scale = d ** -0.5
+        before = lin.kernels.LAUNCHES[QKV]
+        got = lin.qkv_heads(qkv, qb, vb, heads, scale, pool, grid)
+        per_call = lin.kernels.LAUNCHES[QKV] - before
+        want = lin._qkv_heads_plain(qkv, qb, vb, heads, scale, pool, grid)
+        q_equal = bool(torch.equal(got[0], want[0]))
+        kv_equal = all(bool(torch.equal(x, y))
+                       for x, y in zip(got[1:], want[1:]))
+        ulps = max(float(((x.float() - y.float()).abs() / torch.exp2(
+            torch.floor(torch.log2(y.float().abs().clamp_min(1e-30))) - 7)
+        ).max()) for x, y in zip(got[1:], want[1:]))
+        del got, want
+
+        def kernel():
+            return lin.qkv_heads(qkv, qb, vb, heads, scale, pool, grid)
+
+        def library():
+            x = qkv + torch.stack([qb, torch.zeros_like(qb), vb]).reshape(-1)
+            q, k, v = x.reshape(s, n, 3, heads, d).permute(
+                2, 0, 3, 1, 4).contiguous().unbind(0)
+            if pool > 1:
+                k, v = (lin._pool_grid(t, pool, grid) for t in (k, v))
+            return q * scale, k, v
+
+        n_kv = n // (pool * pool)
+        nbytes = (3 * s * n * a + s * n * a + 2 * s * n_kv * a) * 2
+        bms, by = bound(3 * s * n * a, nbytes, 'bfloat16')
+        row = dict(kernel=QKV, case=case, dtype='bfloat16',
+                   shape=[s, n, 3 * a], heads=heads, d=d, pool=pool,
+                   q_bitwise=q_equal, kv_bitwise=kv_equal, kv_max_ulps=ulps,
+                   launches_per_call=per_call, ms=time_ms(torch, kernel),
+                   plain_ms=time_ms(torch, lambda: lin._qkv_heads_plain(
+                       qkv, qb, vb, heads, scale, pool, grid)),
+                   library_ms=library_ms(torch, library), bound_ms=bms,
+                   bound_by=by)
+        rec['phase3'].append(with_ratios(row))
+        log('3 kernels', json.dumps(row))
+        if not (q_equal and (kv_equal if pool == 1 else ulps <= 1.0)
+                and per_call == 1):
+            bad.append(case)
+        del qkv
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f'qkv_heads against its plain version: {bad}')
+
+
 def _close(torch, a, ref):
     """f32: atol 2e-4 / rtol 1e-4; bf16: within 2e-2 of max|ref|."""
     if a.dtype == torch.float32:
@@ -1194,7 +1279,9 @@ def full_width(torch, port, rec, smi):
                               packed=True),
                   window_lookup=24,
                   add_layer_norm=norm_launches(model.encoder_depth,
-                                               model.decoder_depth, True))
+                                               model.decoder_depth, True),
+                  qkv_heads=qkv_launches(model.encoder_depth,
+                                         model.decoder_depth, True))
 
     def dispatch(rung):
         return counterfactual_videos_and_flows_fast(
@@ -4781,7 +4868,8 @@ def measurement_phase(torch, port, rec, smi):
     # K2: 24 encoder blocks (packed) and 12 decoder blocks a suffix pass
     k2 = suffix_k2(24, 12, packed=True)
     want = dict(zero, flash_attention=36, **k2, window_lookup=24,
-                add_layer_norm=norm_launches(24, 12, True))
+                add_layer_norm=norm_launches(24, 12, True),
+                qkv_heads=qkv_launches(24, 12, True))
     check('bench', b['value'] > 0 and b['launches_per_dispatch'] == want
           and b['config']['engine']
           == 'shared-prefix/default:pooled4+suffix4+tanh'
@@ -4802,7 +4890,8 @@ def measurement_phase(torch, port, rec, smi):
     check('latency_bench', lat['p50_ms'] > 0
           and lat['launches_per_call'] == dict(zero, flash_attention=36)
           and lat['warm_prefix']['launches_per_call']
-          == dict(zero, **k2, add_layer_norm=norm_launches(24, 12, False))
+          == dict(zero, **k2, add_layer_norm=norm_launches(24, 12, False),
+                  qkv_heads=qkv_launches(24, 12, False))
           and lat['warm_prefix_imu']['launches_per_call'][
               'flash_attention_prefix'] == 12 + 4, json.dumps(lat))
     out['latency_bench'] = lat
@@ -4810,11 +4899,13 @@ def measurement_phase(torch, port, rec, smi):
     sl, _ = run('serve_latency', serve_latency.main, ['--max-prompt', '16'])
     s = sl['serve_first_request_by_prompt_size']
     warm = dict(zero, **k2, window_lookup=24,
-                add_layer_norm=norm_launches(24, 12, False))
+                add_layer_norm=norm_launches(24, 12, False),
+                qkv_heads=qkv_launches(24, 12, False))
     check('serve_latency', s['worst_first_request_sec'] > 0
           and s['launches_by_prompt_size'][1]
           == dict(warm, flash_attention=36,
-                  add_layer_norm=norm_launches(24, 12, True))
+                  add_layer_norm=norm_launches(24, 12, True),
+                  qkv_heads=qkv_launches(24, 12, True))
           and all(s['launches_by_prompt_size'][k] == warm
                   for k in range(2, 17)), json.dumps(s))
     out['serve_latency'] = s
@@ -5064,6 +5155,7 @@ def main():
         phase('3 kernels', lookup_cases, torch, F, corr, rec)
         phase('3 kernels', training_kernel_cases, torch, F, fa, rec)
         phase('3 kernels', layer_norm_cases, torch, F, rec)
+        phase('3 kernels', qkv_heads_cases, torch, F, rec)
         phase('4 small slice', small_slice, torch, port, rec)
         phase('4 small train', small_train, torch, port, rec)
         phase('4 small generator', small_generator, torch, port, rec)

@@ -13,7 +13,10 @@ The sources: ``attention`` (K1, K2, K5: ``ops.flash_attention``),
 ``attention_bwd`` (K6), ``window_lookup`` (K3/K4: ``models.raft.corr``) and
 ``layer_norm``, the one-pass residual add + LayerNorm of the shared-prefix
 engines (``ops.layer_norm.add_layer_norm``): a block hands its MLP output
-pending to the next norm, which returns the sum beside the normalised rows.
+pending to the next norm, which returns the sum beside the normalised rows;
+``qkv_heads``, the one pass from a block's qkv product to attention's q, k,
+v (``ops.linear.qkv_heads``: the biases, q's scale, the head split and the
+suffix's pooled keys and values).
 
 ``LAUNCHES`` counts kernel launches by wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a caller can show that a run
@@ -33,7 +36,8 @@ import subprocess
 import threading
 from typing import Dict, Iterable
 
-SOURCES = ('attention', 'attention_bwd', 'window_lookup', 'layer_norm')
+SOURCES = ('attention', 'attention_bwd', 'window_lookup', 'layer_norm',
+           'qkv_heads')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -42,7 +46,7 @@ LAUNCHES: Dict[str, int] = {'flash_attention': 0, 'flash_attention_prefix': 0,
                             'flash_attention_prefix_packed': 0,
                             'flash_attention_lse': 0,
                             'flash_attention_bwd': 0, 'window_lookup': 0,
-                            'add_layer_norm': 0}
+                            'add_layer_norm': 0, 'qkv_heads': 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')

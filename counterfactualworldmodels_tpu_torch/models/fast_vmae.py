@@ -17,12 +17,19 @@ and the suffix decoder. Every LayerNorm goes through
 ``csrc/layer_norm.cu`` on CUDA) with the residual add before it folded in:
 a block returns its stream h and its MLP output m pending, and the next
 block's norm1 (or the final norm) takes (h, m) and returns h + m beside
-the normalised rows; inside a block norm2 takes (h, o) likewise. The layer
-loop is a Python loop over parameters stacked [L, ...] (``jax.lax.scan``
-in the JAX engine); bf16 cast points mirror the JAX engine's: projections
-accumulate in f32 and cast back, ``q * scale`` comes after that cast,
-residual sums round to the compute dtype and the norms take their f32
-statistics of the rounded sum, pooled means are f32 and then cast.
+the normalised rows; inside a block norm2 takes (h, o) likewise. The
+qkv product goes through ``ops.linear.qkv_heads`` (the one-pass kernel of
+``csrc/qkv_heads.cu`` on CUDA), which adds the q and v biases, scales q,
+splits the heads and, in a pooled suffix, pools k and v; the other linears
+take their bias, and fc1 on the card its tanh GELU, in the product's
+epilogue (``ops.linear.linear``, ``linear_gelu``). The layer loop is a
+Python loop over parameters stacked [L, ...] (``jax.lax.scan`` in the JAX
+engine). bf16 cast points: the qkv product accumulates in f32 and casts
+back, then its bias and ``q * scale`` each round, as in the JAX engine;
+on the card the other products round once with their bias added (the JAX
+engine rounds the product, then adds); residual sums round to the compute
+dtype and the norms take their f32 statistics of the rounded sum; pooled
+means are f32 and then cast.
 """
 from __future__ import annotations
 
@@ -33,13 +40,13 @@ import threading
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..ops import patches as patch_ops
 from ..ops.flash_attention import (flash_attention, flash_attention_prefix,
                                    own_lengths)
 from ..ops.layer_norm import add_layer_norm
+from ..ops.linear import linear, linear_gelu, qkv_heads
 from ..ops.normalization import imagenet_normalize
 from ..ops.pos_embed import sinusoid_encoding_table
 from ..utils import profiling
@@ -150,34 +157,27 @@ def _ln(x, p, eps=1e-6):
     return _add_ln(x, None, p, eps)[1]
 
 
-def _qkv(p_attn, h, num_heads: int):
-    """h [B, N, D] -> q, k, v [B, H, N, d] contiguous (q unscaled)."""
-    b, n, _ = h.shape
-    qkv = torch.matmul(h, p_attn['qkv_kernel']).to(h.dtype)
-    if 'q_bias' in p_attn:
-        q_bias = p_attn['q_bias']
-        qkv = qkv + torch.stack([q_bias, torch.zeros_like(q_bias),
-                                 p_attn['v_bias']]).reshape(-1)
-    a = qkv.shape[-1] // 3
-    qkv = qkv.reshape(b, n, 3, num_heads, a // num_heads)
-    q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-    return q, k, v
+def _qkv(p_attn, h, num_heads: int, scale: float, pool: int = 1,
+         grid=None):
+    """h [B, N, D] -> q (its bias added, scaled by ``scale``), k, v [B, H,
+    N, d] contiguous, k and v pooled pool x pool over the token ``grid``
+    when pool > 1: the plain qkv product, then one ``qkv_heads`` pass."""
+    return qkv_heads(torch.matmul(h, p_attn['qkv_kernel']),
+                     p_attn.get('q_bias'), p_attn.get('v_bias'), num_heads,
+                     scale, pool, grid)
 
 
 def _proj(p_attn, out, b, n):
     a = out.shape[1] * out.shape[3]
-    out = out.transpose(1, 2).reshape(b, n, a)
-    return (torch.matmul(out, p_attn['proj']['kernel']).to(out.dtype)
-            + p_attn['proj']['bias'])
+    return linear(out.transpose(1, 2).reshape(b, n, a),
+                  p_attn['proj']['kernel'], p_attn['proj']['bias'])
 
 
 def _mlp(p_mlp, x, gelu: str = 'erf'):
-    h = (torch.matmul(x, p_mlp['fc1']['kernel']).to(x.dtype)
-         + p_mlp['fc1']['bias'])
     # 'erf' is the reference's exact nn.GELU; 'tanh' the cheap approximation
-    h = F.gelu(h, approximate='tanh' if gelu == 'tanh' else 'none')
-    return (torch.matmul(h, p_mlp['fc2']['kernel']).to(h.dtype)
-            + p_mlp['fc2']['bias'])
+    h = linear_gelu(x, p_mlp['fc1']['kernel'], p_mlp['fc1']['bias'],
+                    'tanh' if gelu == 'tanh' else 'none')
+    return linear(h, p_mlp['fc2']['kernel'], p_mlp['fc2']['bias'])
 
 
 def resolve_gelu(gelu: Optional[str] = None) -> str:
@@ -256,8 +256,8 @@ def prefix_block_one(p, h, num_heads: int, r=None,
     scale = (h.shape[-1] // num_heads) ** -0.5
     b, n, _ = h.shape
     h, ln = _add_ln(h, r, p['norm1'])
-    q, k, v = _qkv(p['attn'], ln, num_heads)
-    o = _proj(p['attn'], attention(q * scale, k, v), b, n)
+    q, k, v = _qkv(p['attn'], ln, num_heads, scale)
+    o = _proj(p['attn'], attention(q, k, v), b, n)
     if 'gamma_1' in p:
         o = p['gamma_1'] * o
     h, ln = _add_ln(h, o, p['norm2'])
@@ -265,16 +265,6 @@ def prefix_block_one(p, h, num_heads: int, r=None,
     if 'gamma_2' in p:
         m = p['gamma_2'] * m
     return h, m, (k, v)
-
-
-def _pool_kv_grid(x, pool: int, grid):
-    """Average-pool per-sample K/V [S, H, N, d] pool x pool over the
-    (gh, gw) token grid (N = gh*gw row-major); f32 mean, then cast."""
-    gh, gw = grid
-    s, h, n, d = x.shape
-    p = x.reshape(s, h, gh // pool, pool, gw // pool, pool, d)
-    p = p.float().mean(dim=(3, 5))
-    return p.reshape(s, h, (gh // pool) * (gw // pool), d).to(x.dtype)
 
 
 def suffix_block_one(p, kv0, h, num_heads: int, prefix_weight: float = 1.0,
@@ -294,18 +284,13 @@ def suffix_block_one(p, kv0, h, num_heads: int, prefix_weight: float = 1.0,
     scale = (h.shape[-1] // num_heads) ** -0.5
     s, n, _ = h.shape
     k0, v0 = kv0
+    if suffix_pool > 1 and key_valid is not None:
+        raise ValueError('bucketed pad keys cannot be pooled')
     h, ln = _add_ln(h, r, p['norm1'])
-    q, k, v = _qkv(p['attn'], ln, num_heads)
-    suffix_weight = 1.0
-    if suffix_pool > 1:
-        if key_valid is not None:
-            raise ValueError('bucketed pad keys cannot be pooled')
-        k = _pool_kv_grid(k, suffix_pool, grid)
-        v = _pool_kv_grid(v, suffix_pool, grid)
-        suffix_weight = float(suffix_pool * suffix_pool)
+    q, k, v = _qkv(p['attn'], ln, num_heads, scale, suffix_pool, grid)
     o = flash_attention_prefix(
-        q * scale, k0, v0, k, v, prefix_weight=prefix_weight,
-        suffix_weight=suffix_weight,
+        q, k0, v0, k, v, prefix_weight=prefix_weight,
+        suffix_weight=float(suffix_pool * suffix_pool),
         own_len=None if key_valid is None else own_lengths(key_valid))
     o = _proj(p['attn'], o, s, n)
     if 'gamma_1' in p:

@@ -1,2 +1,2 @@
 from . import (coords, flash_attention, flow_viz, layer_norm,  # noqa: F401
-               misc, normalization, patches, pos_embed, resize)
+               linear, misc, normalization, patches, pos_embed, resize)

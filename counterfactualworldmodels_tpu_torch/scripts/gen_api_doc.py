@@ -83,6 +83,9 @@ MODULES = [
                             'two-source prefix), with plain versions.'),
     ('ops.layer_norm', 'The residual add + LayerNorm pass through its CUDA '
                        'kernel.'),
+    ('ops.linear', 'The block linears with their bias and GELU in the '
+                   'product\'s epilogue; the qkv pass through its CUDA '
+                   'kernel.'),
     ('ops.patches', 'Patchify / unpatchify.'),
     ('ops.pos_embed', 'Sin-cos positional embeddings.'),
     ('ops.flow_viz', 'Optical-flow color wheel rendering.'),

@@ -62,8 +62,8 @@ def _settled_prefix_block(p, h, num_heads):
     scale = (h.shape[-1] // num_heads) ** -0.5
     b, n, _ = h.shape
     ln = _settled_ln(h, p['norm1'])
-    q, k, v = tfv._qkv(p['attn'], ln, num_heads)
-    o = tfv._proj(p['attn'], flash_attention(q * scale, k, v), b, n)
+    q, k, v = tfv._qkv(p['attn'], ln, num_heads, scale)
+    o = tfv._proj(p['attn'], flash_attention(q, k, v), b, n)
     if 'gamma_1' in p:
         o = p['gamma_1'] * o
     h = h + o
@@ -80,15 +80,10 @@ def _settled_suffix_block(p, kv0, h, num_heads, prefix_weight=1.0,
     s, n, _ = h.shape
     k0, v0 = kv0
     ln = _settled_ln(h, p['norm1'])
-    q, k, v = tfv._qkv(p['attn'], ln, num_heads)
-    suffix_weight = 1.0
-    if suffix_pool > 1:
-        k = tfv._pool_kv_grid(k, suffix_pool, grid)
-        v = tfv._pool_kv_grid(v, suffix_pool, grid)
-        suffix_weight = float(suffix_pool * suffix_pool)
+    q, k, v = tfv._qkv(p['attn'], ln, num_heads, scale, suffix_pool, grid)
     o = flash_attention_prefix(
-        q * scale, k0, v0, k, v, prefix_weight=prefix_weight,
-        suffix_weight=suffix_weight,
+        q, k0, v0, k, v, prefix_weight=prefix_weight,
+        suffix_weight=float(suffix_pool * suffix_pool),
         own_len=None if key_valid is None else own_lengths(key_valid))
     o = tfv._proj(p['attn'], o, s, n)
     if 'gamma_1' in p:

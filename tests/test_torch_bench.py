@@ -256,7 +256,8 @@ def test_bench_main_on_cpu(monkeypatch, capsys):
     assert set(rec['launches_per_dispatch']) == {
         'flash_attention', 'flash_attention_prefix',
         'flash_attention_prefix_packed', 'flash_attention_lse',
-        'flash_attention_bwd', 'window_lookup', 'add_layer_norm'}
+        'flash_attention_bwd', 'window_lookup', 'add_layer_norm',
+        'qkv_heads'}
 
 
 def test_bench_sweep_one_size(monkeypatch, capsys):

@@ -245,13 +245,15 @@ def test_kernel_sources_and_counters():
     for name in kernels.SOURCES:
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, name + '.cu'))
     assert set(kernels.SOURCES) == {'attention', 'attention_bwd',
-                                    'window_lookup', 'layer_norm'}
+                                    'window_lookup', 'layer_norm',
+                                    'qkv_heads'}
     assert set(kernels.LAUNCHES) == {'flash_attention',
                                      'flash_attention_prefix',
                                      'flash_attention_prefix_packed',
                                      'flash_attention_lse',
                                      'flash_attention_bwd',
-                                     'window_lookup', 'add_layer_norm'}
+                                     'window_lookup', 'add_layer_norm',
+                                     'qkv_heads'}
 
 
 def test_library_path_covers_the_headers(tmp_path, monkeypatch):

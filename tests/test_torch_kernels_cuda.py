@@ -23,7 +23,9 @@ at atol 2e-4 / rtol 1e-4 (tests/test_flash_attention.py's bounds); bf16
 gradients within 2e-2 of their largest magnitude. The residual add +
 LayerNorm: the sum bitwise, the normalised rows within one bf16 ulp of the
 row's largest magnitude (f32: 1e-5), the row sums being taken in another
-order.
+order. The qkv pass (``ops.linear.qkv_heads``): q and unpooled k, v
+bitwise, pooled k, v within one bf16 ulp of each value (f32: 1e-6 of the
+largest magnitude), the pool's f32 sum being taken in another order.
 """
 import os
 import re
@@ -33,11 +35,13 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from counterfactualworldmodels_tpu_torch import kernels
 from counterfactualworldmodels_tpu_torch.models.raft import corr
 from counterfactualworldmodels_tpu_torch.ops import flash_attention as fa
 from counterfactualworldmodels_tpu_torch.ops import layer_norm as ln
+from counterfactualworldmodels_tpu_torch.ops import linear as lin
 
 pytestmark = pytest.mark.cuda
 
@@ -571,12 +575,196 @@ def test_add_layer_norm_takes_views_and_refuses_what_it_does_not_take(dev):
         assert ln.add_layer_norm(x, x, one, zero)[1].shape == x.shape
 
 
-def test_engine_norms_run_the_kernel(dev):
+# (case, S, N, heads, d, pool, grid, q bias, v bias, dtype): the cf decoder
+# suffix at its benchmark shape (pool 4 over the 56 x 56 grid) and the imu
+# one (unpooled), then small rows of every route: f32, a head dim of 32
+# without q's bias, pool 2 without either bias, pool 3 (the pool read at
+# run time), head dims 12 and 20 (single-element chunks)
+_QKV_CASES = [
+    ('cf decoder suffix', 256, 3136, 8, 64, 4, (56, 56), True, True,
+     torch.bfloat16),
+    ('imu decoder suffix', 256, 3200, 6, 64, 1, None, True, True,
+     torch.bfloat16),
+    ('f32 pooled', 3, 3136, 8, 64, 4, (56, 56), True, True, torch.float32),
+    ('f32 unpooled', 3, 40, 16, 64, 1, None, True, True, torch.float32),
+    ('d32 no q bias', 4, 50, 4, 32, 1, None, False, True, torch.bfloat16),
+    ('pool2 no bias', 2, 24, 4, 16, 2, (4, 6), False, False,
+     torch.bfloat16),
+    ('pool3', 2, 36, 2, 16, 3, (6, 6), True, True, torch.bfloat16),
+    ('d12', 2, 33, 3, 12, 1, None, True, True, torch.bfloat16),
+    ('d20 f32 pool2', 2, 16, 2, 20, 2, (4, 4), True, True, torch.float32),
+]
+
+
+def _pooled_close(got, want):
+    if want.dtype == torch.float32:
+        tol = 1e-6 * float(want.abs().max())
+        return float((got - want).abs().max()) <= tol
+    return bool(((got.float() - want.float()).abs()
+                 <= _bf16_ulp_each(want)).all())
+
+
+def _bf16_ulp_each(a):
+    """One bf16 ulp of each value's magnitude."""
+    m = a.float().abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+@pytest.mark.parametrize('case', [c[0] for c in _QKV_CASES])
+def test_qkv_heads_kernel_matches_plain(dev, case):
+    """The kernel against its plain version in one launch: q and unpooled
+    k, v bitwise, pooled k, v within the module's tolerance."""
+    (_, s, n, heads, d, pool, grid, has_q, has_v,
+     dtype) = next(c for c in _QKV_CASES if c[0] == case)
+    g = torch.Generator(device=dev).manual_seed(13)
+    a = heads * d
+    qkv = (2 * torch.randn(s, n, 3 * a, device=dev, generator=g)).to(dtype)
+    q_bias = (torch.randn(a, device=dev, generator=g).to(dtype)
+              if has_q else None)
+    v_bias = (torch.randn(a, device=dev, generator=g).to(dtype)
+              if has_v else None)
+    scale = d ** -0.5
+    before = kernels.LAUNCHES['qkv_heads']
+    got = lin.qkv_heads(qkv, q_bias, v_bias, heads, scale, pool, grid)
+    assert kernels.LAUNCHES['qkv_heads'] == before + 1
+    want = lin._qkv_heads_plain(qkv, q_bias, v_bias, heads, scale, pool,
+                                grid)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert x.is_contiguous()
+    assert torch.equal(got[0], want[0])
+    for x, y in zip(got[1:], want[1:]):
+        assert torch.equal(x, y) if pool == 1 else _pooled_close(x, y), case
+
+
+def test_qkv_heads_takes_views_and_refuses_what_it_does_not_take(dev):
+    """An unaligned view runs the kernel's single-element route; zero
+    samples launch nothing; other dtypes, a bias of another dtype or width,
+    a grid that does not pool, and a gradient asked for raise."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    buf = torch.randn(2 * 10 * 96 + 1, device=dev,
+                      generator=g).to(torch.bfloat16)
+    qkv = buf[1:].view(2, 10, 96)
+    qb, vb = (torch.randn(32, device=dev, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    got = lin.qkv_heads(qkv, qb, vb, 2, 0.25)
+    want = lin._qkv_heads_plain(qkv, qb, vb, 2, 0.25)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    before = kernels.LAUNCHES['qkv_heads']
+    q, k, v = lin.qkv_heads(qkv[:0], qb, vb, 2, 0.25)
+    assert q.shape == (0, 2, 10, 16)
+    assert kernels.LAUNCHES['qkv_heads'] == before
+    with pytest.raises(ValueError, match='not supported'):
+        lin.qkv_heads(qkv.half(), None, None, 2, 0.25)
+    with pytest.raises(ValueError, match='q_bias'):
+        lin.qkv_heads(qkv, qb.float(), vb, 2, 0.25)
+    with pytest.raises(ValueError, match='v_bias'):
+        lin.qkv_heads(qkv, qb, vb[:16], 2, 0.25)
+    with pytest.raises(ValueError, match='not'):
+        lin.qkv_heads(qkv[:, :, :95], None, None, 2, 0.25)
+    with pytest.raises(ValueError, match='pool'):
+        lin.qkv_heads(qkv, qb, vb, 2, 0.25, 2, (2, 5))
+    x = torch.zeros(2, 16, 96, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match='no backward'):
+        lin.qkv_heads(x, None, None, 2, 0.25)
+    with torch.no_grad():
+        assert lin.qkv_heads(x, None, None, 2, 0.25, 2, (4, 4))[1].shape == (
+            2, 2, 4, 16)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_linear_gelu_epilogue_is_the_tanh_form_on_the_card(dev, dtype):
+    """On the card ``linear_gelu(..., 'tanh')`` is cuBLASLt's GELU_BIAS
+    epilogue: the tanh GELU of the product with its bias, and 'none' the
+    erf form; ``linear`` is the product with its bias. f32 within 1e-5, and
+    farther than 1e-4 from the other form (the two differ by up to 4.7e-4,
+    under a bf16 ulp at these magnitudes); bf16 within 2 bf16 ulps of the
+    pre-activation and of the value (it rounds once in the epilogue, twice
+    in the composition) and 1e-4 (where the product cancels its bias, the
+    f32 sums' order shows: 512 terms of magnitude ~0.04)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(300, 512, device=dev, generator=g).to(dtype)
+    w = (0.05 * torch.randn(512, 2048, device=dev, generator=g)).to(dtype)
+    b = torch.randn(2048, device=dev, generator=g).to(dtype)
+    pre = torch.addmm(b.float(), x.float(), w.float())
+
+    def close(got, want):
+        if dtype == torch.float32:
+            return _err(got, want) <= 1e-5
+        tol = 2 * (_bf16_ulp_each(pre) + _bf16_ulp_each(want)) + 1e-4
+        return bool(((got.float() - want).abs() <= tol).all())
+
+    for approximate in ('tanh', 'none'):
+        got = lin.linear_gelu(x, w, b, approximate)
+        assert got.dtype == dtype and got.shape == (300, 2048)
+        want = F.gelu(pre, approximate=approximate)
+        assert close(got, want), approximate
+        if dtype == torch.float32:
+            other = F.gelu(pre, approximate='none' if approximate == 'tanh'
+                           else 'tanh')
+            assert _err(got, other) > 1e-4, approximate
+    assert close(lin.linear(x, w, b), pre)
+
+
+@pytest.mark.parametrize('rung', ['cf pooled tanh', 'imu exact erf'])
+def test_suffix_block_on_the_card_matches_the_cpu(dev, rung):
+    """fast_vmae.suffix_block_one at the decoder suffixes' widths in f32
+    (TF32 off), S 2, from the same weights and inputs on the card and on
+    the CPU: the cf decoder (512 wide, 8 heads, the 56 x 56 grid, a pooled
+    prefix of 196 keys weighted 16, own keys pooled 4, tanh) and the imu
+    decoder (384 wide, 6 heads, 3200 rows, 3136 prefix keys, erf). The
+    stream and the pending MLP output within 1e-4 of their largest
+    magnitude; on the card one qkv pass and one K2 launch."""
+    from counterfactualworldmodels_tpu_torch.models import fast_vmae
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dim, heads, n, n0, pool, pw, gelu = (
+        (512, 8, 3136, 196, 4, 16.0, 'tanh') if rung == 'cf pooled tanh'
+        else (384, 6, 3200, 3136, 1, 1.0, 'erf'))
+    g = torch.Generator().manual_seed(16)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+
+    p = {'norm1': {'scale': 1 + 0.1 * r(dim), 'bias': 0.1 * r(dim)},
+         'norm2': {'scale': 1 + 0.1 * r(dim), 'bias': 0.1 * r(dim)},
+         'attn': {'qkv_kernel': r(dim, 3 * dim, scale=dim ** -0.5),
+                  'q_bias': 0.1 * r(dim), 'v_bias': 0.1 * r(dim),
+                  'proj': {'kernel': r(dim, dim, scale=dim ** -0.5),
+                           'bias': 0.1 * r(dim)}},
+         'mlp': {'fc1': {'kernel': r(dim, 4 * dim, scale=dim ** -0.5),
+                         'bias': 0.1 * r(4 * dim)},
+                 'fc2': {'kernel': r(4 * dim, dim, scale=(4 * dim) ** -0.5),
+                         'bias': 0.1 * r(dim)}}}
+    d = dim // heads
+    kv0 = (r(1, heads, n0, d), r(1, heads, n0, d))
+    h, m = r(2, n, dim), r(2, n, dim, scale=0.5)
+    outs = {}
+    for where in ('cpu', dev):
+        def to(t, where=where):
+            if isinstance(t, dict):
+                return {k: to(v) for k, v in t.items()}
+            return t.to(where)
+        kernels.reset_launches()
+        out = fast_vmae.suffix_block_one(
+            to(p), tuple(to(t) for t in kv0), to(h), heads,
+            prefix_weight=pw, suffix_pool=pool,
+            grid=(56, 56) if pool > 1 else None, gelu=gelu, r=to(m))
+        outs[str(where)] = ([t.cpu() for t in out], dict(kernels.LAUNCHES))
+    (cpu, lc), (card, lg) = outs['cpu'], outs['cuda']
+    assert not any(lc.values())
+    assert (lg['qkv_heads'], lg['flash_attention_prefix']) == (1, 1)
+    for a, b in zip(cpu, card):
+        assert _err(a, b) <= 1e-4 * float(a.abs().max()), rung
+
+
+def _tiny_engine_runs(dev):
     """The shared-prefix engine at the tiny configuration in f32 (TF32
-    off), card against CPU: frame-1 predictions within 1e-4; one LayerNorm
-    launch per norm, the residual add before it folded in: 4 Le + 4 Ld + 3
-    for a new scene, 2 Le + 2 Ld + 2 on a cached prefix (147 and 74 at
-    ViT-L, Le 24 and Ld 12)."""
+    off), on the CPU and on the card: a new scene (its prefix, then a
+    pooled tanh suffix pass) and the cached prefix (an exact suffix pass).
+    {device: (cold output, warm output, cold launches, warm launches)} and
+    the model."""
     from counterfactualworldmodels_tpu_torch.models import fast_vmae, vmae
     from counterfactualworldmodels_tpu_torch.utils import weights
     torch.backends.cudnn.allow_tf32 = False
@@ -593,7 +781,6 @@ def test_engine_norms_run_the_kernel(dev):
     mask1 = torch.from_numpy(rng.rand(3, 64) > 0.1)
     vis = fast_vmae.pad_vis1_idx(mask1, fast_vmae.sfx_bucket(
         int((~mask1).sum(-1).max()), 64))
-    le, ld = model.encoder_depth, model.decoder_depth
     outs = {}
     for d in ('cpu', dev):
         fp = fast_vmae.stack_vmae_params(model, sd, dtype=torch.float32,
@@ -603,16 +790,52 @@ def test_engine_norms_run_the_kernel(dev):
         cold = fast_vmae.predict_frame1_from_prefix(
             model, fp, cache, x1.to(d), vis.to(d), prefix_pool=2,
             suffix_pool=2, gelu='tanh')
-        n_cold = kernels.LAUNCHES['add_layer_norm']
+        n_cold = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
         warm = fast_vmae.predict_frame1_from_prefix(
             model, fp, cache, x1.to(d), vis.to(d))
         outs[str(d)] = (cold.cpu(), warm.cpu(), n_cold,
-                        kernels.LAUNCHES['add_layer_norm'] - n_cold)
+                        dict(kernels.LAUNCHES))
+    return outs, model
+
+
+def test_engine_norms_run_the_kernel(dev):
+    """The shared-prefix engine at the tiny configuration in f32 (TF32
+    off), card against CPU: frame-1 predictions within 1e-4; one LayerNorm
+    launch per norm, the residual add before it folded in: 4 Le + 4 Ld + 3
+    for a new scene, 2 Le + 2 Ld + 2 on a cached prefix (147 and 74 at
+    ViT-L, Le 24 and Ld 12)."""
+    outs, model = _tiny_engine_runs(dev)
+    le, ld = model.encoder_depth, model.decoder_depth
     (cc, cw, cn, cwn), (gc, gw, gn, gwn) = outs['cpu'], outs['cuda']
-    assert cn == cwn == 0
-    assert (gn, gwn) == (_cold_norms(le, ld), _warm_norms(le, ld))
+    assert cn['add_layer_norm'] == cwn['add_layer_norm'] == 0
+    assert (gn['add_layer_norm'], gwn['add_layer_norm']) == (
+        _cold_norms(le, ld), _warm_norms(le, ld))
     assert _cold_norms(24, 12) == 147 and _warm_norms(24, 12) == 74
     assert max(_err(cc, gc), _err(cw, gw)) <= 1e-4
+
+
+def _cold_qkv(le, ld):
+    """qkv passes of one shared-prefix dispatch on a new scene: one a
+    block, the prefix's and the suffix's."""
+    return 2 * (le + ld)
+
+
+def test_engine_qkv_runs_the_kernel(dev):
+    """The same runs: one qkv_heads launch a block, pooled or not, 2 (Le +
+    Ld) for a new scene and Le + Ld on a cached prefix (72 and 36 at
+    ViT-L), none on the CPU; beside each, the block's one attention
+    launch."""
+    outs, model = _tiny_engine_runs(dev)
+    le, ld = model.encoder_depth, model.decoder_depth
+    (_, _, cn, cwn), (_, _, gn, gwn) = outs['cpu'], outs['cuda']
+    assert cn['qkv_heads'] == cwn['qkv_heads'] == 0
+    assert (gn['qkv_heads'], gwn['qkv_heads']) == (_cold_qkv(le, ld),
+                                                   le + ld)
+    for n in (gn, gwn):
+        assert n['qkv_heads'] == (n['flash_attention']
+                                  + n['flash_attention_prefix'])
+    assert _cold_qkv(24, 12) == 72
 
 
 def test_flash_attention_prefix_refuses_a_gradient_on_the_card(dev):
@@ -695,7 +918,7 @@ def test_flow_generator_on_the_card_matches_the_cpu(dev, engine):
         want = dict(flash_attention=depth, flash_attention_prefix=3 * depth,
                     window_lookup=3 * 2,
                     add_layer_norm=_cold_norms(le, ld)
-                    + 2 * _warm_norms(le, ld))
+                    + 2 * _warm_norms(le, ld), qkv_heads=4 * depth)
     else:
         # apply_vmae per chunk (K1 in every block)
         want = dict(flash_attention=3 * depth, window_lookup=3 * 2)
@@ -847,13 +1070,18 @@ def test_imu_generator_on_the_card_matches_the_cpu(dev, engine,
     from counterfactualworldmodels_tpu_torch.models import fast_vmae
     from counterfactualworldmodels_tpu_torch.pipelines.imu import (
         ImuConditionedFlowGenerator)
-    norm_calls = []
-    real_norm = fast_vmae.add_layer_norm
+    norm_calls, qkv_calls = [], []
+    real_norm, real_qkv = fast_vmae.add_layer_norm, fast_vmae.qkv_heads
 
     def counted_norm(*args, **kwargs):
         norm_calls.append(args[0].device.type)
         return real_norm(*args, **kwargs)
+
+    def counted_qkv(*args, **kwargs):
+        qkv_calls.append(args[0].device.type)
+        return real_qkv(*args, **kwargs)
     monkeypatch.setattr(fast_vmae, 'add_layer_norm', counted_norm)
+    monkeypatch.setattr(fast_vmae, 'qkv_heads', counted_qkv)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(4)
@@ -880,11 +1108,12 @@ def test_imu_generator_on_the_card_matches_the_cpu(dev, engine,
     # chunks: fast, the prefix once (4 main blocks) and K2 in both encoder
     # and both decoder blocks per chunk; exact, the predictor's 8 blocks
     # per chunk
-    norms = norm_calls.count('cuda')
+    norms, qkvs = norm_calls.count('cuda'), qkv_calls.count('cuda')
     assert norms == norm_calls.count('cpu')
-    assert (norms > 0) == (engine == 'fast')
+    assert qkvs == qkv_calls.count('cpu')
+    assert (norms > 0) == (qkvs > 0) == (engine == 'fast')
     want = (dict(flash_attention=8 + 4, flash_attention_prefix=2 * 4,
-                 window_lookup=4 + 4, add_layer_norm=norms)
+                 window_lookup=4 + 4, add_layer_norm=norms, qkv_heads=qkvs)
             if engine == 'fast' else
             dict(flash_attention=8 + 16, window_lookup=4 + 4))
     assert lg == dict({k: 0 for k in lg}, **want), lg
@@ -1003,7 +1232,8 @@ def test_service_fast_route_on_the_card_matches_the_cpu(dev, monkeypatch):
                       flash_attention_prefix=2 * depth,
                       window_lookup=2 * 2,
                       add_layer_norm=_cold_norms(le, ld)
-                      + (2 * le + 2 * ld + 1) + _warm_norms(le, ld)), lg
+                      + (2 * le + 2 * ld + 1) + _warm_norms(le, ld),
+                      qkv_heads=4 * depth), lg
 
 
 # head dims the kernels run padded (zero columns up to 16, 32 or 64): the
